@@ -1,0 +1,43 @@
+"""Adversarial and variational auxiliary networks, port of the
+LinearDiscriminator and ClubNet of carel_tpu/models/discriminators.py.
+
+- LinearDiscriminator: the GAN variant's cross-latent adversaries (ec_disc /
+  ce_disc, drl_classifier_ec_gan.py:168-169): dropout then one linear layer.
+- ClubNet: the VI variant's conditional approximation network p(e|c)
+  (drl_classifier_ec_vi_final.py:153-161): linear-relu-linear for mu and
+  linear-relu-linear-tanh for log_var.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class LinearDiscriminator(nn.Module):
+    def __init__(self, in_dim: int, num_classes: int = 1,
+                 dropout: float = 0.5):
+        super().__init__()
+        self.dropout = dropout
+        self.disc = nn.Linear(in_dim, num_classes)
+
+    def forward(self, z: torch.Tensor, deterministic: bool = True):
+        return self.disc(F.dropout(z, self.dropout,
+                                   training=not deterministic))
+
+
+class ClubNet(nn.Module):
+    """Approximation network for the CLUB-style upper bound."""
+
+    def __init__(self, ec_dim: int = 24):
+        super().__init__()
+        self.mu_in = nn.Linear(ec_dim, ec_dim)
+        self.mu_out = nn.Linear(ec_dim, ec_dim)
+        self.lv_in = nn.Linear(ec_dim, ec_dim)
+        self.lv_out = nn.Linear(ec_dim, ec_dim)
+
+    def forward(self, cause_emb: torch.Tensor):
+        mu = self.mu_out(F.relu(self.mu_in(cause_emb)))
+        log_var = torch.tanh(self.lv_out(F.relu(self.lv_in(cause_emb))))
+        return mu, log_var

@@ -1,0 +1,108 @@
+"""DrlModel: the two-latent disentangled VAE pair classifier, port of
+carel_tpu/models/drl.py (the reference's DrlClassifier, flagship :149-343).
+
+One module covers the variants; the regularizer-specific sub-networks (GAN
+discriminators, CLUB net) are always present but only trained when the config
+selects them. Outputs are raw tensors under the JAX package's keys; the
+losses live in carel_tpu_torch.losses. The stop-gradient inputs of the
+discriminator and CLUB outputs (``*_sg``) are ``.detach()``-ed latents.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from carel_tpu_torch.config import AdapterKind, ModelConfig
+from carel_tpu_torch.models.discriminators import ClubNet, LinearDiscriminator
+from carel_tpu_torch.models.encoder import TransformerEncoder
+from carel_tpu_torch.models.heads import VaeHeads, sample_prior
+
+
+class DrlModel(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.adapter != AdapterKind.NONE:
+            raise NotImplementedError(
+                f"adapter {cfg.adapter.value!r} is not ported yet (ROADMAP "
+                "Queue 1: adapters); carel_tpu_torch runs adapter=none")
+        self.cfg = cfg
+        self.encoder = TransformerEncoder(cfg.encoder)
+        self.heads = VaeHeads(cfg)
+        # GAN cross adversaries (ec_gan :168-169) and the CLUB net
+        # (vi_final :153-161)
+        self.ec_disc = LinearDiscriminator(cfg.ec_dim, 1, cfg.dropout)
+        self.ce_disc = LinearDiscriminator(cfg.ec_dim, 1, cfg.dropout)
+        self.club = ClubNet(cfg.ec_dim)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        token_type_ids: torch.Tensor,
+        deterministic: bool = True,
+        sample: bool = True,
+        compute_recon: bool = True,
+        eps: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """``eps`` = (eps_emotion, eps_cause) fixes the sampling noise;
+        otherwise it is drawn from ``generator``. compute_recon=False skips
+        the decoder product: the fused BoW loss consumes generative_emb and
+        the decoder weights directly."""
+        cfg = self.cfg
+        _, pooled = self.encoder(input_ids, attention_mask, token_type_ids,
+                                 deterministic=deterministic)
+        feat = pooled.float()
+        e_mu, e_lv, c_mu, c_lv = self.heads.latent_params(feat, feat)
+
+        if sample:
+            eps_e, eps_c = eps if eps is not None else (None, None)
+            z_e = sample_prior(e_mu, e_lv, cfg.compat_sampling, eps_e,
+                               generator)
+            z_c = sample_prior(c_mu, c_lv, cfg.compat_sampling, eps_c,
+                               generator)
+        else:
+            z_e, z_c = e_mu, c_mu
+
+        pair_emb = torch.cat([z_e, z_c], dim=-1)
+        heads = self.heads
+        out = {
+            "emotion_mu": e_mu,
+            "emotion_log_var": e_lv,
+            "cause_mu": c_mu,
+            "cause_log_var": c_lv,
+            "z_emotion": z_e,
+            "z_cause": z_c,
+            "generative_emb": pair_emb,
+            "emotion_logits": heads.emotion_logits(z_e, deterministic),
+            "cause_logits": heads.cause_logits(z_c, deterministic),
+            "pair_logits": heads.pair_logits(pair_emb, deterministic),
+        }
+        if compute_recon:
+            out["recon_logits"] = heads.decode(pair_emb)
+
+        # GAN adversaries: the discriminator loss sees detached latents; the
+        # encoder's entropy loss sees the live latents
+        out["ec_disc_logits_sg"] = self.ec_disc(z_c.detach(), deterministic)
+        out["ce_disc_logits_sg"] = self.ce_disc(z_e.detach(), deterministic)
+        out["ec_disc_logits"] = self.ec_disc(z_c, deterministic)
+        out["ce_disc_logits"] = self.ce_disc(z_e, deterministic)
+        # CLUB net on the detached cause latent (trains only the club) and on
+        # the live latent (the upper bound)
+        out["club_mu_sg"], out["club_lv_sg"] = self.club(z_c.detach())
+        out["club_mu"], out["club_lv"] = self.club(z_c)
+        return out
+
+    def pair_probabilities(self, input_ids, attention_mask, token_type_ids,
+                           sample: bool = True,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+        """Eval-time pair probabilities (get_pair_preds, flagship :265-282);
+        the reference re-samples the latents at prediction time."""
+        out = self(input_ids, attention_mask, token_type_ids,
+                   deterministic=True, sample=sample, compute_recon=False,
+                   generator=generator)
+        return torch.sigmoid(out["pair_logits"][:, 0])

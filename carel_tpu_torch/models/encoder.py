@@ -1,0 +1,167 @@
+"""Transformer encoder (BERT/RoBERTa family), port of carel_tpu/models/encoder.py.
+
+Kept from the JAX encoder:
+
+- BERT positions, and RoBERTa positions ``cumsum(mask) * mask + pad_id``;
+- token-type embeddings, the embeddings LayerNorm (eps 1e-12);
+- the -1e9 additive mask bias, in fp32;
+- a fused qkv projection whose output is laid out (3, heads, head_dim);
+- attention as plain ops: fp32 scores, softmax, dropout on the
+  probabilities, probabilities @ values;
+- exact-erf GELU, post-LN residuals, and a dense+tanh pooler over [CLS].
+
+With ``dtype="bfloat16"`` the encoder runs under bf16 autocast with LayerNorm
+in fp32 and its outputs cast back to bf16, as the JAX encoder computes matmuls
+in bf16 with fp32 params. Parameters start from Flax's initialisers
+(``init_flax_``), so a run from random init starts from the JAX package's
+distribution.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from carel_tpu_torch.config import EncoderConfig
+
+# std of a standard normal truncated to [-2, 2]; Flax's lecun_normal divides
+# by it so the truncated draw keeps variance 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_flax_(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every Linear, Embedding and LayerNorm under ``module`` as
+    Flax does: lecun-normal (truncated) Dense kernels and zero biases, the
+    nn.Embed default N(0, 1/features), LayerNorm ones and zeros."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, math.sqrt(1.0 / m.embedding_dim),
+                             generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_dim // cfg.num_heads
+        self.dropout = cfg.dropout
+        self.qkv = nn.Linear(cfg.hidden_dim, 3 * cfg.hidden_dim)
+        self.out = nn.Linear(cfg.hidden_dim, cfg.hidden_dim)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                deterministic: bool) -> torch.Tensor:
+        B, L, D = x.shape
+        qkv = self.qkv(x).view(B, L, 3, self.num_heads, self.head_dim)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, h, L, hd]
+        scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(self.head_dim)
+        probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+        probs = F.dropout(probs, self.dropout, training=not deterministic)
+        ctx = (probs @ v).transpose(1, 2).reshape(B, L, D)
+        return self.out(ctx)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.dropout = cfg.dropout
+        self.attention = SelfAttention(cfg)
+        self.attention_ln = nn.LayerNorm(cfg.hidden_dim, eps=cfg.layer_norm_eps)
+        self.mlp_in = nn.Linear(cfg.hidden_dim, cfg.mlp_dim)
+        self.mlp_out = nn.Linear(cfg.mlp_dim, cfg.hidden_dim)
+        self.mlp_ln = nn.LayerNorm(cfg.hidden_dim, eps=cfg.layer_norm_eps)
+
+    def forward(self, x, bias, deterministic: bool, dtype: torch.dtype):
+        training = not deterministic
+        attn = F.dropout(self.attention(x, bias, deterministic), self.dropout,
+                         training=training)
+        x = self.attention_ln(x + attn).to(dtype)
+        mlp = self.mlp_out(F.gelu(self.mlp_in(x)))
+        mlp = F.dropout(mlp, self.dropout, training=training)
+        return self.mlp_ln(x + mlp).to(dtype)
+
+
+class TransformerEncoder(nn.Module):
+    """BERT-style encoder returning (last_hidden_state, pooler_output)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_dim
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
+        self.position_embeddings = nn.Embedding(cfg.max_position, d)
+        self.token_type_embeddings = (
+            nn.Embedding(cfg.type_vocab_size, d)
+            if cfg.type_vocab_size > 0 else None)
+        self.embeddings_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.pooler = nn.Linear(d, d)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,  # [B, L] int
+        attention_mask: torch.Tensor,  # [B, L] int/float
+        token_type_ids: Optional[torch.Tensor] = None,  # [B, L] int
+        deterministic: bool = True,
+    ):
+        cfg = self.cfg
+        bf16 = cfg.dtype == "bfloat16"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        B, L = input_ids.shape
+        input_ids = input_ids.long()
+        with torch.autocast(device_type=input_ids.device.type,
+                            dtype=torch.bfloat16, enabled=bf16):
+            if cfg.arch == "roberta":
+                # HF RoBERTa position ids: pads get pad_token_id; real tokens
+                # count from pad_token_id + 1
+                mask = attention_mask.long()
+                positions = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
+            else:
+                positions = torch.arange(L, device=input_ids.device)[None, :]
+            x = self.word_embeddings(input_ids) + \
+                self.position_embeddings(positions)
+            if self.token_type_embeddings is not None:
+                if token_type_ids is None:
+                    token_type_ids = torch.zeros_like(input_ids)
+                x = x + self.token_type_embeddings(token_type_ids.long())
+            x = self.embeddings_ln(x).to(dtype)
+            x = F.dropout(x, cfg.dropout, training=not deterministic)
+
+            # additive mask bias, fp32 so the softmax stays stable
+            bias = (1.0 - attention_mask.float()) * -1e9
+            bias = bias[:, None, None, :]
+            for layer in self.layers:
+                x = layer(x, bias, deterministic, dtype)
+            pooled = torch.tanh(self.pooler(x[:, 0]))
+        return x, pooled
+
+
+def tiny_encoder_config(vocab_size: int = 512, **kw) -> EncoderConfig:
+    """A 2-layer toy encoder for CPU-runnable tests and smoke training."""
+    defaults = dict(
+        vocab_size=vocab_size,
+        hidden_dim=64,
+        num_layers=2,
+        num_heads=4,
+        mlp_dim=128,
+        max_position=160,
+        type_vocab_size=2,
+        dropout=0.1,
+        dtype="float32",
+    )
+    defaults.update(kw)
+    return EncoderConfig(**defaults)

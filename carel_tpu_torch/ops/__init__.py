@@ -1,0 +1,23 @@
+"""Ops: plain PyTorch statistics and losses, and the hand-written CUDA
+kernels that replace the JAX package's Pallas kernels.
+
+- ``pairwise`` / ``bow_recon``: plain versions (run on the CPU, and the
+  yardstick the kernels are held against);
+- ``cuda_pairwise``: fused MMD^2, kernels K1 (forward) and K2 (backward);
+- ``cuda_bow``: fused BoW decoder loss, kernels K3 (forward) and K4
+  (backward);
+- ``native``: builds ``csrc/*.cu`` with nvcc at first use and loads it.
+"""
+
+from carel_tpu_torch.ops import cuda_bow, cuda_pairwise
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last ``reset_launch_counts``."""
+    return {**cuda_pairwise.launches, **cuda_bow.launches}
+
+
+def reset_launch_counts() -> None:
+    for counts in (cuda_pairwise.launches, cuda_bow.launches):
+        for name in counts:
+            counts[name] = 0

@@ -1,0 +1,195 @@
+"""End-to-end pipeline assembly: config -> datasets -> sized config -> train
+state. Port of carel_tpu/pipeline.py.
+
+Resolves corpus paths exactly like the reference entry points
+(drl_classifier_ec_mmd_final_mul.py:939-948 for the old split,
+newsplit :1205-1227 for the new split + predicted-emotion test files), builds
+the tokenizer/BoW/arrays, and sizes the model config to them. Ported for zh;
+en ingest, self-chain pair construction and pretrained encoders wait for
+later slices and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import random
+import uuid
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from carel_tpu_torch.config import CarelConfig, EncoderConfig
+from carel_tpu_torch.data.batching import PairArrays, encode_pairs
+from carel_tpu_torch.data.bow import BowVocab, build_bow_vocab_zh
+from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+from carel_tpu_torch.data.pairs import PairSet, build_pairs
+from carel_tpu_torch.data.tokenizer import BaseTokenizer, build_tokenizer
+from carel_tpu_torch.device import resolve_device
+from carel_tpu_torch.models.drl import DrlModel
+from carel_tpu_torch.models.encoder import init_flax_
+from carel_tpu_torch.train.state import TrainState, create_train_state
+
+
+def resolve_paths(cfg: CarelConfig) -> Tuple[str, str, str]:
+    """(train_path, test_path, bow_path) per language/split flags; explicit
+    data.train_file / data.test_file override the convention."""
+    d = cfg.data
+    root = d.data_root
+
+    def j(*parts):
+        return os.path.join(root, *parts)
+
+    if d.train_file and d.test_file:
+        default_bow = ("data/all_data_pair_zh.txt" if d.language == "zh"
+                       else "data/all_data_pair_en.txt")
+        return (d.train_file, d.test_file, d.bow_file or j(default_bow))
+
+    if d.language == "zh":
+        train_dir = "data/ECPE_new_dataset" if d.newsplit else "domains/THUCTC_multiple"
+        train_path = j(train_dir, f"{d.source_domain}.txt")
+        if d.self_chain:
+            # self-chain trainer reads both sides from THUCTC_multiple
+            # (drl_classifier_ec_mmd_self_chain.py:1028-1031)
+            test_path = j("domains/THUCTC_multiple", f"{d.target_domain}.txt")
+        elif d.newsplit:
+            if d.predicted_emotion:
+                test_path = j("pair_data/predicted_emotion",
+                              f"source_{d.source_domain}",
+                              f"{d.target_domain}.txt")
+            else:
+                test_path = j("data/ECPE_new_dataset",
+                              f"{d.target_domain}_test.txt")
+        else:
+            test_path = j("pair_data/emotion", f"{d.target_domain}.txt")
+        bow_path = d.bow_file or j("data/all_data_pair_zh.txt")
+    else:
+        train_path = j("domains/Englishnovel_multiple", f"{d.source_domain}.txt")
+        if d.predicted_emotion:
+            test_path = j("pair_data/predicted_emotion",
+                          f"source_{d.source_domain}", f"{d.target_domain}.txt")
+        elif d.bow_optimize:
+            test_path = j("pair_data/emotion", f"{d.target_domain}_optimize.txt")
+        else:
+            test_path = j("pair_data/emotion", f"{d.target_domain}.txt")
+        default_bow = ("data/ecpe_and_reccon_all_data_pair_en.txt"
+                       if d.newsplit else "data/all_data_pair_en.txt")
+        bow_path = d.bow_file or j(default_bow)
+    return (d.train_file or train_path, d.test_file or test_path, bow_path)
+
+
+@dataclass
+class Pipeline:
+    cfg: CarelConfig  # sized: vocab, bow_dim and max_len set from the data
+    model_id: str
+    tokenizer: BaseTokenizer
+    bow: BowVocab
+    train_pairs: PairSet
+    test_pairs: PairSet
+    train_arrays: PairArrays
+    test_arrays: PairArrays
+    num_unpred_pairs: int
+
+    def encode(self, pair_set: PairSet) -> PairArrays:
+        return encode_pairs(pair_set, self.tokenizer, self.bow,
+                            self.cfg.data.max_len)
+
+
+def fit_max_len(tokenizer, texts, cap: int = 128, floor: int = 32) -> int:
+    """Smallest multiple-of-16 window covering every text, in [floor, cap]
+    (zero truncation relative to the reference's fixed 128-token window,
+    flagship :35)."""
+    probe = tokenizer.encode_batch(list(texts), cap)
+    observed = int(probe.attention_mask.sum(axis=1).max())
+    return min(cap, max(floor, -(-observed // 16) * 16))
+
+
+def build_pipeline(
+    cfg: CarelConfig,
+    cache_dir: str = ".carel_cache",
+    encoder_cfg: Optional[EncoderConfig] = None,
+    max_train_docs: int = 0,
+    max_test_docs: int = 0,
+) -> Pipeline:
+    if cfg.data.language != "zh":
+        raise NotImplementedError(
+            f"language {cfg.data.language!r} is not ported to carel_tpu_torch "
+            "yet: only zh runs")
+    if cfg.data.self_chain:
+        raise NotImplementedError(
+            "self-chain pair construction is not ported to carel_tpu_torch "
+            "yet")
+    if cfg.model.pretrained_encoder:
+        raise NotImplementedError(
+            "loading a pretrained encoder is not ported to carel_tpu_torch "
+            "yet (it waits for a local HF checkpoint)")
+    train_path, test_path, bow_path = resolve_paths(cfg)
+
+    train_docs = parse_ecpe_file(train_path)
+    test_docs = parse_ecpe_file(test_path)
+    if max_train_docs:
+        train_docs = train_docs[:max_train_docs]
+    if max_test_docs:
+        test_docs = test_docs[:max_test_docs]
+
+    rng = random.Random(cfg.data.seed)
+    train_pairs = build_pairs(train_docs, test=False, rng=rng)
+    test_pairs = build_pairs(test_docs, test=True, rng=rng)
+
+    bow = build_bow_vocab_zh(bow_path)
+
+    # tokenizer: corpus-built + cached (no network)
+    os.makedirs(cache_dir, exist_ok=True)
+    tok_cache = os.path.join(cache_dir, "tokenizer_zh.json")
+    corpus = None
+    if not os.path.exists(tok_cache):
+        bow_docs = parse_ecpe_file(bow_path)
+        corpus = [c.text for doc in bow_docs for c in doc.clauses]
+    tokenizer = build_tokenizer("zh", corpus, tok_cache)
+
+    enc = dataclasses.replace(encoder_cfg or cfg.model.encoder,
+                              vocab_size=tokenizer.vocab_size)
+    model_cfg = dataclasses.replace(cfg.model, encoder=enc, bow_dim=len(bow))
+    cfg = dataclasses.replace(cfg, model=model_cfg)
+
+    # max_len=0 -> fit the window to the data
+    if cfg.data.max_len == 0:
+        auto_len = fit_max_len(tokenizer,
+                               train_pairs.pairs + test_pairs.pairs)
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, max_len=auto_len))
+
+    return Pipeline(
+        cfg=cfg,
+        model_id=str(uuid.uuid4()),
+        tokenizer=tokenizer,
+        bow=bow,
+        train_pairs=train_pairs,
+        test_pairs=test_pairs,
+        train_arrays=encode_pairs(train_pairs, tokenizer, bow,
+                                  cfg.data.max_len),
+        test_arrays=encode_pairs(test_pairs, tokenizer, bow,
+                                 cfg.data.max_len),
+        num_unpred_pairs=test_pairs.num_unpred_emotions,
+    )
+
+
+def init_state(cfg: CarelConfig, device="cuda",
+               compat_frozen_latent_heads: bool = True) -> TrainState:
+    """Model with Flax-style random init on ``device``, plus its optimizer.
+
+    Seeds, all from cfg.train.seed: the parameters come from a CPU generator
+    (so they do not depend on the device), dropout draws from the device's
+    default generator (seeded here), and the sampling noise from a generator
+    on the device seeded with seed + 1.
+    """
+    device = resolve_device(device)
+    seed = cfg.train.seed
+    torch.manual_seed(seed)
+    model = DrlModel(cfg.model)
+    init_flax_(model, torch.Generator().manual_seed(seed))
+    model.to(device)
+    sample_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return create_train_state(cfg, model, sample_gen,
+                              compat_frozen_latent_heads)

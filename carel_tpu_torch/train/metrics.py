@@ -1,0 +1,41 @@
+"""Evaluation metrics: binary precision/recall/F1 with forced-miss padding.
+
+Port of carel_tpu/train/metrics.py (the reference's metric, flagship
+:868-870, including sklearn's 0-when-undefined convention). The forced-miss
+padding appends one (label=1, pred=0) per emotion clause stage 1 failed to
+predict (flagship :861-865), so pair-F1 accounts for stage-1 recall loss.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def binary_prf(labels: np.ndarray, preds: np.ndarray) -> Tuple[float, float, float]:
+    labels = np.asarray(labels).astype(np.int64).ravel()
+    preds = np.asarray(preds).astype(np.int64).ravel()
+    tp = int(np.sum((preds == 1) & (labels == 1)))
+    fp = int(np.sum((preds == 1) & (labels == 0)))
+    fn = int(np.sum((preds == 0) & (labels == 1)))
+    p = tp / (tp + fp) if (tp + fp) > 0 else 0.0
+    r = tp / (tp + fn) if (tp + fn) > 0 else 0.0
+    f1 = 2 * p * r / (p + r) if (p + r) > 0 else 0.0
+    return p, r, f1
+
+
+def prf_with_forced_misses(
+    labels: np.ndarray,
+    probs: np.ndarray,
+    num_unpred_pairs: int,
+) -> Tuple[float, float, float]:
+    """Round probabilities (numpy's half-to-even, as the reference rounds its
+    float32 sigmoid outputs, flagship :282), append forced misses, compute
+    binary P/R/F1."""
+    preds = np.round(np.asarray(probs)).astype(np.int64)
+    labels = np.asarray(labels).astype(np.int64)
+    if num_unpred_pairs > 0:
+        labels = np.concatenate([labels, np.ones(num_unpred_pairs, np.int64)])
+        preds = np.concatenate([preds, np.zeros(num_unpred_pairs, np.int64)])
+    return binary_prf(labels, preds)

@@ -1,0 +1,135 @@
+"""The port's host loop and CLI: metrics against the JAX package, a CPU run
+of ``python -m carel_tpu_torch.cli train`` on a synthetic zh corpus in the
+newsplit layout, and the entry points' refusal to fall back to the CPU."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from carel_tpu.train.metrics import prf_with_forced_misses as j_prf
+
+from carel_tpu_torch.cli.main import main
+from carel_tpu_torch.config import CarelConfig, DataConfig, ModelConfig
+from carel_tpu_torch.config import TrainConfig
+from carel_tpu_torch.data.batching import PairArrays
+from carel_tpu_torch.models.encoder import tiny_encoder_config
+from carel_tpu_torch.pipeline import init_state
+from carel_tpu_torch.train.loop import train_epochs
+from carel_tpu_torch.train.metrics import prf_with_forced_misses
+from carel_tpu_torch.train.steps import make_train_step
+from tests.test_torch_data import write_newsplit_corpus
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("num_unpred", [0, 7])
+def test_prf_with_forced_misses_matches_jax(num_unpred):
+    rng = np.random.default_rng(num_unpred)
+    labels = rng.integers(0, 2, 200).astype(np.float32)
+    probs = rng.random(200).astype(np.float32)
+    probs[:20] = 0.5  # half-to-even rounding sends these to 0
+    probs[20:30] = np.float32(0.5) + np.finfo(np.float32).eps
+    assert prf_with_forced_misses(labels, probs, num_unpred) == \
+        j_prf(labels, probs, num_unpred)
+
+
+def _train_args(root, tmp):
+    return ["train", "--preset", "ec_mmd_final_mul_newsplit_emnlp",
+            "--data_root", str(root), "--encoder", "tiny", "--epochs", "1",
+            "--batch_size", "16", "--self_iteration", "0",
+            "--cache_dir", str(tmp / "cache"),
+            "--checkpoint_dir", str(tmp / "ckpt"),
+            "--log_dir", str(tmp / "logs")]
+
+
+def test_cli_train_runs_on_cpu(tmp_path):
+    root = tmp_path / "corpus"
+    write_newsplit_corpus(str(root))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-m", "carel_tpu_torch.cli",
+         *_train_args(root, tmp_path), "--device", "cpu"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    assert 0.0 <= summary["best_f1"] <= 1.0
+    assert summary["base_f1"] == summary["best_f1"]
+    logs = list((tmp_path / "logs").glob("*.jsonl"))
+    events = [json.loads(line)["event"] for line in logs[0].read_text()
+              .splitlines()]
+    assert "eval" in events and events[-1] == "base_done"
+    if summary["best_f1"] > 0:
+        assert (tmp_path / "ckpt" / f"{summary['model_id']}_best.pt").exists()
+
+
+def test_train_without_device_flag_needs_a_gpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(_train_args(tmp_path / "corpus", tmp_path))
+    assert not (tmp_path / "cache").exists()  # raised before any work
+
+
+def test_train_refuses_self_training(tmp_path):
+    args = _train_args(tmp_path / "corpus", tmp_path)
+    args[args.index("--self_iteration") + 1] = "50"
+    with pytest.raises(NotImplementedError, match="self-training"):
+        main(args + ["--device", "cpu"])
+
+
+def test_presets_lists_all(capsys):
+    assert main(["presets"]) == 0
+    out = capsys.readouterr().out
+    for name in ["ec_mmd_final_mul_newsplit_emnlp", "ec_gan", "ec_vi_final",
+                 "ec_hsic", "ec_none", "drl_en", "en_newsplit"]:
+        assert name in out
+
+
+def _pair_arrays(rng, n, L=12, vocab=64, bow_dim=40):
+    mask = np.ones((n, L), np.int32)
+    idx = rng.integers(0, bow_dim, (n, 4)).astype(np.int32)
+    return PairArrays(
+        input_ids=rng.integers(2, vocab, (n, L)).astype(np.int32),
+        attention_mask=mask, token_type_ids=np.zeros((n, L), np.int32),
+        pair_labels=(np.arange(n) % 2).astype(np.float32),
+        emotion_labels=rng.integers(0, 6, n).astype(np.int32),
+        temporal_order=np.zeros(n, bool), bow_indices=idx,
+        bow_weights=np.full((n, 4), 0.25, np.float32))
+
+
+@pytest.mark.parametrize("use_cache", [True, False])
+def test_train_epochs_reloads_the_best_params(tmp_path, use_cache):
+    """Epoch 2 of 3 scores best; after the loop the model holds exactly the
+    params that epoch 2 evaluated, from the in-memory cache or from disk."""
+    cfg = CarelConfig(
+        model=ModelConfig(encoder=tiny_encoder_config(vocab_size=64),
+                          ec_dim=8, bow_dim=40),
+        data=DataConfig(max_len=12),
+        train=TrainConfig(batch_size=8, epochs=3, vae_lr=1e-3,
+                          checkpoint_dir=str(tmp_path / "ckpt")))
+    rng = np.random.default_rng(0)
+    train, test = _pair_arrays(rng, 20), _pair_arrays(rng, 10)
+    state = init_state(cfg, "cpu")
+    seen = []
+
+    def scripted_eval(model, batch, generator):
+        seen.append({k: v.clone() for k, v in model.state_dict().items()})
+        labels = batch["pair_labels"]
+        return [torch.ones_like(labels), labels,
+                torch.zeros_like(labels)][len(seen) - 1]
+
+    state, best = train_epochs(cfg, state, make_train_step(cfg),
+                               scripted_eval, train, test, 0, "m",
+                               best_cache={} if use_cache else None)
+    assert best == (1.0, 1.0, 1.0)
+    final = state.model.state_dict()
+    for k, v in seen[1].items():
+        assert torch.equal(final[k], v), k
+    assert any(not torch.equal(seen[2][k], v) for k, v in seen[1].items())
+    assert (tmp_path / "ckpt" / "m_best.pt").exists()

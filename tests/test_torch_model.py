@@ -1,0 +1,127 @@
+"""The port's encoder and DrlModel against the JAX ones, from the same
+weights (carel_tpu_torch.convert), in fp32 at tiny widths with dropout 0.
+Tolerance: atol 1e-5 on every output (both sides compute in fp32; the sums
+run in another order)."""
+
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from carel_tpu.config import ModelConfig as JModelConfig
+from carel_tpu.models.drl import DrlModel as JDrlModel
+from carel_tpu.models.encoder import TransformerEncoder as JEncoder
+from carel_tpu.models.encoder import tiny_encoder_config as j_tiny
+
+from carel_tpu_torch.config import ModelConfig
+from carel_tpu_torch.convert import jax_params_to_state_dict
+from carel_tpu_torch.models.drl import DrlModel
+from carel_tpu_torch.models.encoder import TransformerEncoder, init_flax_
+from carel_tpu_torch.models.encoder import tiny_encoder_config
+from carel_tpu_torch.models.heads import sample_prior
+
+VOCAB, BOW, EC = 128, 64, 8
+
+
+def _configs(arch):
+    kw = dict(vocab_size=VOCAB, dropout=0.0, arch=arch, pad_token_id=1)
+    jc = JModelConfig(encoder=j_tiny(**kw), ec_dim=EC, bow_dim=BOW,
+                      dropout=0.0)
+    tc = ModelConfig(encoder=tiny_encoder_config(**kw), ec_dim=EC,
+                     bow_dim=BOW, dropout=0.0)
+    return jc, tc
+
+
+def _inputs(seed=0, B=4, L=16):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(2, VOCAB, (B, L)).astype(np.int32)
+    mask = np.ones((B, L), np.int32)
+    mask[1, 10:] = 0
+    mask[3, 5:] = 0
+    ids[mask == 0] = 1
+    types = np.zeros((B, L), np.int32)
+    types[:, L // 2:] = 1
+    return ids, mask, types
+
+
+def _np_params(variables):
+    return jax.tree_util.tree_map(np.asarray, variables["params"])
+
+
+@pytest.mark.parametrize("arch", ["bert", "roberta"])
+def test_encoder_matches_jax(arch):
+    jc, tc = _configs(arch)
+    ids, mask, types = _inputs()
+    jenc = JEncoder(jc.encoder)
+    variables = jenc.init(jax.random.key(0), ids, mask, types)
+    j_hidden, j_pooled = jenc.apply(variables, ids, mask, types,
+                                    deterministic=True)
+    tenc = TransformerEncoder(tc.encoder)
+    tenc.load_state_dict(jax_params_to_state_dict(_np_params(variables)))
+    with torch.no_grad():
+        t_hidden, t_pooled = tenc(torch.tensor(ids), torch.tensor(mask),
+                                  torch.tensor(types))
+    np.testing.assert_allclose(t_hidden.numpy(), np.asarray(j_hidden),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(t_pooled.numpy(), np.asarray(j_pooled),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["bert", "roberta"])
+def test_drl_model_matches_jax_on_every_key(arch):
+    jc, tc = _configs(arch)
+    ids, mask, types = _inputs(seed=1)
+    jm = JDrlModel(jc)
+    variables = jm.init({"params": jax.random.key(3),
+                         "sample": jax.random.key(4)}, ids, mask, types)
+    j_out = jm.apply(variables, ids, mask, types, deterministic=True,
+                     sample=False)
+    tm = DrlModel(tc)
+    tm.load_state_dict(jax_params_to_state_dict(_np_params(variables)),
+                       strict=True)
+    with torch.no_grad():
+        t_out = tm(torch.tensor(ids), torch.tensor(mask), torch.tensor(types),
+                   deterministic=True, sample=False)
+    assert set(t_out) == set(j_out)
+    for key in j_out:
+        np.testing.assert_allclose(t_out[key].numpy(), np.asarray(j_out[key]),
+                                   atol=1e-5, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_sample_prior_with_given_eps(compat):
+    rng = np.random.default_rng(5)
+    mu = torch.tensor(rng.normal(size=(6, EC)).astype(np.float32))
+    lv = torch.tensor(rng.normal(size=(6, EC)).astype(np.float32) * 0.3)
+    eps = torch.tensor(rng.normal(size=(EC,) if compat else (6, EC))
+                       .astype(np.float32))
+    z = sample_prior(mu, lv, compat=compat, eps=eps)
+    if compat:  # one shared vector, std exp(log_var)
+        want = mu.numpy() + eps.numpy()[None, :] * np.exp(lv.numpy())
+    else:
+        want = mu.numpy() + eps.numpy() * np.exp(0.5 * lv.numpy())
+    np.testing.assert_allclose(z.numpy(), want, rtol=1e-6)
+
+
+def test_sample_prior_draws_from_generator():
+    mu = torch.zeros(3, EC)
+    lv = torch.zeros(3, EC)
+    a = sample_prior(mu, lv, generator=torch.Generator().manual_seed(0))
+    b = sample_prior(mu, lv, generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(a, b)
+    assert torch.equal(a[0], a[1])  # compat: shared across the batch
+
+
+def test_flax_init_statistics():
+    _, tc = _configs("bert")
+    model = DrlModel(tc)
+    init_flax_(model, torch.Generator().manual_seed(0))
+    w = model.encoder.layers[0].mlp_in.weight.detach()  # [128, 64], fan_in 64
+    assert abs(float(w.std()) - math.sqrt(1 / 64)) < 0.1 * math.sqrt(1 / 64)
+    assert float(w.abs().max()) <= 2.0 * math.sqrt(1 / 64) / 0.8796256610342398
+    emb = model.encoder.word_embeddings.weight.detach()  # N(0, 1/features)
+    assert abs(float(emb.std()) - math.sqrt(1 / 64)) < 0.1 * math.sqrt(1 / 64)
+    assert float(model.heads.decoder.bias.detach().abs().max()) == 0.0
+    assert float((model.encoder.embeddings_ln.weight.detach() - 1).abs().max()) == 0.0

@@ -1,0 +1,146 @@
+"""The port's MMD and BoW ops against the JAX package, and the CUDA kernels
+against their plain versions.
+
+CPU (always): the plain versions against carel_tpu.ops (XLA formulas and the
+Pallas kernels in interpret mode), for values and gradients, with masked rows.
+Tolerances: MMD value rtol 1e-5 and grads normwise rtol 1e-5; BoW values
+rtol 1e-5 and grads rtol 2e-4 / atol 1e-7, the bars of
+tests/test_pallas_bow.py.
+
+The kernels themselves are held against the plain versions on the card in
+tests/test_torch_kernels.py (marked ``cuda``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from carel_tpu.ops.bow_recon import bow_reconstruction_loss as j_bow_recon
+from carel_tpu.ops.pairwise import mmd_statistic as j_mmd
+from carel_tpu.ops.pallas_bow import fused_bow_loss as j_fused_bow
+from carel_tpu.ops.pallas_pairwise import mmd_pallas
+
+from carel_tpu_torch import ops
+from carel_tpu_torch.ops import cuda_bow, cuda_pairwise
+from carel_tpu_torch.ops.bow_recon import bow_reconstruction_loss
+
+
+def _mmd_problem(B=13, d=24, masked=3, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, d)).astype(np.float32)
+    y = (rng.normal(size=(B, d)) * 1.2 + 0.3).astype(np.float32)
+    mask = np.ones(B, np.float32)
+    mask[B - masked:] = 0.0
+    return x, y, mask
+
+
+def _torch_value_and_grads(fn, *arrays):
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    val = fn(*leaves)
+    grads = torch.autograd.grad(val, leaves)
+    return float(val.detach()), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("alphas", [(0.1,), (0.1, 1.0)])
+def test_plain_mmd_matches_jax(jax_impl, alphas):
+    x, y, mask = _mmd_problem()
+    mask_t = torch.tensor(mask)
+    val, (dx, dy) = _torch_value_and_grads(
+        lambda a, b: cuda_pairwise.mmd_statistic(a, b, alphas, mask_t), x, y)
+
+    def jfn(a, b):
+        if jax_impl == "pallas":
+            return mmd_pallas(a, b, alphas, jnp.asarray(mask))
+        return j_mmd(a, b, alphas, mask=jnp.asarray(mask))
+
+    j_val, (j_dx, j_dy) = jax.value_and_grad(jfn, argnums=(0, 1))(x, y)
+    np.testing.assert_allclose(val, float(j_val), rtol=1e-5)
+    # grads: normwise rtol 1e-5; elementwise, entries that cancel to near
+    # zero get an atol of 1e-6 of the largest entry
+    for got, want in ((dx, j_dx), (dy, j_dy)):
+        want = np.asarray(want)
+        assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+    assert np.abs(dx[-3:]).max() == 0.0  # masked rows get no gradient
+
+
+def _bow_problem(B=8, D=16, V=700, T=6, seed=1, masked=2):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, D)).astype(np.float32)
+    W = (rng.normal(size=(D, V)) * 0.2).astype(np.float32)  # JAX [D, V]
+    b = (rng.normal(size=V) * 0.1).astype(np.float32)
+    idx = rng.integers(0, V, (B, T)).astype(np.int32)
+    idx[:, -1] = -1  # padded nnz slot
+    idx[0, 1] = idx[0, 0]  # duplicate index in one row
+    wts = (rng.random((B, T)) * 0.5).astype(np.float32)
+    wts[:, -1] = 0.0
+    mask = np.ones(B, np.float32)
+    mask[B - masked:] = 0.0
+    return h, W, b, idx, wts, mask
+
+
+@pytest.mark.parametrize("jax_impl", ["pallas", "xla"])
+def test_plain_bow_matches_jax(jax_impl):
+    # V = 700 is not a multiple of the Pallas tile (256)
+    h, W, b, idx, wts, mask = _bow_problem()
+    idx_t, wts_t, mask_t = map(torch.tensor, (idx, wts, mask))
+    val, (dh, dWt, db) = _torch_value_and_grads(
+        lambda hh, ww, bb: cuda_bow.fused_bow_loss(
+            hh, ww, bb, idx_t, wts_t, 0.1, mask_t),
+        h, np.ascontiguousarray(W.T), b)
+
+    def jfn(hh, ww, bb):
+        if jax_impl == "pallas":
+            return j_fused_bow(hh, ww, bb, jnp.asarray(idx), jnp.asarray(wts),
+                               0.1, jnp.asarray(mask), tile_v=256)
+        return j_bow_recon(hh @ ww + bb, jnp.asarray(idx), jnp.asarray(wts),
+                           0.1, jnp.asarray(mask))
+
+    j_val, (j_dh, j_dW, j_db) = jax.value_and_grad(jfn, argnums=(0, 1, 2))(
+        h, W, b)
+    np.testing.assert_allclose(val, float(j_val), rtol=1e-5)
+    for name, got, want in (("dh", dh, j_dh), ("dW", dWt.T, j_dW),
+                            ("db", db, j_db)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4,
+                                   atol=1e-7, err_msg=name)
+
+
+def test_bow_reconstruction_loss_matches_jax():
+    h, W, b, idx, wts, mask = _bow_problem(seed=3)
+    logits = h @ W + b
+    got = bow_reconstruction_loss(torch.tensor(logits), torch.tensor(idx),
+                                  torch.tensor(wts), 0.1, torch.tensor(mask))
+    want = j_bow_recon(jnp.asarray(logits), jnp.asarray(idx),
+                       jnp.asarray(wts), 0.1, jnp.asarray(mask))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    ops.reset_launch_counts()
+    x, y, mask = _mmd_problem(B=6, masked=1)
+    want = cuda_pairwise.mmd_statistic_plain(torch.tensor(x), torch.tensor(y),
+                                             (0.1,), torch.tensor(mask))
+    got = cuda_pairwise.mmd_statistic(torch.tensor(x), torch.tensor(y),
+                                      (0.1,), torch.tensor(mask))
+    assert float(got) == float(want)
+    h, W, b, idx, wts, mask = _bow_problem(B=4, V=50, T=3, masked=1)
+    args = (torch.tensor(h), torch.tensor(np.ascontiguousarray(W.T)),
+            torch.tensor(b), torch.tensor(idx), torch.tensor(wts), 0.1,
+            torch.tensor(mask))
+    assert float(cuda_bow.fused_bow_loss(*args)) == \
+        float(cuda_bow.fused_bow_loss_plain(*args))
+    assert ops.launch_counts() == {"mmd_fwd": 0, "mmd_bwd": 0, "bow_fwd": 0,
+                                   "bow_bwd": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x, y, mask = (torch.tensor(a) for a in _mmd_problem(B=4, masked=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))
+    h = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_bow.bow_forward_kernel(h, torch.zeros(10, 4), torch.zeros(10))
