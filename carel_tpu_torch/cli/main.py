@@ -1,13 +1,15 @@
 """Command-line entry points of the port: ``train`` and ``presets``.
 
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
-        --data_root /path/to/corpora --self_iteration 0 [--device cuda]
+        --data_root /path/to/corpora [--device cuda]
+    python -m carel_tpu_torch.cli train --preset ec_hsic --data_root ...
     python -m carel_tpu_torch.cli presets
 
-``train`` runs on the GPU unless ``--device cpu`` is given, and raises when
-no GPU is there. Self-training is not ported yet, so ``train`` with
-``--self_iteration`` > 0 (the presets' default is 50) raises and says so.
-The last line of ``train`` is the JSON summary the JAX CLI prints.
+``train`` runs the base epochs with per-epoch evaluation and best
+checkpointing, then ``--self_iteration`` self-training iterations (the
+presets' default is 50; 0 skips them). It runs on the GPU unless
+``--device cpu`` is given, and raises when no GPU is there. The last line of
+``train`` is the JSON summary the JAX CLI prints.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from carel_tpu_torch.config import (
     CarelConfig,
     EncoderConfig,
     Regularizer,
+    SelfStrategy,
 )
 
 
@@ -53,11 +56,43 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
     if args.mmd_loss_weight is not None:
         loss = dataclasses.replace(loss, mmd_loss_weight=args.mmd_loss_weight)
     tkw = {f: getattr(args, f) for f in
-           ("epochs", "batch_size", "vae_lr", "self_iteration",
+           ("epochs", "batch_size", "vae_lr", "self_iteration", "self_epochs",
             "checkpoint_dir", "log_dir", "seed")
            if getattr(args, f) is not None}
+    if args.self_strategy:
+        tkw["self_strategy"] = SelfStrategy(args.self_strategy)
+    # the beyond-reference knobs override the preset only when set away from
+    # their reference-exact values, as in the JAX CLI
+    if args.self_conf_margin:
+        tkw["self_conf_margin"] = args.self_conf_margin
+    if args.self_conf_keep < 1.0:
+        tkw["self_conf_keep"] = args.self_conf_keep
+    if args.self_pairs_per_doc > 1:
+        tkw["self_pairs_per_doc"] = args.self_pairs_per_doc
+    if args.self_lr:
+        tkw["self_lr"] = args.self_lr
+    if args.self_max_dist > 0:
+        tkw["self_max_dist"] = args.self_max_dist
+    if args.no_round_up:
+        tkw["round_up"] = False
+    elif args.round_up:
+        tkw["round_up"] = True
     train = dataclasses.replace(train, **tkw)
     return dataclasses.replace(cfg, data=data, loss=loss, train=train)
+
+
+def _nonneg_float(value: str) -> float:
+    v = float(value)
+    if v < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {value}")
+    return v
+
+
+def _keep_fraction(value: str) -> float:
+    v = float(value)
+    if not 0.0 < v <= 1.0:
+        raise argparse.ArgumentTypeError(f"must be in (0, 1], got {value}")
+    return v
 
 
 def _add_train_args(p: argparse.ArgumentParser) -> None:
@@ -84,6 +119,44 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--vae_lr", type=float, default=None)
     p.add_argument("--self_iteration", type=int, default=None)
+    p.add_argument("--self_epochs", type=int, default=None)
+    p.add_argument("--self_strategy", default="",
+                   choices=["", "threshold", "random", "extreme",
+                            "temporal_order", "temporal_order_modification"])
+    p.add_argument("--self_conf_margin", type=_nonneg_float, default=0.0,
+                   help="drop a doc's pseudo-pair unless P(pos)-P(neg) >= "
+                        "margin (0 = reference-exact self-training)")
+    p.add_argument("--self_conf_keep", type=_keep_fraction, default=1.0,
+                   help="keep only this fraction of docs per iteration, "
+                        "ranked by P(pos)-P(neg) separation (1.0 = "
+                        "reference)")
+    p.add_argument("--self_pairs_per_doc", type=int, default=1,
+                   help="pseudo-pairs per document (top-k pos + k sampled "
+                        "negs; 1 = reference-exact)")
+    p.add_argument("--self_lr", type=_nonneg_float, default=0.0,
+                   help="separate lr for the self-training fine-tunes (0 = "
+                        "vae_lr, reference-exact)")
+    p.add_argument("--self_max_dist", type=int, default=0,
+                   help="locality prior on pseudo-labels: positives within "
+                        "this |emo-cau| sentence distance, beyond-window "
+                        "predicted-positives become hard negatives (0 = "
+                        "reference-exact)")
+    p.add_argument("--round_up", action="store_true",
+                   help="rank rounded 0/1 predictions in self-training "
+                        "(the reference default)")
+    p.add_argument("--no_round_up", action="store_true",
+                   help="rank raw probabilities in self-training")
+    p.add_argument("--self_anchor_base", action="store_true",
+                   help="seed the self-training best from the base metrics "
+                        "(the reference zero-inits it, flagship :967)")
+    p.add_argument("--self_fallback_base", action="store_true",
+                   help="report the base metrics as best_f1 when "
+                        "self-training never produces a non-empty pseudo "
+                        "set (default: the reference's zero-initialized "
+                        "self metrics)")
+    p.add_argument("--track_memorization", action="store_true",
+                   help="log per-iteration pseudo-positive churn as "
+                        "'memorization' events")
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--log_dir", default=None)
     p.add_argument("--cache_dir", default=".carel_cache")
@@ -96,12 +169,9 @@ def cmd_train(args) -> int:
 
     device = resolve_device(args.device)
     cfg = _apply_overrides(PRESETS[args.preset], args)
-    if cfg.train.self_iteration > 0:
-        raise NotImplementedError(
-            f"self-training (self_iteration={cfg.train.self_iteration}) is not "
-            "ported to carel_tpu_torch yet; pass --self_iteration 0")
 
     from carel_tpu_torch.pipeline import build_pipeline, init_state
+    from carel_tpu_torch.selftrain import self_train
     from carel_tpu_torch.train.logging import JsonlLogger
     from carel_tpu_torch.train.loop import train_epochs
     from carel_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -123,15 +193,44 @@ def cmd_train(args) -> int:
                 "vocab": cfg.model.encoder.vocab_size})
 
     state = init_state(cfg, device)
+    eval_step = make_eval_step()
+    best_cache: dict = {}
     state, best = train_epochs(
-        cfg, state, train_step, make_eval_step(), pipe.train_arrays,
+        cfg, state, train_step, eval_step, pipe.train_arrays,
         pipe.test_arrays, pipe.num_unpred_pairs, pipe.model_id,
-        logger=logger, best_cache={})
+        logger=logger, best_cache=best_cache)
     logger.log({"event": "base_done", "p": best[0], "r": best[1],
                 "f1": best[2]})
+
+    final_best = best
+    if cfg.train.self_iteration > 0:
+        if cfg.train.self_lr > 0.0:
+            # Adam's state does not depend on lr, so the fine-tunes go on
+            # with the same optimizer at the new rate
+            for group in state.optimizer.param_groups:
+                group["lr"] = cfg.train.self_lr
+        state, sbest = self_train(
+            cfg, state, train_step, eval_step, pipe.test_pairs,
+            pipe.test_arrays, pipe.num_unpred_pairs, pipe.encode,
+            pipe.model_id, logger=logger,
+            track_memorization=args.track_memorization,
+            best_cache=best_cache,
+            initial_best=best if args.self_anchor_base else None)
+        logger.log({"event": "self_done", "p": sbest[0], "r": sbest[1],
+                    "f1": sbest[2]})
+        # reference-exact default: when self-training never produces a
+        # non-empty pseudo set, sbest stays at the (0, 0, 0) the reference's
+        # zero-initialised self metrics report (flagship :967);
+        # --self_fallback_base reports the base metrics instead
+        if sbest[2] > 0.0 or not args.self_fallback_base:
+            final_best = sbest
+        else:
+            logger.log({"event": "selftrain_no_improvement",
+                        "fallback": "base", "base_f1": best[2]})
     logger.close()
-    # best_f1 is the run's headline; without self-training it is the base
-    print(json.dumps({"model_id": pipe.model_id, "best_f1": best[2],
+    # best_f1 is the run's headline (the self-training best when it ran, the
+    # reference's reported number); base_f1 is the best before it
+    print(json.dumps({"model_id": pipe.model_id, "best_f1": final_best[2],
                       "base_f1": best[2]}))
     return 0
 

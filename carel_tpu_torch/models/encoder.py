@@ -6,8 +6,8 @@ Kept from the JAX encoder:
 - token-type embeddings, the embeddings LayerNorm (eps 1e-12);
 - the -1e9 additive mask bias, in fp32;
 - a fused qkv projection whose output is laid out (3, heads, head_dim);
-- attention as plain ops: fp32 scores, softmax, dropout on the
-  probabilities, probabilities @ values;
+- attention as plain ops: scores accumulated in fp32 from the (bf16) q and
+  k, softmax, dropout on the probabilities, probabilities @ values;
 - exact-erf GELU, post-LN residuals, and a dense+tanh pooler over [CLS].
 
 With ``dtype="bfloat16"`` the encoder runs under bf16 autocast with LayerNorm
@@ -53,6 +53,44 @@ def init_flax_(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
 
 
+def scores_upcast(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q @ k^T [..., L, L] in fp32 from the fp32 copies of q and k: a product
+    of two bf16 values is exact in fp32 (TF32 is off), so this is the fp32
+    sum of the bf16 products that JAX's preferred_element_type=float32
+    gives."""
+    return q.float() @ k.float().transpose(-1, -2)
+
+
+class _Fp32Scores(torch.autograd.Function):
+    """The same scores from bf16 q, k [N, L, hd] on CUDA: the bf16 tensor-core
+    GEMM with its fp32 accumulator written out (``out_dtype``), with no fp32
+    copies of q and k. The backward is JAX's transpose of that product: the
+    fp32 cotangent times the other operand in fp32, rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        with torch.autocast(device_type="cuda", enabled=False):
+            dq = torch.bmm(g, k.float()).to(q.dtype)
+            dk = torch.bmm(g.transpose(1, 2), q.float()).to(k.dtype)
+        return dq, dk
+
+
+def attention_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """fp32 q @ k^T of q, k [B, h, L, hd]: bf16 CUDA tensors take the
+    tensor-core GEMM with an fp32 output, everything else the upcast."""
+    if q.is_cuda and q.dtype == torch.bfloat16:
+        B, h, L, hd = q.shape
+        return _Fp32Scores.apply(q.reshape(B * h, L, hd),
+                                 k.reshape(B * h, L, hd)).view(B, h, L, L)
+    return scores_upcast(q, k)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -67,7 +105,11 @@ class SelfAttention(nn.Module):
         B, L, D = x.shape
         qkv = self.qkv(x).view(B, L, 3, self.num_heads, self.head_dim)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, h, L, hd]
-        scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(self.head_dim)
+        # fp32 sums of the bf16 q, k products, as JAX's
+        # preferred_element_type=float32 gives them; autocast must not cast
+        # the fp32 operands or scores back to bf16
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            scores = attention_scores(q, k) / math.sqrt(self.head_dim)
         probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
         probs = F.dropout(probs, self.dropout, training=not deterministic)
         ctx = (probs @ v).transpose(1, 2).reshape(B, L, D)

@@ -3,7 +3,8 @@ kernels that replace the JAX package's Pallas kernels.
 
 - ``pairwise`` / ``bow_recon``: plain versions (run on the CPU, and the
   yardstick the kernels are held against);
-- ``cuda_pairwise``: fused MMD^2, kernels K1 (forward) and K2 (backward);
+- ``cuda_pairwise``: fused MMD^2, kernels K1 (forward) and K2 (backward),
+  and HSIC, kernels K5 (forward) and K6 (backward);
 - ``cuda_bow``: fused BoW decoder loss, kernels K3 (forward) and K4
   (backward);
 - ``native``: builds ``csrc/*.cu`` with nvcc at first use and loads it.

@@ -44,6 +44,11 @@ _SIGNATURES = {
                       _I),
     "carel_mmd_bwd": ([_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P, _P,
                        _P], _I),
+    "carel_hsic_residuals": ([_I], _I),
+    "carel_hsic_max_dim": ([], _I),
+    "carel_hsic_max_rows": ([], _I),
+    "carel_hsic_fwd": ([_P, _P, _P, _I, _I, _F, _F, _P, _P, _P], _I),
+    "carel_hsic_bwd": ([_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P], _I),
     "carel_bow_max_dim": ([], _I),
     "carel_bow_fwd_scratch": ([_I, _I], _LL),
     "carel_bow_bwd_scratch": ([_I, _I, _I], _LL),

@@ -1,10 +1,11 @@
 """Train and eval steps, port of carel_tpu/train/steps.py.
 
-Ported so far: the single-gradient step of the none and mmd regularizers
-(flagship forward :184-263, train :820-845). The BoW reconstruction term is
-always the fused loss (kernels K3/K4 on CUDA, the plain version on the CPU),
-so the model never computes the [B, V] decoder logits in training; the MMD
-term goes through kernels K1/K2 on CUDA.
+Ported so far: the single-gradient step of the none, mmd and hsic
+regularizers (flagship forward :184-263, train :820-845). The BoW
+reconstruction term is always the fused loss (kernels K3/K4 on CUDA, the
+plain version on the CPU), so the model never computes the [B, V] decoder
+logits in training; the MMD term goes through kernels K1/K2 and the HSIC term
+through K5/K6 on CUDA.
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ def vae_and_classifier_loss(
     iteration: int,
     decoder: torch.nn.Linear,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The weighted multi-task loss (flagship :208-261) for none/mmd; the
-    reconstruction term is the fused BoW loss from the generative embedding
-    and the decoder's weights."""
+    """The weighted multi-task loss (flagship :208-261) for none/mmd/hsic;
+    the reconstruction term is the fused BoW loss from the generative
+    embedding and the decoder's weights."""
     lc = cfg.loss
     mask = batch["example_mask"]
     pair_labels = batch["pair_labels"]
@@ -69,9 +70,12 @@ def vae_and_classifier_loss(
                            batch["bow_weights"], lc.label_smoothing, mask)
     reg = regularizer_loss(out, lc, mask)
 
+    # hsic: the cause term takes the EMOTION weight (ec_hsic :249-253)
+    cau_weight = (lc.emo_mul_loss_weight if lc.regularizer == Regularizer.HSIC
+                  else lc.cau_mul_loss_weight)
     total = (reg
              + lc.emo_mul_loss_weight * emo
-             + lc.cau_mul_loss_weight * cau
+             + cau_weight * cau
              + lc.pair_mul_loss_weight * pair
              + kl_e + kl_c + recon)
     metrics = {
@@ -93,10 +97,10 @@ def make_train_step(cfg: CarelConfig) -> Callable:
     not synchronized). ``eps`` = (eps_emotion, eps_cause) fixes the sampling
     noise; otherwise it comes from ``state.generator``."""
     reg = cfg.loss.regularizer
-    if reg not in (Regularizer.NONE, Regularizer.MMD):
+    if reg not in (Regularizer.NONE, Regularizer.MMD, Regularizer.HSIC):
         raise NotImplementedError(
             f"the {reg.value!r} train step is not ported to carel_tpu_torch "
-            "yet (ROADMAP Queue 1: none/hsic/gan/vi steps)")
+            "yet (ROADMAP Queue 1: gan/vi steps)")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              iteration: int,

@@ -6,22 +6,33 @@ Phases, in order; any failure exits non-zero and no phase carries on after
 an error:
 
 1. device: require CUDA; print the nvidia-smi name and power limit line;
-2. build: compile the hand-written kernels K1-K4 from carel_tpu_torch/csrc;
+2. build: compile the hand-written kernels K1-K6 from carel_tpu_torch/csrc;
 3. kernels: hold each kernel against its plain PyTorch version at the shapes
-   of the training step (fp32), print errors, median times by CUDA events
-   and the plain version's time;
+   of the training step (fp32; HSIC against the plain version evaluated in
+   float64, at two input scales), print errors, median times by CUDA events
+   and the plain version's time; hold the encoder's fp32 attention scores
+   (bf16 tensor-core GEMM with an fp32 output) against the product of the
+   upcast q and k;
 4. reference: a tiny model takes one training step on the card (kernels) and
-   on the CPU (plain versions) from the same weights and batch; loss and
-   updated weights must agree;
-5. main path: the flagship preset at full width (12L/768H encoder, vocab
-   21,128, ec_dim 24, BoW vocab 23,808, max_len 96, batch 64) on random
-   weights from a seed: init_state, one epoch of train_epochs (the best
-   checkpoint saved and reloaded), evaluate; counts every kernel launch of
-   that run and requires each of K1-K4 on every training step; then times
-   and profiles steps after warm-up, and reloads the best from disk.
+   on the CPU (plain versions) from the same weights and batch, under the
+   flagship's MMD and under ec_hsic; loss and updated weights must agree;
+5. main paths, each at full width (12L/768H encoder, vocab 21,128, ec_dim
+   24, BoW vocab 23,808, max_len 96, batch 64) on random weights from a
+   seed, on a synthetic target domain (documents of 3-12 clauses with all
+   their candidate pairs): init_state, one base epoch of train_epochs (the
+   best checkpoint saved and reloaded), then self_train; every kernel launch
+   of that run is counted, with the counts set to 0 just before it, and the
+   path's kernels must launch on every training step, base and
+   self-training alike; then steps are timed and profiled after warm-up and
+   the best is reloaded from disk:
+   - the flagship preset (MMD: K1-K4), one self-training iteration with
+     temporal_order_modification;
+   - ec_hsic (binary emotion, HSIC: K3-K6), two self-training iterations of
+     one epoch each with the random strategy.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel (its
+``launches`` is the sum over the main paths, ``launches_by_path`` splits
+it); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -169,7 +180,10 @@ def phase_mmd(records: dict) -> None:
         "bwd_plain": median_ms(lambda: torch.autograd.grad(
             val_p, (xp, yp), retain_graph=True)),
     }
-    pairs = 3 * B * B
+    # the distinct pairs: the xx and yy blocks are symmetric and their
+    # diagonals drop out of the estimator, so B(B-1)/2 pairs each; the xy
+    # block has B^2
+    pairs = B * (B - 1) + B * B
     in_bytes = 4 * (2 * B * d + B)
     # least work for the function: each row's squared norm once (2 B rows of
     # d FMA); per pair the dot product (d FMA) and the scalar work of
@@ -177,18 +191,144 @@ def phase_mmd(records: dict) -> None:
     # or the coefficient (backward), then the mask and the sum
     norms = 2 * B * 2 * d
     pair_ops = 2 * d + 6 + 2 * len(alphas)
-    fwd_b = bound_ms(in_bytes + 4, norms + pairs * pair_ops)
     # backward: one Gram rebuild per pair, and c * (a - b) accumulated into
-    # each output row the pair reaches (2 d per output side: the xy pair
-    # feeds dx_i and dy_j, a within-sample pair its own row once)
-    bwd_b = bound_ms(in_bytes + 8 + 4 * 2 * B * d,
-                     norms + pairs * (pair_ops + 1) + B * B * 2 * d * 4)
+    # both output rows the pair reaches (2 d each)
+    work = {"fwd": (in_bytes + 4, norms + pairs * pair_ops),
+            "bwd": (in_bytes + 8 + 4 * 2 * B * d,
+                    norms + pairs * (pair_ops + 1 + 2 * 2 * d))}
+    print("mmd least work: " + "; ".join(
+        f"{k} {nb} bytes, {fl} FLOP" for k, (nb, fl) in work.items()),
+        flush=True)
+    fwd_b, bwd_b = bound_ms(*work["fwd"]), bound_ms(*work["bwd"])
     for name, route_line, b, key in (
             ("mmd_fwd", 62, fwd_b, "fwd"), ("mmd_bwd", 90, bwd_b, "bwd")):
         records[name] = {
             "name": name, "route": "cuda",
             "source": "carel_tpu_torch/csrc/mmd.cu",
             "replaces": f"carel_tpu/ops/pallas_pairwise.py:{route_line}",
+            "launches": 0, "max_abs_err": worst[key],
+            "ms": t[key], "plain_ms": t[key + "_plain"],
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+        print(f"{name}: {t[key]:.4f} ms (plain {t[key + '_plain']:.4f} ms, "
+              f"bound {b[0]:.6f} ms by {b[1]})", flush=True)
+
+
+HSIC_SPREAD, HSIC_TIGHT = 0.2, 0.2e-2
+
+
+def hsic_inputs(B: int, masked: int, scale: float, d: int = 24,
+                seed: int = 0):
+    """Latents N(0, scale^2) per coordinate: scale 0.2 gives squared
+    distances ~2 (the row spread of the latents at init is ~0.2), scale
+    0.002 makes K and L nearly all ones."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(B, d)) * scale).astype(np.float32)
+    y = (rng.normal(size=(B, d)) * 1.3 * scale + 0.1 * scale).astype(
+        np.float32)
+    mask = np.ones(B, np.float32)
+    if masked:
+        mask[-masked:] = 0.0
+    dev = torch.device("cuda")
+    return (torch.tensor(x, device=dev), torch.tensor(y, device=dev),
+            torch.tensor(mask, device=dev))
+
+
+def phase_hsic(records: dict) -> None:
+    """K5/K6 against the plain HSIC on the same inputs. The gate is the
+    plain version evaluated in float64: with tight latents the plain fp32
+    version is itself off by ~3e-4 (the cancellation the kernels avoid by
+    working in double), and its error is printed beside."""
+    from carel_tpu_torch.ops import cuda_pairwise as cp
+
+    s_x = s_y = 1.0  # hsic_sigma of the ec_hsic preset
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for scale in (HSIC_SPREAD, HSIC_TIGHT):
+        for B, masked in ((64, 0), (61, 3)):
+            x, y, mask = hsic_inputs(B, masked, scale)
+            xk = x.clone().requires_grad_(True)
+            yk = y.clone().requires_grad_(True)
+            val_k = cp.hsic_statistic(xk, yk, s_x, s_y, mask)
+            dxk, dyk = torch.autograd.grad(val_k, (xk, yk))
+            ref = {}
+            for dtype in (torch.float64, torch.float32):
+                xp = x.to(dtype).requires_grad_(True)
+                yp = y.to(dtype).requires_grad_(True)
+                val_p = cp.hsic_plain(xp, yp, s_x, s_y, mask.to(dtype))
+                ref[dtype] = (float(val_p.detach()),
+                              *torch.autograd.grad(val_p, (xp, yp)))
+            vk = float(val_k.detach())
+            vp, dxp, dyp = ref[torch.float64]
+            rel = abs(vk - vp) / abs(vp)
+            gx, gy = relnorm(dxk, dxp), relnorm(dyk, dyp)
+            v32, dx32, dy32 = ref[torch.float32]
+            rel32 = abs(v32 - vp) / abs(vp)
+            g32 = max(relnorm(dx32, dxp), relnorm(dy32, dyp))
+            if masked and (float(dxk[-masked:].abs().max()) != 0.0
+                           or float(dyk[-masked:].abs().max()) != 0.0):
+                fail("hsic kernel: masked rows got a gradient")
+            print(f"hsic scale={scale} B={B} masked={masked}: value "
+                  f"{vk:.8e} vs plain float64 {vp:.8e} rel {rel:.2e}; "
+                  f"grads normwise rel dx {gx:.2e} dy {gy:.2e} (plain fp32 "
+                  f"vs float64: value {rel32:.2e}, grads {g32:.2e})",
+                  flush=True)
+            if not rel <= 1e-5:
+                fail(f"hsic forward value rel err {rel:.2e} > 1e-5")
+            if not max(gx, gy) <= 1e-4:
+                fail(f"hsic backward normwise rel err {max(gx, gy):.2e} > "
+                     "1e-4")
+            worst["fwd"] = max(worst["fwd"], abs(vk - vp))
+            worst["bwd"] = max(worst["bwd"],
+                               float((dxk.double() - dxp).abs().max()),
+                               float((dyk.double() - dyp).abs().max()))
+
+    # times at the training shape, B = 64, spread latents
+    B, d = 64, 24
+    x, y, mask = hsic_inputs(B, 0, HSIC_SPREAD)
+    _, res = cp.hsic_forward_kernel(x, y, mask, s_x, s_y)
+    g = torch.ones((), device="cuda")
+    xp = x.clone().requires_grad_(True)
+    yp = y.clone().requires_grad_(True)
+    val_p = cp.hsic_plain(xp, yp, s_x, s_y, mask)
+    t = {
+        "fwd": median_ms(
+            lambda: cp.hsic_forward_kernel(x, y, mask, s_x, s_y)),
+        "fwd_plain": median_ms(lambda: cp.hsic_plain(x, y, s_x, s_y, mask)),
+        "bwd": median_ms(lambda: cp.hsic_backward_kernel(
+            x, y, mask, s_x, s_y, res, g)),
+        "bwd_plain": median_ms(lambda: torch.autograd.grad(
+            val_p, (xp, yp), retain_graph=True)),
+    }
+    # least work for the function, counted as for MMD: each row's squared
+    # norm once (2 B rows of d FMA). Each Gram is symmetric with a diagonal
+    # of exactly 1, so only its B(B-1)/2 distinct pairs cost work: the dot
+    # product (d FMA), |a|^2 + |b|^2 - 2 a.b, the scale and the exp.
+    # Forward: tr(KHLH) = sum K.L - (2/n) sum rK rL + sum K sum L / n^2, so
+    # per distinct pair one multiply-add for sum K.L and one add into each of
+    # the two row sums of each Gram, then O(B) for the rest.
+    # Backward: dz_i = sum_j W_ij (z_i - z_j) = z_i sum_j W_ij - (W z)_i,
+    # W the other Gram centred times this Gram times a constant: both half
+    # Grams and their row sums as above; per distinct pair and side W (3 for
+    # the centred entry, 2 products) and its two row-sum adds; per ordered
+    # pair and side one FMA per coordinate for W z; per row and side z_i
+    # times its row sum
+    norms = 2 * B * 2 * d
+    half = B * (B - 1) // 2
+    grams = 2 * half * (2 * d + 5) + half * 2 * 2
+    in_bytes = 4 * (2 * B * d + B)
+    work = {"fwd": (in_bytes + 4, norms + grams + half * 2 + 4 * B),
+            "bwd": (in_bytes + 4 + 4 * 2 * B * d,
+                    norms + grams + half * 2 * (5 + 2)
+                    + 2 * B * (B - 1) * 2 * d + 2 * B * 2 * d)}
+    print("hsic least work: " + "; ".join(
+        f"{k} {nb} bytes, {fl} FLOP" for k, (nb, fl) in work.items()),
+        flush=True)
+    fwd_b, bwd_b = bound_ms(*work["fwd"]), bound_ms(*work["bwd"])
+    for name, line, b, key in (("hsic_fwd", 204, fwd_b, "fwd"),
+                               ("hsic_bwd", 227, bwd_b, "bwd")):
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "carel_tpu_torch/csrc/hsic.cu",
+            "replaces": f"carel_tpu/ops/pallas_pairwise.py:{line}",
             "launches": 0, "max_abs_err": worst[key],
             "ms": t[key], "plain_ms": t[key + "_plain"],
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
@@ -274,21 +414,60 @@ def phase_bow(records: dict) -> None:
               f"bound {bnd[0]:.6f} ms by {bnd[1]})", flush=True)
 
 
-def tiny_config():
-    from carel_tpu_torch.config import CarelConfig, DataConfig, LossConfig
-    from carel_tpu_torch.config import ModelConfig, TrainConfig
+def phase_scores() -> None:
+    """The encoder's fp32 attention scores at the full-width shape: the bf16
+    tensor-core GEMM with an fp32 output, which the model runs on CUDA,
+    against the fp32 product of the upcast q and k, forward and backward,
+    with the time of one forward and backward of each."""
+    from carel_tpu_torch.models.encoder import attention_scores, scores_upcast
+
+    B, h, L, hd = 64, 12, 96, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k = (torch.randn(B, h, L, hd, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    g = torch.randn(B, h, L, L, device="cuda", generator=gen)
+    got = {}
+    for name, fn in (("tensor-core", attention_scores),
+                     ("upcast", scores_upcast)):
+        leaves = (q.clone().requires_grad_(True),
+                  k.clone().requires_grad_(True))
+
+        def fwd_bwd():
+            s = fn(*leaves)
+            return (s.detach(), *torch.autograd.grad(s, leaves, g))
+
+        got[name] = fwd_bwd()
+        ms = median_ms(fwd_bwd)
+        print(f"scores {name}: {ms:.4f} ms forward + backward at "
+              f"[{B}, {h}, {L}, {hd}]", flush=True)
+    (s, dq, dk), (s_u, dq_u, dk_u) = got["tensor-core"], got["upcast"]
+    errs = (relnorm(s, s_u), relnorm(dq, dq_u), relnorm(dk, dk_u))
+    print("scores tensor-core vs upcast: normwise rel scores {:.2e}, dq "
+          "{:.2e}, dk {:.2e}".format(*errs), flush=True)
+    # both sum the exact bf16 products in fp32, in another order
+    if s.dtype != torch.float32 or dq.dtype != torch.bfloat16:
+        fail(f"scores: dtypes {s.dtype}, {dq.dtype}")
+    if not max(errs) <= 1e-5:
+        fail(f"scores: tensor-core path off the upcast by {max(errs):.2e}")
+
+
+def tiny_config(preset: str):
+    """The preset's loss and model options at tiny widths, dropout 0."""
+    from carel_tpu_torch.config import PRESETS, DataConfig, TrainConfig
     from carel_tpu_torch.models.encoder import tiny_encoder_config
 
-    return CarelConfig(
-        model=ModelConfig(encoder=tiny_encoder_config(vocab_size=256,
-                                                      dropout=0.0),
-                          ec_dim=24, bow_dim=3000, dropout=0.0),
-        loss=LossConfig(),
+    base = PRESETS[preset]
+    return dataclasses.replace(
+        base,
+        model=dataclasses.replace(
+            base.model, encoder=tiny_encoder_config(vocab_size=256,
+                                                    dropout=0.0),
+            ec_dim=24, bow_dim=3000, dropout=0.0),
         data=DataConfig(max_len=32),
         train=TrainConfig(batch_size=16, vae_lr=1e-3))
 
 
-def phase_reference() -> None:
+def phase_reference(preset: str) -> None:
     """A tiny fp32 model takes one training step on the card (kernels) and on
     the CPU (plain versions) from the same weights, batch and (zero) noise."""
     from carel_tpu_torch.data.batching import cut_batch
@@ -296,7 +475,7 @@ def phase_reference() -> None:
     from carel_tpu_torch.train.state import MAIN
     from carel_tpu_torch.train.steps import batch_to_device, make_train_step
 
-    cfg = tiny_config()
+    cfg = tiny_config(preset)
     arrays = synth_pair_arrays(np.random.default_rng(3), 16, 32, 256, 3000,
                                min_len=8)
     host = cut_batch(arrays, np.arange(14), 16).as_dict()  # 2 padded rows
@@ -321,7 +500,8 @@ def phase_reference() -> None:
     safe = {n: g_c[n].abs() > 1e-3 * g_c[n].abs().max() for n in g_c}
     worst_safe = max(float((p_g[n] - p_c[n])[safe[n]].abs().max())
                      for n in g_c)
-    print(f"reference step (tiny fp32, card vs CPU): loss {m_g['loss']:.6f} "
+    print(f"reference step {preset} (tiny fp32, card vs CPU): loss "
+          f"{m_g['loss']:.6f} "
           f"vs {m_c['loss']:.6f}; worst metric rel {worst_m:.2e}, grad "
           f"normwise rel {worst_g:.2e}, param abs {worst_p:.2e} "
           f"({worst_safe:.2e} where |g| > 1e-3 max|g|)", flush=True)
@@ -331,7 +511,7 @@ def phase_reference() -> None:
     lr = cfg.train.vae_lr
     if not (worst_m <= 1e-4 and worst_g <= 1e-3 and worst_p <= 2 * lr
             and worst_safe <= 1e-3 * lr):
-        fail("card and CPU disagree on the reference step")
+        fail(f"card and CPU disagree on the {preset} reference step")
 
 
 def synth_pair_arrays(rng, n: int, L: int, vocab: int, bow_dim: int,
@@ -360,8 +540,44 @@ def synth_pair_arrays(rng, n: int, L: int, vocab: int, bow_dim: int,
         bow_indices=idx, bow_weights=wts)
 
 
+def synth_target_domain(rng, n_pairs: int, L: int, vocab: int,
+                        bow_dim: int):
+    """A target-domain test set as the pipeline gives it: a PairSet of
+    documents of 3-12 clauses, each with one emotion clause paired with every
+    clause (one of them the true cause) and its temporal order, the
+    PairArrays of those pairs (random tokens and BoW terms from the seed, as
+    synth_pair_arrays makes them), and ``encode``, which gives any subset of
+    these pairs its rows of the arrays with the subset's labels."""
+    from carel_tpu_torch.data.pairs import PairExample, PairSet
+
+    pairs = PairSet()
+    while len(pairs) < n_pairs:
+        doc = len(pairs.docs_pair_size)
+        n = int(rng.integers(3, 13))
+        emo = int(rng.integers(1, n + 1))
+        cause = int(np.clip(emo + rng.integers(-2, 2), 1, n))
+        for c in range(1, n + 1):
+            pairs.examples.append(PairExample(
+                pair=f"doc{doc}-e{emo}-c{c}", label=int(c == cause),
+                emotion=int(rng.integers(0, 6)), temporal_order=c <= emo,
+                doc_index=doc, emo_sen_id=emo, cau_sen_id=c))
+        pairs.docs_pair_size.append(n)
+    arrays = synth_pair_arrays(rng, len(pairs), L, vocab, bow_dim)
+    arrays.pair_labels = np.asarray(pairs.labels, np.float32)
+    arrays.temporal_order = np.asarray(
+        [e.temporal_order for e in pairs.examples], bool)
+    row = {e.pair: i for i, e in enumerate(pairs.examples)}
+
+    def encode(pair_set):
+        sub = arrays.take(np.asarray([row[e.pair] for e in pair_set.examples]))
+        sub.pair_labels = np.asarray(pair_set.labels, np.float32)
+        return sub
+
+    return pairs, arrays, encode
+
+
 class _Records:
-    """Logger for train_epochs that keeps its records."""
+    """Logger for train_epochs and self_train that keeps its records."""
 
     def __init__(self):
         self.records = []
@@ -370,80 +586,149 @@ class _Records:
         self.records.append(record)
 
 
-def phase_main_path(records: dict) -> None:
+# the kernels each main path must launch on every training step
+PATH_KERNELS = {
+    "ec_mmd_final_mul_newsplit_emnlp": ("mmd_fwd", "mmd_bwd", "bow_fwd",
+                                        "bow_bwd"),
+    "ec_hsic": ("hsic_fwd", "hsic_bwd", "bow_fwd", "bow_bwd"),
+}
+
+
+def phase_path(records: dict, preset: str, iterations: int,
+               strategy: str) -> None:
+    """The preset at full width: one base epoch, then ``iterations``
+    self-training iterations of one epoch with ``strategy``."""
     from carel_tpu_torch import ops
-    from carel_tpu_torch.config import PRESETS, EncoderConfig
+    from carel_tpu_torch.config import PRESETS, EncoderConfig, SelfStrategy
     from carel_tpu_torch.data.batching import cut_batch
     from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.selftrain import self_train
     from carel_tpu_torch.train import checkpoint as ckpt
     from carel_tpu_torch.train.loop import evaluate, train_epochs
     from carel_tpu_torch.train.steps import (batch_to_device, make_eval_step,
                                              make_train_step)
 
     B, L, V, n_train, n_test, unpred = 64, 96, 23808, 1024, 512, 10
-    base = PRESETS["ec_mmd_final_mul_newsplit_emnlp"]
+    base = PRESETS[preset]
     enc = EncoderConfig(arch="bert", dtype="bfloat16")  # 12L/768H, 21,128
     cfg = dataclasses.replace(
         base,
         model=dataclasses.replace(base.model, encoder=enc, bow_dim=V),
         data=dataclasses.replace(base.data, max_len=L),
         train=dataclasses.replace(
-            base.train, batch_size=B, epochs=1, self_iteration=0,
-            checkpoint_dir=os.path.join(RUN_DIR, "ckpt")))
+            base.train, batch_size=B, epochs=1, self_iteration=iterations,
+            self_epochs=1, self_strategy=SelfStrategy(strategy),
+            checkpoint_dir=os.path.join(RUN_DIR, "ckpt", preset)))
+    tag = f"{preset} path"
     rng = np.random.default_rng(0)
     train = synth_pair_arrays(rng, n_train, L, enc.vocab_size, V)
-    test = synth_pair_arrays(rng, n_test, L, enc.vocab_size, V)
-    steps = -(-n_train // B)
+    test_pairs, test, encode = synth_target_domain(rng, n_test, L,
+                                                   enc.vocab_size, V)
 
     t0 = time.perf_counter()
     state = init_state(cfg, "cuda")
     n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"main path: init_state {time.perf_counter() - t0:.1f} s, "
-          f"{n_params} params", flush=True)
+    print(f"{tag}: init_state {time.perf_counter() - t0:.1f} s, "
+          f"{n_params} params; {len(test_pairs)} test pairs in "
+          f"{len(test_pairs.docs_pair_size)} documents", flush=True)
     train_step, eval_step = make_train_step(cfg), make_eval_step()
+
+    # the run's own record of its steps, evaluations and pseudo sets
+    losses, prob_ranges, pseudo_sizes = [], [], []
+
+    def counted_step(state, batch, iteration):
+        metrics = train_step(state, batch, iteration)
+        losses.append(metrics["loss"])
+        return metrics
+
+    def checked_eval(model, batch, generator):
+        probs = eval_step(model, batch, generator)
+        prob_ranges.append(torch.stack([probs.min(), probs.max(),
+                                        probs.isfinite().all().float()]))
+        return probs
+
+    def checked_encode(pair_set):
+        pseudo_sizes.append(list(pair_set.docs_pair_size))
+        return encode(pair_set)
+
     logger = _Records()
     torch.cuda.reset_peak_memory_stats()
-
-    # best_f1_so_far -1 makes the first evaluation a new best even at F1 = 0
-    # (random weights), so the checkpoint save and the best reload both run
     best_cache: dict = {}
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    state, best = train_epochs(cfg, state, train_step, eval_step, train, test,
-                               unpred, "chip_smoke", logger=logger,
+    # best_f1_so_far -1 makes the first evaluation a new best even at F1 = 0
+    # (random weights), so the checkpoint save and the best reload both run;
+    # initial_best does the same for the first self-training iteration
+    state, best = train_epochs(cfg, state, counted_step, checked_eval, train,
+                               test, unpred, preset, logger=logger,
                                best_f1_so_far=-1.0, best_cache=best_cache)
+    torch.cuda.synchronize()
+    t_base = time.perf_counter() - t0
+    base_steps = len(losses)
+    state, sbest = self_train(cfg, state, counted_step, checked_eval,
+                              test_pairs, test, unpred, checked_encode,
+                              preset, logger=logger, best_cache=best_cache,
+                              initial_best=(0.0, 0.0, -1.0))
     res = evaluate(eval_step, state.model, test, unpred,
                    torch.Generator(device="cuda").manual_seed(0),
                    cfg.train.eval_batch_size)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
+    steps = len(losses)
+    losses = torch.stack(losses).tolist()
+    ranges = torch.stack(prob_ranges).cpu().numpy()
 
-    losses = [r["loss"] for r in logger.records if r["event"] == "train"]
-    print(f"main path: {steps} steps + eval in {wall:.1f} s; losses "
-          f"{losses}; best {best}; evaluate P/R/F1 {res.precision:.4f} "
+    ev = {k: [r for r in logger.records if r["event"] == k]
+          for k in ("selftrain_iter", "selftrain_best", "selftrain_empty")}
+    split = {k: sum(r[k] for r in ev[src]) for k, src in (
+        ("eval_seconds", "selftrain_iter"),
+        ("pseudo_seconds", "selftrain_iter"),
+        ("train_seconds", "selftrain_best"))}
+    print(f"{tag}: {base_steps} base steps + eval in {t_base:.3f} s, then "
+          f"{iterations} self-training iterations ({steps - base_steps} "
+          f"steps) in {wall - t_base:.3f} s: evaluation "
+          f"{split['eval_seconds']:.4f} s, pseudo-labelling + encoding "
+          f"{split['pseudo_seconds']:.4f} s, fine-tuning (with its "
+          f"evaluations) {split['train_seconds']:.4f} s; pseudo pairs "
+          f"{[r['pseudo_pairs'] for r in ev['selftrain_iter']]}; best "
+          f"{best}, self best {sbest}; evaluate P/R/F1 {res.precision:.4f} "
           f"{res.recall:.4f} {res.f1:.4f}; launches {counts}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"{tag}: losses (every step) {[round(x, 4) for x in losses]}",
+          flush=True)
     if not losses or not all(math.isfinite(x) for x in losses):
-        fail(f"main path: loss not finite: {losses}")
-    if res.probs.shape != (n_test,) or not np.all(np.isfinite(res.probs)) \
+        fail(f"{tag}: loss not finite")
+    if not (np.all(ranges[:, 2] == 1.0) and ranges[:, 0].min() >= 0.0
+            and ranges[:, 1].max() <= 1.0):
+        fail(f"{tag}: eval probabilities are not finite values in [0, 1]")
+    if res.probs.shape != (len(test),) or not np.all(np.isfinite(res.probs)) \
             or not np.all((res.probs >= 0) & (res.probs <= 1)):
-        fail("main path: eval probabilities are not finite values in [0, 1]")
-    for p in (res.precision, res.recall, res.f1, *best):
+        fail(f"{tag}: eval probabilities are not finite values in [0, 1]")
+    for p in (res.precision, res.recall, res.f1, *best, *sbest):
         if not 0.0 <= p <= 1.0:
-            fail(f"main path: metric out of range: {p}")
+            fail(f"{tag}: metric out of range: {p}")
+    if ev["selftrain_empty"] or len(ev["selftrain_iter"]) != iterations:
+        fail(f"{tag}: a self-training iteration had no pseudo pairs")
+    if not all(sizes and set(sizes) == {2} for sizes in pseudo_sizes):
+        fail(f"{tag}: pseudo sets are not 2 pairs per document")
+    if steps <= base_steps:
+        fail(f"{tag}: self-training took no training step")
     for name, n in counts.items():
-        if n < steps:
-            fail(f"main path: kernel {name} launched {n} times in {steps} "
-                 "training steps")
-        records[name]["launches"] = n
+        want = steps if name in PATH_KERNELS[preset] else 0
+        if n != want:
+            fail(f"{tag}: kernel {name} launched {n} times in {steps} "
+                 f"training steps (want {want})")
+        records[name].setdefault("launches_by_path", {})[preset] = n
+        records[name]["launches"] = sum(
+            records[name]["launches_by_path"].values())
     if not any(r["event"] == "best" for r in logger.records):
-        fail("main path: no best checkpoint was saved")
-    saved = ckpt.load_best(cfg.train.checkpoint_dir, "chip_smoke",
+        fail(f"{tag}: no best checkpoint was saved")
+    saved = ckpt.load_best(cfg.train.checkpoint_dir, preset,
                            torch.device("cuda"))
     if not (same_state(saved, best_cache["state_dict"])
             and same_state(state.model.state_dict(), saved)):
-        fail("main path: the reloaded best differs from the saved checkpoint")
+        fail(f"{tag}: the reloaded best differs from the saved checkpoint")
 
     # steady-state step time after warm-up, host clock around synchronize
     batches = [batch_to_device(cut_batch(train, np.arange(i * B, (i + 1) * B),
@@ -459,20 +744,20 @@ def phase_main_path(records: dict) -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
     if not math.isfinite(float(metrics["loss"])):
-        fail("main path: timed steps gave a non-finite loss")
-    print(f"main path step b{B}xs{L}: {ms:.2f} ms/step, "
+        fail(f"{tag}: timed steps gave a non-finite loss")
+    print(f"{tag} step b{B}xs{L}: {ms:.2f} ms/step, "
           f"{B / ms * 1e3:.1f} pairs/s", flush=True)
     profile_steps(train_step, state, batches, ms)
 
     # the timed steps moved the params; a train_epochs call of no epochs and
     # no in-memory cache reloads the best from disk
     if same_state(state.model.state_dict(), saved):
-        fail("main path: the timed steps left the params unchanged")
+        fail(f"{tag}: the timed steps left the params unchanged")
     state, _ = train_epochs(cfg, state, train_step, eval_step, train, test,
-                            unpred, "chip_smoke", epochs=0, logger=logger)
+                            unpred, preset, epochs=0, logger=logger)
     if not same_state(state.model.state_dict(), saved):
-        fail("main path: the reload from disk differs from the checkpoint")
-    print("main path: best checkpoint saved, reloaded from memory and from "
+        fail(f"{tag}: the reload from disk differs from the checkpoint")
+    print(f"{tag}: best checkpoint saved, reloaded from memory and from "
           "disk, equal to the saved state_dict", flush=True)
 
 
@@ -522,9 +807,15 @@ def main() -> int:
     phase_build()
     records: dict = {}
     phase_mmd(records)
+    phase_hsic(records)
     phase_bow(records)
-    phase_reference()
-    phase_main_path(records)
+    phase_scores()
+    for preset in PATH_KERNELS:
+        phase_reference(preset)
+    phase_path(records, "ec_mmd_final_mul_newsplit_emnlp", 1,
+               "temporal_order_modification")
+    torch.cuda.empty_cache()
+    phase_path(records, "ec_hsic", 2, "random")
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -85,6 +85,24 @@ def write_newsplit_corpus(root: str, seed: int = 0, n_train: int = 24,
         tdata.write_ecpe_file(path, docs)
 
 
+def write_oldsplit_corpus(root: str, seed: int = 0, n_train: int = 24,
+                          n_test: int = 16) -> None:
+    """The zh old-split layout that pipeline.resolve_paths expects for the
+    ec_hsic preset (society_num -> education)."""
+    paths = {
+        "domains/THUCTC_multiple/society_num.txt": synth_docs(seed, n_train),
+        "pair_data/emotion/education.txt":
+            synth_docs(seed + 1, n_test, predicted=True),
+    }
+    paths["data/all_data_pair_zh.txt"] = (
+        paths["domains/THUCTC_multiple/society_num.txt"]
+        + synth_docs(seed + 2, n_train))
+    for rel, docs in paths.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tdata.write_ecpe_file(path, docs)
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("zh_corpus"))

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K4 against their plain PyTorch versions,
+"""The hand-written CUDA kernels K1-K6 against their plain PyTorch versions,
 on the card. Every test here is marked ``cuda`` and skips without a GPU (the
 kernels have no CPU mode). This file imports nothing of JAX, so it also runs
 on a GPU machine without JAX:
@@ -6,7 +6,10 @@ on a GPU machine without JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
 Tolerances: values rtol 1e-5; grads normwise relative error 1e-5 (MMD) and
-1e-4 (BoW), the gates of chip_smoke.py.
+1e-4 (BoW, HSIC), the gates of chip_smoke.py. HSIC (K5/K6 compute in
+double) is held against its plain version evaluated in float64 on the same
+inputs: with tight latents the plain fp32 version itself is off by ~3e-4
+(tests/test_torch_hsic.py).
 """
 
 import numpy as np
@@ -77,6 +80,38 @@ def test_mmd_kernels_match_plain(cuda, B, masked):
             assert float(a[-masked:].abs().max()) == 0.0
 
 
+def _hsic_problem(device, B, masked, scale, d=24, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(B, d)) * scale).astype(np.float32)
+    y = (rng.normal(size=(B, d)) * 1.3 * scale + 0.1 * scale).astype(
+        np.float32)
+    mask = np.ones(B, np.float32)
+    mask[B - masked:] = 0.0
+    return tuple(torch.tensor(a, device=device) for a in (x, y, mask))
+
+
+@pytest.mark.parametrize("scale", [0.2, 0.2e-2])
+@pytest.mark.parametrize("B,masked", [(64, 0), (61, 3), (13, 2)])
+def test_hsic_kernels_match_plain(cuda, B, masked, scale):
+    x, y, mask = _hsic_problem(cuda, B, masked, scale)
+    xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
+    xp = x.double().requires_grad_()
+    yp = y.double().requires_grad_()
+    ops.reset_launch_counts()
+    vk = cuda_pairwise.hsic_statistic(xk, yk, 1.0, 0.7, mask)
+    gk = torch.autograd.grad(vk, (xk, yk))
+    assert ops.launch_counts()["hsic_fwd"] == 1
+    assert ops.launch_counts()["hsic_bwd"] == 1
+    vp = cuda_pairwise.hsic_plain(xp, yp, 1.0, 0.7, mask.double())
+    gp = torch.autograd.grad(vp, (xp, yp))
+    vk, vp = float(vk.detach()), float(vp.detach())
+    assert abs(vk - vp) <= 1e-5 * abs(vp)
+    for a, c in zip(gk, gp):
+        assert _relnorm(a, c) <= 1e-4
+        if masked:
+            assert float(a[-masked:].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("V", [23808, 700])
 def test_bow_kernels_match_plain(cuda, V):
     h, W, b, idx, wts, mask = _bow_problem(cuda, V=V)
@@ -102,6 +137,36 @@ def test_kernels_repeat_bit_for_bit(cuda):
     h, W, bias, *_ = _bow_problem(cuda)
     assert torch.equal(cuda_bow.bow_forward_kernel(h, W, bias),
                        cuda_bow.bow_forward_kernel(h, W, bias))
+    x, y, mask = _hsic_problem(cuda, 61, 3, 0.2)
+    a, res_a = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
+    b, res_b = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
+    assert torch.equal(a, b) and torch.equal(res_a, res_b)
+    g = torch.ones((), device=cuda)
+    da = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_a, g)
+    db = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_b, g)
+    assert all(torch.equal(u, v) for u, v in zip(da, db))
+
+
+def test_attention_scores_match_the_upcast_product(cuda):
+    """Not a hand-written kernel: the encoder's bf16 scores on CUDA (the
+    tensor-core GEMM with an fp32 output) against the fp32 product of the
+    upcast q and k, which the CPU runs; both sum the exact bf16 products in
+    fp32. Forward and backward, normwise 1e-5."""
+    from carel_tpu_torch.models.encoder import attention_scores, scores_upcast
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k = (torch.randn(2, 3, 40, 16, device=cuda, generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    g = torch.randn(2, 3, 40, 40, device=cuda, generator=gen)
+    got = []
+    for fn in (attention_scores, scores_upcast):
+        leaves = (q.clone().requires_grad_(), k.clone().requires_grad_())
+        s = fn(*leaves)
+        got.append((s.detach(), *torch.autograd.grad(s, leaves, g)))
+    assert got[0][0].dtype == torch.float32
+    assert got[0][1].dtype == torch.bfloat16
+    for a, c in zip(*got):
+        assert _relnorm(a, c) <= 1e-5
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -118,3 +183,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     h, W, b, *_ = _bow_problem(cuda, V=100)
     with pytest.raises(ValueError, match="shape"):
         cuda_bow.bow_forward_kernel(h, W, b[:50])
+    with pytest.raises(TypeError):
+        cuda_pairwise.hsic_forward_kernel(x.double(), y, mask, 1.0, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_pairwise.hsic_forward_kernel(x.T.contiguous().T, y, mask, 1.0,
+                                          1.0)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_pairwise.hsic_forward_kernel(x, y, mask[:4], 1.0, 1.0)
+    with pytest.raises(ValueError, match="sigmas"):
+        cuda_pairwise.hsic_forward_kernel(x, y, mask, 0.0, 1.0)
+    with pytest.raises(ValueError, match="exceeds"):
+        wide = torch.zeros(8, 40, device=cuda)
+        cuda_pairwise.hsic_forward_kernel(wide, wide, mask, 1.0, 1.0)
+    _, res = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
+    with pytest.raises(ValueError, match="residual"):
+        cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res.float(),
+                                           torch.ones((), device=cuda))

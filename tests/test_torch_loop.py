@@ -1,6 +1,8 @@
-"""The port's host loop and CLI: metrics against the JAX package, a CPU run
-of ``python -m carel_tpu_torch.cli train`` on a synthetic zh corpus in the
-newsplit layout, and the entry points' refusal to fall back to the CPU."""
+"""The port's host loop and CLI: metrics against the JAX package, CPU runs
+of ``python -m carel_tpu_torch.cli train`` on synthetic zh corpora (the
+flagship in the newsplit layout, ec_hsic in the old-split layout), through
+base training, evaluation and self-training, and the entry points' refusal
+to fall back to the CPU."""
 
 import json
 import os
@@ -23,7 +25,7 @@ from carel_tpu_torch.pipeline import init_state
 from carel_tpu_torch.train.loop import train_epochs
 from carel_tpu_torch.train.metrics import prf_with_forced_misses
 from carel_tpu_torch.train.steps import make_train_step
-from tests.test_torch_data import write_newsplit_corpus
+from tests.test_torch_data import write_newsplit_corpus, write_oldsplit_corpus
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -69,18 +71,66 @@ def test_cli_train_runs_on_cpu(tmp_path):
         assert (tmp_path / "ckpt" / f"{summary['model_id']}_best.pt").exists()
 
 
-def test_train_without_device_flag_needs_a_gpu(tmp_path, monkeypatch):
+@pytest.mark.parametrize("preset", ["ec_mmd_final_mul_newsplit_emnlp",
+                                    "ec_hsic"])
+def test_train_without_device_flag_needs_a_gpu(tmp_path, monkeypatch,
+                                               preset):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _train_args(tmp_path / "corpus", tmp_path)
+    args[args.index("--preset") + 1] = preset
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(_train_args(tmp_path / "corpus", tmp_path))
+        main(args)
     assert not (tmp_path / "cache").exists()  # raised before any work
 
 
-def test_train_refuses_self_training(tmp_path):
-    args = _train_args(tmp_path / "corpus", tmp_path)
-    args[args.index("--self_iteration") + 1] = "50"
-    with pytest.raises(NotImplementedError, match="self-training"):
-        main(args + ["--device", "cpu"])
+def _self_train_run(tmp_path, capsys, preset, write_corpus, iterations,
+                    extra=()):
+    """train --self_iteration N in this process; returns the JSON summary
+    and the logged events."""
+    root = tmp_path / "corpus"
+    write_corpus(str(root))
+    args = _train_args(root, tmp_path)
+    args[args.index("--preset") + 1] = preset
+    args[args.index("--self_iteration") + 1] = str(iterations)
+    assert main(args + ["--self_epochs", "1", "--device", "cpu",
+                        "--track_memorization", *extra]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    logs = list((tmp_path / "logs").glob("*.jsonl"))
+    assert len(logs) == 1
+    events = [json.loads(line) for line in logs[0].read_text().splitlines()]
+    names = [e["event"] for e in events]
+    base = names.index("base_done")
+    assert names[0] == "config" and "eval" in names[:base]
+    assert names.count("selftrain_iter") == iterations
+    assert names.count("selftrain_best") == iterations
+    assert names.count("memorization") == iterations
+    assert names[-1] == "self_done"
+    # one fine-tune epoch per iteration, each with its own evaluation
+    assert names[base:].count("eval") == iterations
+    for e in events:
+        if e["event"] == "selftrain_iter":
+            assert e["pseudo_pairs"] > 0 and e["pseudo_pairs"] % 2 == 0
+    assert 0.0 <= summary["base_f1"] <= 1.0
+    assert summary["best_f1"] == events[-1]["f1"]
+    return summary, events
+
+
+def test_cli_train_hsic_self_trains_on_cpu(tmp_path, capsys):
+    """ec_hsic: zh old split (society_num -> education), binary emotion,
+    HSIC regularizer, random strategy; two self-training iterations."""
+    _, events = _self_train_run(tmp_path, capsys, "ec_hsic",
+                                write_oldsplit_corpus, 2)
+    config = events[0]
+    assert config["test_pairs"] > 0 and config["num_unpred"] > 0
+
+
+def test_cli_train_flagship_self_trains_on_cpu(tmp_path, capsys):
+    """The flagship with temporal_order_modification, one iteration, with
+    --self_lr and --self_anchor_base: the best then starts from the base."""
+    summary, _ = _self_train_run(
+        tmp_path, capsys, "ec_mmd_final_mul_newsplit_emnlp",
+        write_newsplit_corpus, 1, ("--self_lr", "5e-4", "--self_anchor_base"))
+    assert summary["best_f1"] >= summary["base_f1"]
 
 
 def test_presets_lists_all(capsys):

@@ -1,11 +1,13 @@
 """The port's encoder and DrlModel against the JAX ones, from the same
 weights (carel_tpu_torch.convert), in fp32 at tiny widths with dropout 0.
 Tolerance: atol 1e-5 on every output (both sides compute in fp32; the sums
-run in another order)."""
+run in another order). One test runs a bf16 attention layer, with its own
+tolerance."""
 
 import math
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -67,6 +69,39 @@ def test_encoder_matches_jax(arch):
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(t_pooled.numpy(), np.asarray(j_pooled),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_bf16_attention_scores_accumulate_in_fp32(scale):
+    """One bf16 self-attention layer of the tiny encoder, JAX against the
+    port, on the same bf16 input and converted weights, dropout 0. JAX sums
+    q @ k^T into fp32 (preferred_element_type); rounding the scores to bf16
+    before the softmax, as the port once did under autocast, gave a
+    normwise relative error of 4.3e-3 (scale 1) and 6.0e-3 (scale 4) on the
+    attention output; with fp32 scores the error is 0.0 at both scales.
+    Tolerance 1e-3, between the two."""
+    from carel_tpu.models.encoder import SelfAttention as JSelfAttention
+
+    from carel_tpu_torch.models.encoder import SelfAttention
+
+    kw = dict(vocab_size=VOCAB, dropout=0.0, dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(size=(4, 16, 64)) * scale, jnp.bfloat16)
+    mask = np.ones((4, 16), np.float32)
+    mask[1, 10:] = 0.0
+    bias = ((1.0 - mask) * -1e9)[:, None, None, :]
+    jattn = JSelfAttention(j_tiny(**kw))
+    variables = jattn.init(jax.random.key(0), x, jnp.asarray(bias), True)
+    want = np.asarray(jattn.apply(variables, x, jnp.asarray(bias), True)
+                      .astype(jnp.float32))
+    tattn = SelfAttention(tiny_encoder_config(**kw))
+    tattn.load_state_dict(jax_params_to_state_dict(_np_params(variables)))
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        got = tattn(torch.tensor(np.asarray(x.astype(jnp.float32)))
+                    .bfloat16(), torch.tensor(bias), True)
+    got = got.float().numpy()
+    err = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err <= 1e-3, err
 
 
 @pytest.mark.parametrize("arch", ["bert", "roberta"])

@@ -127,14 +127,17 @@ def test_cpu_tensors_take_the_plain_version():
     got = cuda_pairwise.mmd_statistic(torch.tensor(x), torch.tensor(y),
                                       (0.1,), torch.tensor(mask))
     assert float(got) == float(want)
+    x, y, mask = (torch.tensor(a) for a in (x, y, mask))
+    assert float(cuda_pairwise.hsic_statistic(x, y, 1.0, 0.7, mask)) == \
+        float(cuda_pairwise.hsic_plain(x, y, 1.0, 0.7, mask))
     h, W, b, idx, wts, mask = _bow_problem(B=4, V=50, T=3, masked=1)
     args = (torch.tensor(h), torch.tensor(np.ascontiguousarray(W.T)),
             torch.tensor(b), torch.tensor(idx), torch.tensor(wts), 0.1,
             torch.tensor(mask))
     assert float(cuda_bow.fused_bow_loss(*args)) == \
         float(cuda_bow.fused_bow_loss_plain(*args))
-    assert ops.launch_counts() == {"mmd_fwd": 0, "mmd_bwd": 0, "bow_fwd": 0,
-                                   "bow_bwd": 0}
+    assert ops.launch_counts() == {"mmd_fwd": 0, "mmd_bwd": 0, "hsic_fwd": 0,
+                                   "hsic_bwd": 0, "bow_fwd": 0, "bow_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -1,9 +1,12 @@
-"""One MMD training step of the port against the JAX step, from identical
-params and batch, on the CPU at tiny widths.
+"""One training step of the port against the JAX step, from identical
+params and batch, on the CPU at tiny widths, for the mmd and the hsic
+regularizers. The hsic case runs as the ec_hsic preset does, with the binary
+emotion head, and with emo_mul_loss_weight != cau_mul_loss_weight, so that
+the cause term taking the EMOTION weight under hsic is held.
 
 JAX side: value_and_grad over model.apply(deterministic=True, sample=False,
 compute_recon=False) + vae_and_classifier_loss(ops_impl="pallas", fused MMD
-and BoW in interpret mode) + create_train_state(...).apply_main. Port side:
+or HSIC and BoW in interpret mode) + create_train_state(...).apply_main. Port side:
 make_train_step with dropout 0 and zero sampling noise, which is sample=False
 (z = mu + 0 * exp(log_var), and no gradient reaches log_var through z).
 
@@ -30,6 +33,7 @@ from carel_tpu.config import CarelConfig as JCarelConfig
 from carel_tpu.config import DataConfig as JDataConfig
 from carel_tpu.config import LossConfig as JLossConfig
 from carel_tpu.config import ModelConfig as JModelConfig
+from carel_tpu.config import Regularizer as JRegularizer
 from carel_tpu.config import TrainConfig as JTrainConfig
 from carel_tpu.losses.vae import annealed_kl_weight as j_kl_weight
 from carel_tpu.models.drl import DrlModel as JDrlModel
@@ -50,18 +54,22 @@ VOCAB, BOW, EC, B, L = 128, 300, 8, 8, 16
 LR = 1e-3
 
 
-def _cfgs():
+def _cfgs(reg: str):
     enc = dict(vocab_size=VOCAB, dropout=0.0)
+    binary = reg == "hsic"
+    # unequal emotion and cause weights tell the hsic weighting apart
+    loss = dict(emo_mul_loss_weight=7.0, cau_mul_loss_weight=3.0) \
+        if reg == "hsic" else {}
     j = JCarelConfig(
         model=JModelConfig(encoder=j_tiny(**enc), ec_dim=EC, bow_dim=BOW,
-                           dropout=0.0),
-        loss=JLossConfig(),
+                           dropout=0.0, binary_emotion=binary),
+        loss=JLossConfig(regularizer=JRegularizer(reg), **loss),
         data=JDataConfig(max_len=L),
         train=JTrainConfig(batch_size=B, vae_lr=LR, donate=False))
     t = CarelConfig(
         model=ModelConfig(encoder=tiny_encoder_config(**enc), ec_dim=EC,
-                          bow_dim=BOW, dropout=0.0),
-        loss=LossConfig(regularizer=Regularizer.MMD),
+                          bow_dim=BOW, dropout=0.0, binary_emotion=binary),
+        loss=LossConfig(regularizer=Regularizer(reg), **loss),
         data=DataConfig(max_len=L),
         train=TrainConfig(batch_size=B, vae_lr=LR))
     return j, t
@@ -111,9 +119,9 @@ def _adam_moments(opt_state, params):
                  for t in (adam[0].mu, adam[0].nu))
 
 
-@pytest.fixture(scope="module")
-def both_steps():
-    jcfg, tcfg = _cfgs()
+@pytest.fixture(scope="module", params=["mmd", "hsic"])
+def both_steps(request):
+    jcfg, tcfg = _cfgs(request.param)
     batch = _batch()
     jm = JDrlModel(jcfg.model)
     params = jm.init({"params": jax.random.key(0), "sample": jax.random.key(1)},
@@ -148,7 +156,7 @@ def both_steps():
         j_mu=jax_params_to_state_dict(j_mu),
         j_nu=jax_params_to_state_dict(j_nu),
         t_metrics={k: float(v) for k, v in t_metrics.items()},
-        state=state, before=before)
+        state=state, before=before, reg=request.param)
 
 
 def test_loss_and_metrics_match(both_steps):
@@ -164,6 +172,13 @@ def test_loss_and_metrics_match(both_steps):
             want, got = want / j_w, got / t_w
         np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=k)
     assert tm["reg_loss"] != 0.0 and tm["recon_loss"] > 0.0
+    if both_steps["reg"] == "hsic":
+        # the cause term takes the emotion weight: 7 * (emo + cau)
+        rest = (tm["reg_loss"] + 30.0 * tm["pair_loss"] + tm["kl_emotion"]
+                + tm["kl_cause"] + tm["recon_loss"])
+        np.testing.assert_allclose(
+            tm["loss"], rest + 7.0 * (tm["emo_loss"] + tm["cau_loss"]),
+            rtol=1e-6)
 
 
 def test_grads_match(both_steps):
