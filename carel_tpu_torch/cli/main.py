@@ -1,15 +1,21 @@
-"""Command-line entry points of the port: ``train`` and ``presets``.
+"""Command-line entry points of the port: ``train``, ``infer`` and
+``presets``.
 
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
         --data_root /path/to/corpora [--device cuda]
     python -m carel_tpu_torch.cli train --preset ec_hsic --data_root ...
+    python -m carel_tpu_torch.cli infer --preset ... --data_root ... \\
+        --model_id <id printed by train> [--output_dir pair_data/ec_pair]
     python -m carel_tpu_torch.cli presets
 
 ``train`` runs the base epochs with per-epoch evaluation and best
 checkpointing, then ``--self_iteration`` self-training iterations (the
-presets' default is 50; 0 skips them). It runs on the GPU unless
-``--device cpu`` is given, and raises when no GPU is there. The last line of
-``train`` is the JSON summary the JAX CLI prints.
+presets' default is 50; 0 skips them). ``infer`` loads the best checkpoint
+of ``--model_id`` (random weights without it), scores every pair of the test
+file in fixed-size batches and, with ``--output_dir``, writes the true/pred
+pickles. Both run on the GPU unless ``--device cpu`` is given, and raise
+when no GPU is there. The last line of each is the JSON summary the JAX CLI
+prints.
 """
 
 from __future__ import annotations
@@ -95,7 +101,7 @@ def _keep_fraction(value: str) -> float:
     return v
 
 
-def _add_train_args(p: argparse.ArgumentParser) -> None:
+def _add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default="ec_mmd_final_mul_newsplit_emnlp",
                    choices=sorted(PRESETS))
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -235,6 +241,40 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_infer(args) -> int:
+    from carel_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(PRESETS[args.preset], args)
+
+    import torch
+
+    from carel_tpu_torch.infer import run_pair_inference
+    from carel_tpu_torch.pipeline import build_pipeline, init_state
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.steps import make_eval_step
+
+    enc = _encoder_preset(args.encoder, cfg.data.language)
+    pipe = build_pipeline(cfg, cache_dir=args.cache_dir, encoder_cfg=enc,
+                          max_test_docs=args.max_test_docs)
+    cfg = pipe.cfg
+    model = init_state(cfg, device).model
+    if args.model_id:
+        model.load_state_dict(ckpt.load_best(cfg.train.checkpoint_dir,
+                                             args.model_id, device))
+    res = run_pair_inference(
+        make_eval_step(), model, pipe.test_pairs, pipe.test_arrays,
+        torch.Generator(device=device).manual_seed(0),
+        cfg.train.eval_batch_size, output_dir=args.output_dir,
+        model_id=args.model_id or pipe.model_id)
+    print(json.dumps({
+        "precision": res.precision, "recall": res.recall, "f1": res.f1,
+        "p50_batch_ms": res.p50_batch_ms, "p95_batch_ms": res.p95_batch_ms,
+        "pairs_per_sec": res.pairs_per_sec,
+    }))
+    return 0
+
+
 def cmd_presets(_args) -> int:
     for name, cfg in sorted(PRESETS.items()):
         print(f"{name}: regularizer={cfg.loss.regularizer.value}, "
@@ -247,8 +287,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="carel_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     p_train = sub.add_parser("train", help="stage-2 DRL pair classifier")
-    _add_train_args(p_train)
+    _add_common_args(p_train)
     p_train.set_defaults(fn=cmd_train)
+    p_inf = sub.add_parser("infer", help="batched pair inference")
+    _add_common_args(p_inf)
+    p_inf.add_argument("--model_id", default="")
+    p_inf.add_argument("--output_dir", default="")
+    p_inf.set_defaults(fn=cmd_infer)
     p_pre = sub.add_parser("presets", help="list presets")
     p_pre.set_defaults(fn=cmd_presets)
     return parser

@@ -8,9 +8,9 @@ drl_classifier_ec_mmd_final_mul_newsplit_emnlp.py:30-70 for the newsplit extras)
 
 The dataclasses and presets are kept field for field with the JAX package so a
 preset means the same run in both. Fields that only the JAX package reads
-(remat, attention_impl, rng_impl, optim_mu_dtype, donate, scan_epoch,
-num_devices, mesh_shape, profile_dir, debug_nans, save_state_every) are
-carried but ignored here.
+(remat, rng_impl, optim_mu_dtype, donate, scan_epoch, num_devices,
+mesh_shape, profile_dir, debug_nans, save_state_every) are carried but
+ignored here.
 """
 
 from __future__ import annotations
@@ -90,8 +90,10 @@ class EncoderConfig:
     # compute dtype; params stay float32
     dtype: str = "bfloat16"
     remat: bool = False  # jax.checkpoint the encoder layers
-    # attention implementation: "xla" (fused by the compiler) or "flash"
-    # (the stock Pallas TPU flash-attention kernel; TPU only)
+    # attention implementation: "xla" (plain ops: fp32 scores, softmax,
+    # dropout on the probabilities) or "flash" (the hand-written flash
+    # attention kernels K7-K9 on CUDA, their plain version on the CPU; a
+    # segment mask and no dropout on the probabilities)
     attention_impl: str = "xla"
 
 

@@ -10,7 +10,8 @@ passed through ``np.asarray``). Layouts (carel_tpu/models/hf_port.py:10-14):
 - Embed ``embedding`` -> weight; LayerNorm ``scale`` -> weight.
 
 Module paths match except the encoder layers: ``layer_{i}`` ->
-``layers.{i}``.
+``layers.{i}``. ``attention_impl="flash"`` adds no parameters, so the same
+keys serve both attention paths.
 """
 
 from __future__ import annotations

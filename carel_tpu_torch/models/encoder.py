@@ -6,8 +6,15 @@ Kept from the JAX encoder:
 - token-type embeddings, the embeddings LayerNorm (eps 1e-12);
 - the -1e9 additive mask bias, in fp32;
 - a fused qkv projection whose output is laid out (3, heads, head_dim);
-- attention as plain ops: scores accumulated in fp32 from the (bf16) q and
-  k, softmax, dropout on the probabilities, probabilities @ values;
+- attention as plain ops (``attention_impl="xla"``, the default): scores
+  accumulated in fp32 from the (bf16) q and k, softmax, dropout on the
+  probabilities, probabilities @ values;
+- ``attention_impl="flash"``: flash attention with the stock kernel's
+  segment mask and no dropout on the probabilities
+  (``ops/cuda_attention.py``: kernels K7-K9 on CUDA, its plain version on
+  the CPU), on every device. Without dropout both paths give the same
+  pooled output and hidden states at real positions; at pad positions they
+  differ, since a pad query attends to pad keys under the segment mask;
 - exact-erf GELU, post-LN residuals, and a dense+tanh pooler over [CLS].
 
 With ``dtype="bfloat16"`` the encoder runs under bf16 autocast with LayerNorm
@@ -27,6 +34,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from carel_tpu_torch.config import EncoderConfig
+from carel_tpu_torch.ops.cuda_attention import (flash_attention_packed,
+                                                segment_ids)
+
+ATTENTION_IMPLS = ("xla", "flash")
 
 # std of a standard normal truncated to [-2, 2]; Flax's lecun_normal divides
 # by it so the truncated draw keeps variance 1/fan_in
@@ -94,6 +105,10 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        if cfg.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {cfg.attention_impl!r}: use "
+                             f"one of {ATTENTION_IMPLS}")
+        self.impl = cfg.attention_impl
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_dim // cfg.num_heads
         self.dropout = cfg.dropout
@@ -102,8 +117,13 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 deterministic: bool) -> torch.Tensor:
+        """``bias`` is the additive fp32 mask bias [B, 1, 1, L] under "xla"
+        and the int32 segment ids [B, L] under "flash"."""
         B, L, D = x.shape
         qkv = self.qkv(x).view(B, L, 3, self.num_heads, self.head_dim)
+        if self.impl == "flash":
+            return self.out(flash_attention_packed(
+                qkv, bias, 1.0 / math.sqrt(self.head_dim)))
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, h, L, hd]
         # fp32 sums of the bf16 q, k products, as JAX's
         # preferred_element_type=float32 gives them; autocast must not cast
@@ -183,9 +203,13 @@ class TransformerEncoder(nn.Module):
             x = self.embeddings_ln(x).to(dtype)
             x = F.dropout(x, cfg.dropout, training=not deterministic)
 
-            # additive mask bias, fp32 so the softmax stays stable
-            bias = (1.0 - attention_mask.float()) * -1e9
-            bias = bias[:, None, None, :]
+            if cfg.attention_impl == "flash":
+                # the flash path masks by segment: real tokens 1, pads 0
+                bias = segment_ids(attention_mask)
+            else:
+                # additive mask bias, fp32 so the softmax stays stable
+                bias = (1.0 - attention_mask.float()) * -1e9
+                bias = bias[:, None, None, :]
             for layer in self.layers:
                 x = layer(x, bias, deterministic, dtype)
             pooled = torch.tanh(self.pooler(x[:, 0]))

@@ -7,18 +7,22 @@ kernels that replace the JAX package's Pallas kernels.
   and HSIC, kernels K5 (forward) and K6 (backward);
 - ``cuda_bow``: fused BoW decoder loss, kernels K3 (forward) and K4
   (backward);
+- ``cuda_attention``: flash attention with a segment mask, kernels K7
+  (forward), K8 (dK, dV) and K9 (dQ), behind ``attention_impl="flash"``;
 - ``native``: builds ``csrc/*.cu`` with nvcc at first use and loads it.
 """
 
-from carel_tpu_torch.ops import cuda_bow, cuda_pairwise
+from carel_tpu_torch.ops import cuda_attention, cuda_bow, cuda_pairwise
+
+_COUNTS = (cuda_pairwise.launches, cuda_bow.launches, cuda_attention.launches)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launch_counts``."""
-    return {**cuda_pairwise.launches, **cuda_bow.launches}
+    return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (cuda_pairwise.launches, cuda_bow.launches):
+    for counts in _COUNTS:
         for name in counts:
             counts[name] = 0

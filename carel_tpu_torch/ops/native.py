@@ -54,6 +54,15 @@ _SIGNATURES = {
     "carel_bow_bwd_scratch": ([_I, _I, _I], _LL),
     "carel_bow_fwd": ([_P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
     "carel_bow_bwd": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "carel_flash_takes_head_dim": ([_I], _I),
+    # q k v seg o lse | B h L hd | strides of qkv, o | scale is_bf16 stream
+    "carel_flash_fwd": ([_P] * 6 + [_I] * 4 + [_LL] * 6 + [_F, _I, _P], _I),
+    # q k v seg o do lse delta dq | B h L hd | strides of qkv, o, do, dq | ...
+    "carel_flash_bwd_dq": ([_P] * 9 + [_I] * 4 + [_LL] * 12 + [_F, _I, _P],
+                           _I),
+    # q k v seg do lse delta dk dv | B h L hd | strides of qkv, do, dkv | ...
+    "carel_flash_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_LL] * 9 + [_F, _I, _P],
+                            _I),
 }
 
 _lib = None
@@ -134,13 +143,14 @@ def lib() -> ctypes.CDLL:
 
 
 def check_input(t: torch.Tensor, name: str, shape: tuple,
-                device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of this shape on
-    ``device`` — what the kernels take."""
+                device: torch.device,
+                dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this dtype (float32
+    unless given) and shape on ``device`` — what the kernels take."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

@@ -6,16 +6,21 @@ Phases, in order; any failure exits non-zero and no phase carries on after
 an error:
 
 1. device: require CUDA; print the nvidia-smi name and power limit line;
-2. build: compile the hand-written kernels K1-K6 from carel_tpu_torch/csrc;
+2. build: compile the hand-written kernels K1-K9 from carel_tpu_torch/csrc;
 3. kernels: hold each kernel against its plain PyTorch version at the shapes
    of the training step (fp32; HSIC against the plain version evaluated in
    float64, at two input scales), print errors, median times by CUDA events
    and the plain version's time; hold the encoder's fp32 attention scores
    (bf16 tensor-core GEMM with an fp32 output) against the product of the
-   upcast q and k;
+   upcast q and k; hold the flash attention kernels K7-K9 against their
+   plain version in fp32 and bf16, at the training and the inference shape
+   and at a ragged tiny one, with pad tails, an all-pad row and a row
+   without pads, in the stock and the packed layout, and require two runs
+   to give the same bits;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights and batch, under the
-   flagship's MMD and under ec_hsic; loss and updated weights must agree;
+   flagship's MMD (with the default and the flash attention) and under
+   ec_hsic; loss and updated weights must agree;
 5. main paths, each at full width (12L/768H encoder, vocab 21,128, ec_dim
    24, BoW vocab 23,808, max_len 96, batch 64) on random weights from a
    seed, on a synthetic target domain (documents of 3-12 clauses with all
@@ -28,7 +33,16 @@ an error:
    - the flagship preset (MMD: K1-K4), one self-training iteration with
      temporal_order_modification;
    - ec_hsic (binary emotion, HSIC: K3-K6), two self-training iterations of
-     one epoch each with the random strategy.
+     one epoch each with the random strategy;
+   - the flagship preset with attention_impl="flash" (K1-K4 and K7-K9),
+     train then serve: one base epoch, evaluation and the best checkpoint
+     saved; the checkpoint loaded into a fresh model; run_pair_inference
+     over the test pairs at batch 512, whose probabilities and P/R/F1 must
+     equal evaluate's on the same model and seed; PairScorer.score_texts and
+     extract_document on synthetic zh strings. K7 must launch once per layer
+     on every training step and every evaluation, inference and scoring
+     batch, K8 and K9 once per layer on every training step, and no flash
+     kernel on the two paths above.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` is the sum over the main paths, ``launches_by_path`` splits
@@ -51,6 +65,7 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -64,6 +79,7 @@ def fail(msg: str) -> None:
 
 def relnorm(a: torch.Tensor, b: torch.Tensor) -> float:
     """Normwise relative error ||a - b|| / ||b||."""
+    a, b = a.detach(), b.detach()
     return float(torch.linalg.vector_norm((a - b).double())
                  / torch.linalg.vector_norm(b.double()))
 
@@ -85,9 +101,9 @@ def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -451,7 +467,210 @@ def phase_scores() -> None:
         fail(f"scores: tensor-core path off the upcast by {max(errs):.2e}")
 
 
-def tiny_config(preset: str):
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# Normwise gates on K7-K9 against the plain version evaluated in fp32 from
+# the same inputs. fp32 inputs: only the order of the sums differs. bf16
+# inputs: the kernels round exp(s - max) (K7), p and ds (K8, K9) and their
+# results to bf16, each rounding 2^-9 relative at most; the gates are three
+# times the errors measured on the card (output 2.0e-3, gradients 2.6e-3).
+FLASH_GATES = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (6e-3, 8e-3)}
+
+
+def flash_inputs(B: int, h: int, L: int, hd: int, dtype, seed: int):
+    """q, k, v and a cotangent, N(0, 1) from a seed, and a mask with pad
+    tails of varied length: row 0 has no pads, row 1 is all pads."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn(B, h, L, hd, device="cuda", generator=gen)
+                  .to(dtype) for _ in range(4))
+    lengths = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    lengths[0], lengths[1] = L, 0
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lengths[:, None]).to(torch.int32)
+    return q, k, v, g, mask
+
+
+def pack_heads(q, k, v):
+    """[B, h, L, hd] x 3 -> the encoder's packed projection [B, L, 3, h,
+    hd]."""
+    return torch.stack([t.transpose(1, 2) for t in (q, k, v)],
+                       dim=2).contiguous()
+
+
+def flash_case(B: int, h: int, L: int, hd: int, dtype, backward: bool):
+    """K7 (and K8/K9) against the plain version at one shape; returns the
+    largest absolute errors of the output and of the gradients."""
+    from carel_tpu_torch.ops import cuda_attention as ca
+
+    q, k, v, g, mask = flash_inputs(B, h, L, hd, dtype, seed=B + L)
+    scale = 1.0 / math.sqrt(hd)
+    name = f"flash {str(dtype).split('.')[-1]} [{B}, {h}, {L}, {hd}]"
+
+    def run_kernels():
+        leaves = [t.clone().requires_grad_(backward) for t in (q, k, v)]
+        out = ca.flash_attention(*leaves, mask, scale)
+        grads = torch.autograd.grad(out, leaves, g) if backward else ()
+        return (out.detach(), *grads)
+
+    got = run_kernels()
+    if not all(torch.equal(a, b) for a, b in zip(got, run_kernels())):
+        fail(f"{name}: two runs differ")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        fail(f"{name}: non-finite values (row 1 is all pads)")
+
+    # the packed layout reads the same values through other strides
+    qkv = pack_heads(q, k, v).requires_grad_(backward)
+    ctx = ca.flash_attention_packed(qkv, mask, scale)
+    packed = [ctx.detach().view(B, L, h, hd).transpose(1, 2)]
+    if backward:
+        (dqkv,) = torch.autograd.grad(
+            ctx, qkv, g.transpose(1, 2).reshape(B, L, h * hd))
+        packed += [t.transpose(1, 2) for t in dqkv.unbind(2)]
+    if not all(torch.equal(a, b) for a, b in zip(got, packed)):
+        fail(f"{name}: the packed layout differs from the stock layout")
+
+    leaves = [t.float().clone().requires_grad_(backward) for t in (q, k, v)]
+    ref_out = ca.flash_attention_plain(*leaves, mask, scale)
+    ref = (ref_out.detach(), *(torch.autograd.grad(ref_out, leaves, g.float())
+                               if backward else ()))
+    errs = [relnorm(a.float(), b) for a, b in zip(got, ref)]
+    # the plain version on the inputs' own type rounds p where K7 does
+    own = ca.flash_attention_plain(q, k, v, mask, scale,
+                                   out_dtype=torch.float32)
+    err_own = relnorm(got[0].float(), own)
+    print(f"{name}: normwise rel vs plain in fp32: out {errs[0]:.2e}"
+          + (" dq {:.2e} dk {:.2e} dv {:.2e}".format(*errs[1:])
+             if backward else "")
+          + f"; out vs plain in the inputs' type {err_own:.2e}; two runs and "
+          "the packed layout bit-equal, all finite", flush=True)
+    gate_out, gate_grad = FLASH_GATES[dtype]
+    if not (errs[0] <= gate_out and err_own <= gate_out):
+        fail(f"{name}: output off the plain version by "
+             f"{max(errs[0], err_own):.2e} > {gate_out}")
+    if backward and not max(errs[1:]) <= gate_grad:
+        fail(f"{name}: gradients off the plain version by "
+             f"{max(errs[1:]):.2e} > {gate_grad}")
+    abs_out = float((got[0].float() - own).abs().max())
+    abs_grad = max((float((a.float() - b).abs().max())
+                    for a, b in zip(got[1:], ref[1:])), default=0.0)
+    return abs_out, abs_grad
+
+
+def phase_flash(records: dict) -> None:
+    """K7-K9 against the plain flash attention, then their times at the
+    shape and layout the training step gives them (bf16, packed)."""
+    import torch.nn.functional as F
+
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.ops import cuda_attention as ca
+
+    resolve_device("cuda")  # full-fp32 matmuls for the plain version
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, backward in (((64, 12, 96, 64), True),
+                                ((512, 12, 96, 64), False),
+                                ((5, 4, 37, 16), True)):
+            abs_out, abs_grad = flash_case(*shape, dtype, backward)
+            if dtype == torch.bfloat16:
+                worst["fwd"] = max(worst["fwd"], abs_out)
+                worst["bwd"] = max(worst["bwd"], abs_grad)
+
+    B, h, L, hd = 64, 12, 96, 64
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v, g, mask = flash_inputs(B, h, L, hd, torch.bfloat16, seed=1)
+    seg = ca.segment_ids(mask)
+    qkv = pack_heads(q, k, v)
+    qp, kp, vp = (t.transpose(1, 2) for t in qkv.unbind(2))
+    out = torch.empty(B, L, h, hd, dtype=q.dtype, device="cuda").transpose(1, 2)
+    dout = g.transpose(1, 2).contiguous().transpose(1, 2)
+    dqp, dkp, dvp = (t.transpose(1, 2)
+                     for t in torch.empty_like(qkv).unbind(2))
+    lse = ca.flash_forward_kernel(qp, kp, vp, seg, scale, out)
+    delta = ca.flash_backward_dq_kernel(qp, kp, vp, seg, out, dout, lse,
+                                        scale, dqp)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = ca.flash_attention_plain(*leaves, mask, scale)
+    same = (seg[:, None, :, None] == seg[:, None, None, :])
+    lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=same,
+                                             scale=scale)
+    lib_err = relnorm(lib_out.detach().float(), plain_out.detach().float())
+    print(f"scaled_dot_product_attention with the segment mask vs plain: "
+          f"normwise rel {lib_err:.2e}", flush=True)
+
+    def grad_ms(result, wrt):
+        return median_ms(lambda: torch.autograd.grad(result, wrt, g,
+                                                     retain_graph=True))
+
+    t = {
+        "flash_fwd": (
+            median_ms(lambda: ca.flash_forward_kernel(qp, kp, vp, seg, scale,
+                                                      out)),
+            median_ms(lambda: ca.flash_attention_plain(q, k, v, mask, scale)),
+            median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=same, scale=scale))),
+        "flash_bwd_dkv": (
+            median_ms(lambda: ca.flash_backward_dkv_kernel(
+                qp, kp, vp, seg, dout, lse, delta, scale, dkp, dvp)),
+            grad_ms(plain_out, leaves[1:]), grad_ms(lib_out, lib_leaves[1:])),
+        "flash_bwd_dq": (
+            median_ms(lambda: ca.flash_backward_dq_kernel(
+                qp, kp, vp, seg, out, dout, lse, scale, dqp)),
+            grad_ms(plain_out, leaves[:1]), grad_ms(lib_out, lib_leaves[:1])),
+    }
+    # least work: every tensor moved once; of the L * L pairs of a row only
+    # those inside one segment (real with real, pad with pad) need their
+    # products, each 2 * hd operations per product and ~8 for the softmax
+    real = mask.sum(dim=1).double()
+    pairs = float((real * real + (L - real) * (L - real)).sum()) * h
+    tensor = B * h * L * hd * q.element_size()
+    rows = 4 * B * h * L  # one fp32 vector of row terms (lse or delta)
+    work = {
+        # q, k, v, seg -> o, lse: the products s and p.v
+        "flash_fwd": (4 * tensor + 4 * B * L + rows,
+                      pairs * (4 * hd + 8)),
+        # q, k, v, do, seg, lse, delta -> dk, dv: s, dp, dv and dk
+        "flash_bwd_dkv": (6 * tensor + 4 * B * L + 2 * rows,
+                          pairs * (8 * hd + 8)),
+        # q, k, v, o, do, seg, lse -> dq, delta: s, dp and dq, and sum(o.do)
+        "flash_bwd_dq": (6 * tensor + 4 * B * L + 2 * rows,
+                         pairs * (6 * hd + 8) + 2 * B * h * L * hd),
+    }
+    print("flash least work: " + "; ".join(
+        f"{n} {nb} bytes, {fl:.0f} FLOP" for n, (nb, fl) in work.items()),
+        flush=True)
+    stock = {"flash_fwd": 331, "flash_bwd_dkv": 796, "flash_bwd_dq": 1146}
+    for name in FLASH_KERNELS:
+        ms, plain_ms, lib_ms = t[name]
+        bnd = bound_ms(*work[name], PEAK_BF16_FLOPS)
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "carel_tpu_torch/csrc/flash.cu",
+            "replaces": "carel_tpu/models/encoder.py:61 (jax/experimental/"
+                        f"pallas/ops/tpu/flash_attention.py:{stock[name]})",
+            "launches": 0,
+            "max_abs_err": worst["fwd" if name == "flash_fwd" else "bwd"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": lib_ms}
+        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {bnd[0]:.6f} ms by {bnd[1]}) at bf16 "
+              f"[{B}, {h}, {L}, {hd}], packed layout", flush=True)
+
+    # the forward at the inference batch
+    q, k, v, _, mask = flash_inputs(512, h, L, hd, torch.bfloat16, seed=2)
+    seg = ca.segment_ids(mask)
+    out = torch.empty_like(q)
+    same = (seg[:, None, :, None] == seg[:, None, None, :])
+    print("flash_fwd at bf16 [512, 12, 96, 64]: {:.4f} ms (plain {:.4f} ms, "
+          "library {:.4f} ms)".format(
+              median_ms(lambda: ca.flash_forward_kernel(q, k, v, seg, scale,
+                                                        out)),
+              median_ms(lambda: ca.flash_attention_plain(q, k, v, mask,
+                                                         scale)),
+              median_ms(lambda: F.scaled_dot_product_attention(
+                  q, k, v, attn_mask=same, scale=scale))), flush=True)
+
+
+def tiny_config(preset: str, attention_impl: str = "xla"):
     """The preset's loss and model options at tiny widths, dropout 0."""
     from carel_tpu_torch.config import PRESETS, DataConfig, TrainConfig
     from carel_tpu_torch.models.encoder import tiny_encoder_config
@@ -460,14 +679,14 @@ def tiny_config(preset: str):
     return dataclasses.replace(
         base,
         model=dataclasses.replace(
-            base.model, encoder=tiny_encoder_config(vocab_size=256,
-                                                    dropout=0.0),
+            base.model, encoder=tiny_encoder_config(
+                vocab_size=256, dropout=0.0, attention_impl=attention_impl),
             ec_dim=24, bow_dim=3000, dropout=0.0),
         data=DataConfig(max_len=32),
         train=TrainConfig(batch_size=16, vae_lr=1e-3))
 
 
-def phase_reference(preset: str) -> None:
+def phase_reference(preset: str, attention_impl: str = "xla") -> None:
     """A tiny fp32 model takes one training step on the card (kernels) and on
     the CPU (plain versions) from the same weights, batch and (zero) noise."""
     from carel_tpu_torch.data.batching import cut_batch
@@ -475,7 +694,8 @@ def phase_reference(preset: str) -> None:
     from carel_tpu_torch.train.state import MAIN
     from carel_tpu_torch.train.steps import batch_to_device, make_train_step
 
-    cfg = tiny_config(preset)
+    cfg = tiny_config(preset, attention_impl)
+    preset = f"{preset} ({attention_impl} attention)"
     arrays = synth_pair_arrays(np.random.default_rng(3), 16, 32, 256, 3000,
                                min_len=8)
     host = cut_batch(arrays, np.arange(14), 16).as_dict()  # 2 padded rows
@@ -586,39 +806,59 @@ class _Records:
         self.records.append(record)
 
 
+FLAGSHIP = "ec_mmd_final_mul_newsplit_emnlp"
+
 # the kernels each main path must launch on every training step
 PATH_KERNELS = {
-    "ec_mmd_final_mul_newsplit_emnlp": ("mmd_fwd", "mmd_bwd", "bow_fwd",
-                                        "bow_bwd"),
+    FLAGSHIP: ("mmd_fwd", "mmd_bwd", "bow_fwd", "bow_bwd"),
     "ec_hsic": ("hsic_fwd", "hsic_bwd", "bow_fwd", "bow_bwd"),
 }
 
 
+def full_width_config(preset: str, run: str, attention_impl: str = "xla",
+                      **train):
+    """The preset at full width (12L/768H encoder, vocab 21,128, BoW vocab
+    23,808) at b64 x s96 for one base epoch, its checkpoints under the
+    run's own directory; ``train`` overrides further TrainConfig fields."""
+    from carel_tpu_torch.config import PRESETS, EncoderConfig
+
+    base = PRESETS[preset]
+    enc = EncoderConfig(arch="bert", dtype="bfloat16",
+                        attention_impl=attention_impl)
+    return dataclasses.replace(
+        base,
+        model=dataclasses.replace(base.model, encoder=enc, bow_dim=23808),
+        data=dataclasses.replace(base.data, max_len=96),
+        train=dataclasses.replace(
+            base.train, batch_size=64, epochs=1,
+            checkpoint_dir=os.path.join(RUN_DIR, "ckpt", run), **train))
+
+
+def probabilities(p: np.ndarray, n: int) -> bool:
+    """n finite values in [0, 1]."""
+    return p.shape == (n,) and bool(np.all(np.isfinite(p))) \
+        and bool(np.all((p >= 0) & (p <= 1)))
+
+
 def phase_path(records: dict, preset: str, iterations: int,
-               strategy: str) -> None:
+               strategy: str):
     """The preset at full width: one base epoch, then ``iterations``
-    self-training iterations of one epoch with ``strategy``."""
+    self-training iterations of one epoch with ``strategy``. Returns the
+    profiled device ms/step and the run's peak memory in GiB."""
     from carel_tpu_torch import ops
-    from carel_tpu_torch.config import PRESETS, EncoderConfig, SelfStrategy
-    from carel_tpu_torch.data.batching import cut_batch
+    from carel_tpu_torch.config import SelfStrategy
     from carel_tpu_torch.pipeline import init_state
     from carel_tpu_torch.selftrain import self_train
     from carel_tpu_torch.train import checkpoint as ckpt
     from carel_tpu_torch.train.loop import evaluate, train_epochs
-    from carel_tpu_torch.train.steps import (batch_to_device, make_eval_step,
-                                             make_train_step)
+    from carel_tpu_torch.train.steps import make_eval_step, make_train_step
 
-    B, L, V, n_train, n_test, unpred = 64, 96, 23808, 1024, 512, 10
-    base = PRESETS[preset]
-    enc = EncoderConfig(arch="bert", dtype="bfloat16")  # 12L/768H, 21,128
-    cfg = dataclasses.replace(
-        base,
-        model=dataclasses.replace(base.model, encoder=enc, bow_dim=V),
-        data=dataclasses.replace(base.data, max_len=L),
-        train=dataclasses.replace(
-            base.train, batch_size=B, epochs=1, self_iteration=iterations,
-            self_epochs=1, self_strategy=SelfStrategy(strategy),
-            checkpoint_dir=os.path.join(RUN_DIR, "ckpt", preset)))
+    n_train, n_test, unpred = 1024, 512, 10
+    cfg = full_width_config(preset, preset, self_iteration=iterations,
+                            self_epochs=1,
+                            self_strategy=SelfStrategy(strategy))
+    enc, B, L = cfg.model.encoder, cfg.train.batch_size, cfg.data.max_len
+    V = cfg.model.bow_dim
     tag = f"{preset} path"
     rng = np.random.default_rng(0)
     train = synth_pair_arrays(rng, n_train, L, enc.vocab_size, V)
@@ -675,6 +915,7 @@ def phase_path(records: dict, preset: str, iterations: int,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = len(losses)
     losses = torch.stack(losses).tolist()
     ranges = torch.stack(prob_ranges).cpu().numpy()
@@ -694,7 +935,7 @@ def phase_path(records: dict, preset: str, iterations: int,
           f"{[r['pseudo_pairs'] for r in ev['selftrain_iter']]}; best "
           f"{best}, self best {sbest}; evaluate P/R/F1 {res.precision:.4f} "
           f"{res.recall:.4f} {res.f1:.4f}; launches {counts}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{peak_gib:.2f} GiB", flush=True)
     print(f"{tag}: losses (every step) {[round(x, 4) for x in losses]}",
           flush=True)
     if not losses or not all(math.isfinite(x) for x in losses):
@@ -702,8 +943,7 @@ def phase_path(records: dict, preset: str, iterations: int,
     if not (np.all(ranges[:, 2] == 1.0) and ranges[:, 0].min() >= 0.0
             and ranges[:, 1].max() <= 1.0):
         fail(f"{tag}: eval probabilities are not finite values in [0, 1]")
-    if res.probs.shape != (len(test),) or not np.all(np.isfinite(res.probs)) \
-            or not np.all((res.probs >= 0) & (res.probs <= 1)):
+    if not probabilities(res.probs, len(test)):
         fail(f"{tag}: eval probabilities are not finite values in [0, 1]")
     for p in (res.precision, res.recall, res.f1, *best, *sbest):
         if not 0.0 <= p <= 1.0:
@@ -730,7 +970,27 @@ def phase_path(records: dict, preset: str, iterations: int,
             and same_state(state.model.state_dict(), saved)):
         fail(f"{tag}: the reloaded best differs from the saved checkpoint")
 
-    # steady-state step time after warm-up, host clock around synchronize
+    device_ms = time_steps(tag, train_step, state, train, B, L)
+
+    # the timed steps moved the params; a train_epochs call of no epochs and
+    # no in-memory cache reloads the best from disk
+    if same_state(state.model.state_dict(), saved):
+        fail(f"{tag}: the timed steps left the params unchanged")
+    state, _ = train_epochs(cfg, state, train_step, eval_step, train, test,
+                            unpred, preset, epochs=0, logger=logger)
+    if not same_state(state.model.state_dict(), saved):
+        fail(f"{tag}: the reload from disk differs from the checkpoint")
+    print(f"{tag}: best checkpoint saved, reloaded from memory and from "
+          "disk, equal to the saved state_dict", flush=True)
+    return device_ms, peak_gib
+
+
+def time_steps(tag: str, train_step, state, train, B: int, L: int) -> float:
+    """Steady-state step time after warm-up (host clock around synchronize),
+    then the profile; returns the device ms/step."""
+    from carel_tpu_torch.data.batching import cut_batch
+    from carel_tpu_torch.train.steps import batch_to_device
+
     batches = [batch_to_device(cut_batch(train, np.arange(i * B, (i + 1) * B),
                                          B).as_dict(), torch.device("cuda"))
                for i in range(4)]
@@ -747,18 +1007,142 @@ def phase_path(records: dict, preset: str, iterations: int,
         fail(f"{tag}: timed steps gave a non-finite loss")
     print(f"{tag} step b{B}xs{L}: {ms:.2f} ms/step, "
           f"{B / ms * 1e3:.1f} pairs/s", flush=True)
-    profile_steps(train_step, state, batches, ms)
+    return profile_steps(train_step, state, batches, ms)
 
-    # the timed steps moved the params; a train_epochs call of no epochs and
-    # no in-memory cache reloads the best from disk
-    if same_state(state.model.state_dict(), saved):
-        fail(f"{tag}: the timed steps left the params unchanged")
-    state, _ = train_epochs(cfg, state, train_step, eval_step, train, test,
-                            unpred, preset, epochs=0, logger=logger)
-    if not same_state(state.model.state_dict(), saved):
-        fail(f"{tag}: the reload from disk differs from the checkpoint")
-    print(f"{tag}: best checkpoint saved, reloaded from memory and from "
-          "disk, equal to the saved state_dict", flush=True)
+
+# synthetic zh clauses for the raw-text scorer (document 1: clause 3 holds
+# the emotion)
+ZH_CLAUSES = ["昨天下午下了很大的雨", "他没有带伞就出门了", "回到家里他非常难过",
+              "因为新买的书全都湿了", "妈妈安慰他说没关系", "明天再去买一本新的"]
+
+
+def phase_serve(records: dict):
+    """Train, then serve, at full width with attention_impl="flash": the
+    flagship takes one base epoch with its evaluation and saves the best;
+    a fresh model loads that checkpoint and serves it through
+    run_pair_inference and PairScorer. Returns the profiled device ms/step
+    and the run's peak memory in GiB."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.infer import PairScorer, run_pair_inference
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.loop import evaluate, train_epochs
+    from carel_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    n_train, n_test, unpred = 1024, 512, 10
+    tag, model_id = "flash path", "flash"
+    cfg = full_width_config(FLAGSHIP, model_id, attention_impl="flash",
+                            self_iteration=0)
+    enc, B, L = cfg.model.encoder, cfg.train.batch_size, cfg.data.max_len
+    V, layers = cfg.model.bow_dim, enc.num_layers
+    rng = np.random.default_rng(0)
+    train = synth_pair_arrays(rng, n_train, L, enc.vocab_size, V)
+    test_pairs, test, _ = synth_target_domain(rng, n_test, L, enc.vocab_size,
+                                              V)
+    test_pairs.num_unpred_emotions = unpred  # emotions stage 1 missed
+    state = init_state(cfg, "cuda")
+    train_step, eval_step = make_train_step(cfg), make_eval_step()
+    losses, forwards = [], []
+
+    def counted_step(state, batch, iteration):
+        metrics = train_step(state, batch, iteration)
+        losses.append(metrics["loss"])
+        return metrics
+
+    def counted_eval(model, batch, generator):
+        forwards.append(1)
+        return eval_step(model, batch, generator)
+
+    logger = _Records()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    # best_f1_so_far -1 makes the evaluation a new best even at F1 = 0, and
+    # without a cache of the best in memory the loop reloads it from disk
+    state, best = train_epochs(cfg, state, counted_step, counted_eval, train,
+                               test, unpred, model_id, logger=logger,
+                               best_f1_so_far=-1.0)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    steps = len(losses)
+
+    # serve: a fresh model takes the checkpoint
+    served = init_state(dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, seed=cfg.train.seed + 1)),
+        "cuda").model
+    if same_state(served.state_dict(), state.model.state_dict()):
+        fail(f"{tag}: the fresh model already equals the trained one")
+    saved = ckpt.load_best(cfg.train.checkpoint_dir, model_id,
+                           torch.device("cuda"))
+    served.load_state_dict(saved)
+    if not (same_state(served.state_dict(), saved)
+            and same_state(state.model.state_dict(), saved)):
+        fail(f"{tag}: the reloaded best differs from the saved checkpoint")
+    res = run_pair_inference(
+        counted_eval, served, test_pairs, test,
+        torch.Generator(device="cuda").manual_seed(0),
+        cfg.train.eval_batch_size)
+    ev = evaluate(counted_eval, served, test, unpred,
+                  torch.Generator(device="cuda").manual_seed(0),
+                  cfg.train.eval_batch_size)
+
+    tokenizer = ZhCharTokenizer.from_corpus(ZH_CLAUSES)
+    scorer = PairScorer(cfg, served, tokenizer, batch_size=cfg.train.
+                        eval_batch_size, device="cuda")
+    raw = [(ZH_CLAUSES[2], c) for c in ZH_CLAUSES]
+    probs = scorer.score_texts(raw)
+    hits = scorer.extract_document(ZH_CLAUSES, [3], threshold=0.0)
+    scored_batches = 2
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).tolist()
+
+    print(f"{tag}: {steps} base steps + eval + best save and reload in "
+          f"{t_train:.3f} s; best {best}; inference over {len(test)} pairs "
+          f"at batch {cfg.train.eval_batch_size}: P/R/F1 {res.precision:.4f} "
+          f"{res.recall:.4f} {res.f1:.4f}, p50 {res.p50_batch_ms:.2f} ms, "
+          f"p95 {res.p95_batch_ms:.2f} ms per batch, "
+          f"{res.pairs_per_sec:.1f} pairs/s (first batch excluded); scorer "
+          f"probabilities {[round(float(p), 4) for p in probs]}, "
+          f"{len(hits)} candidate pairs; launches {counts}; peak memory "
+          f"{peak_gib:.2f} GiB", flush=True)
+    print(f"{tag}: losses (every step) {[round(x, 4) for x in losses]}",
+          flush=True)
+    if steps != n_train // B or not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: {steps} steps, or a loss not finite")
+    if not probabilities(res.probs, len(test)):
+        fail(f"{tag}: inference probabilities are not finite values in "
+             "[0, 1]")
+    if not (np.array_equal(res.probs, ev.probs)
+            and (res.precision, res.recall, res.f1)
+            == (ev.precision, ev.recall, ev.f1)):
+        fail(f"{tag}: run_pair_inference and evaluate disagree on the same "
+             "model and seed")
+    if not np.array_equal(res.preds, np.round(res.probs).astype(np.int64)):
+        fail(f"{tag}: predictions are not the rounded probabilities")
+    if not probabilities(probs, len(raw)):
+        fail(f"{tag}: scorer probabilities are not finite values in [0, 1]")
+    # threshold 0 keeps every candidate: the sweep is the same six pairs
+    if sorted(c for _, c, _ in hits) != list(range(1, len(ZH_CLAUSES) + 1)) \
+            or not np.allclose(sorted(p for *_, p in hits), sorted(probs),
+                               rtol=0, atol=1e-6):
+        fail(f"{tag}: extract_document and score_texts disagree")
+    want = {name: steps for name in PATH_KERNELS[FLAGSHIP]}
+    want["flash_fwd"] = layers * (steps + len(forwards) + scored_batches)
+    want["flash_bwd_dkv"] = want["flash_bwd_dq"] = layers * steps
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{tag}: kernel {name} launched {n} times in {steps} "
+                 f"training steps, {len(forwards)} evaluation and inference "
+                 f"batches and {scored_batches} scoring batches (want "
+                 f"{want.get(name, 0)})")
+        records[name].setdefault("launches_by_path", {})["flash"] = n
+        records[name]["launches"] = sum(
+            records[name]["launches_by_path"].values())
+    device_ms = time_steps(tag, train_step, state, train, B, L)
+    return device_ms, peak_gib
 
 
 def same_state(a: dict, b: dict) -> bool:
@@ -767,9 +1151,10 @@ def same_state(a: dict, b: dict) -> bool:
 
 
 def profile_steps(train_step, state, batches, step_ms: float,
-                  n: int = 5) -> None:
+                  n: int = 5) -> float:
     """Device time per step by kernel, from torch.profiler over n steps, and
-    the device busy share against the unprofiled step time."""
+    the device busy share against the unprofiled step time; returns the
+    device ms/step (0.0 when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -790,7 +1175,7 @@ def profile_steps(train_step, state, batches, step_ms: float,
     if device_ms == 0.0:
         print("profile: the profiler recorded no device time (not measured)",
               flush=True)
-        return
+        return 0.0
     print(f"profile ({n} steps): device kernels {device_ms:.2f} ms/step of "
           f"{step_ms:.2f} ms/step unprofiled, device busy "
           f"{device_ms / step_ms:.3f}, {sum(c for _, c in per_kernel.values()) // n} "
@@ -799,6 +1184,7 @@ def profile_steps(train_step, state, batches, step_ms: float,
     for name, (us, calls) in top[:12]:
         print(f"  {us / 1e3 / n:8.3f} ms/step {calls // n:5d} calls/step  "
               f"{name[:90]}", flush=True)
+    return device_ms
 
 
 def main() -> int:
@@ -810,12 +1196,18 @@ def main() -> int:
     phase_hsic(records)
     phase_bow(records)
     phase_scores()
+    phase_flash(records)
     for preset in PATH_KERNELS:
         phase_reference(preset)
-    phase_path(records, "ec_mmd_final_mul_newsplit_emnlp", 1,
-               "temporal_order_modification")
+    phase_reference(FLAGSHIP, "flash")
+    default = phase_path(records, FLAGSHIP, 1, "temporal_order_modification")
     torch.cuda.empty_cache()
     phase_path(records, "ec_hsic", 2, "random")
+    torch.cuda.empty_cache()
+    flash = phase_serve(records)
+    print("flagship step b64xs96, flash vs default attention: device "
+          f"{flash[0]:.2f} vs {default[0]:.2f} ms/step, peak memory of the "
+          f"path {flash[1]:.2f} vs {default[1]:.2f} GiB", flush=True)
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

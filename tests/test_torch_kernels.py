@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K6 against their plain PyTorch versions,
+"""The hand-written CUDA kernels K1-K9 against their plain PyTorch versions,
 on the card. Every test here is marked ``cuda`` and skips without a GPU (the
 kernels have no CPU mode). This file imports nothing of JAX, so it also runs
 on a GPU machine without JAX:
@@ -9,7 +9,12 @@ Tolerances: values rtol 1e-5; grads normwise relative error 1e-5 (MMD) and
 1e-4 (BoW, HSIC), the gates of chip_smoke.py. HSIC (K5/K6 compute in
 double) is held against its plain version evaluated in float64 on the same
 inputs: with tight latents the plain fp32 version itself is off by ~3e-4
-(tests/test_torch_hsic.py).
+(tests/test_torch_hsic.py). Flash attention (K7-K9) is held against its
+plain version evaluated in fp32 from the same inputs: fp32 inputs to 1e-5
+(output) and 1e-4 (gradients), where only the order of the sums differs;
+bf16 inputs to 6e-3 and 8e-3, three times the errors measured on the card
+(2.0e-3, 2.6e-3: the kernels round the probabilities, ds and the results to
+bf16).
 """
 
 import numpy as np
@@ -17,7 +22,7 @@ import pytest
 import torch
 
 from carel_tpu_torch import ops
-from carel_tpu_torch.ops import cuda_bow, cuda_pairwise
+from carel_tpu_torch.ops import cuda_attention, cuda_bow, cuda_pairwise
 
 pytestmark = pytest.mark.cuda
 
@@ -145,6 +150,122 @@ def test_kernels_repeat_bit_for_bit(cuda):
     da = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_a, g)
     db = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_b, g)
     assert all(torch.equal(u, v) for u, v in zip(da, db))
+
+
+def _flash_problem(device, B, h, L, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.tensor(rng.normal(size=(B, h, L, hd))
+                               .astype(np.float32), device=device).to(dtype)
+                  for _ in range(4))
+    lengths = rng.integers(1, L + 1, B)
+    lengths[0], lengths[1] = L, 0  # a row without pads, an all-pad row
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    return q, k, v, g, torch.tensor(mask, device=device)
+
+
+@pytest.mark.parametrize("dtype,tol_out,tol_grad", [
+    (torch.float32, 1e-5, 1e-4), (torch.bfloat16, 6e-3, 8e-3)])
+@pytest.mark.parametrize("B,h,L,hd", [(8, 12, 96, 64), (5, 4, 37, 16),
+                                      (3, 2, 130, 32), (2, 2, 70, 128)])
+def test_flash_kernels_match_plain(cuda, B, h, L, hd, dtype, tol_out,
+                                   tol_grad):
+    q, k, v, g, mask = _flash_problem(cuda, B, h, L, hd, dtype)
+    scale = 1.0 / float(np.sqrt(hd))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = cuda_attention.flash_attention(*leaves, mask, scale)
+    grads = torch.autograd.grad(out, leaves, g)
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd_dkv"],
+            counts["flash_bwd_dq"]) == (1, 1, 1)
+    assert out.dtype == dtype and all(t.dtype == dtype for t in grads)
+    assert all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = cuda_attention.flash_attention_plain(*ref_leaves, mask, scale)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, g.float())
+    assert _relnorm(out.detach().float(), ref.detach()) <= tol_out
+    for a, c in zip(grads, ref_grads):
+        assert _relnorm(a.float(), c) <= tol_grad
+
+    # the packed layout reads the same values through other strides, and
+    # its gradient is one packed buffer
+    qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)],
+                      dim=2).contiguous().requires_grad_()
+    ctx = cuda_attention.flash_attention_packed(qkv, mask, scale)
+    assert ctx.shape == (B, L, h * hd)
+    assert torch.equal(ctx.view(B, L, h, hd).transpose(1, 2), out)
+    (dqkv,) = torch.autograd.grad(
+        ctx, qkv, g.transpose(1, 2).reshape(B, L, h * hd))
+    assert dqkv.shape == qkv.shape and dqkv.is_contiguous()
+    for a, c in zip(dqkv.unbind(2), grads):
+        assert torch.equal(a.transpose(1, 2), c)
+
+
+def test_flash_kernels_repeat_bit_for_bit(cuda):
+    q, k, v, g, mask = _flash_problem(cuda, 8, 12, 96, 64, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = cuda_attention.flash_attention(*leaves, mask, 0.125)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, g)))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v, _, mask = _flash_problem(cuda, 2, 2, 16, 16, torch.float32)
+    seg = cuda_attention.segment_ids(mask)
+    out = torch.empty_like(q)
+    with pytest.raises(TypeError):
+        cuda_attention.flash_forward_kernel(q.half(), k.half(), v.half(), seg,
+                                            0.25, out.half())
+    with pytest.raises(TypeError):
+        cuda_attention.flash_forward_kernel(q, k.bfloat16(), v, seg, 0.25,
+                                            out)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros(2, 2, 16, 48, device=cuda)
+        cuda_attention.flash_forward_kernel(wide, wide, wide, seg, 0.25,
+                                            torch.empty_like(wide))
+    with pytest.raises(ValueError, match="last dimension"):
+        qt = q.transpose(2, 3).contiguous().transpose(2, 3)
+        cuda_attention.flash_forward_kernel(qt, k, v, seg, 0.25, out)
+    with pytest.raises(ValueError, match="strides"):
+        kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+        cuda_attention.flash_forward_kernel(q, kt, v, seg, 0.25, out)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_attention.flash_forward_kernel(q, k, v, seg[:, :8], 0.25, out)
+    with pytest.raises(TypeError):
+        cuda_attention.flash_forward_kernel(q, k, v, mask.float(), 0.25, out)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attention.flash_forward_kernel(q.cpu(), k.cpu(), v.cpu(),
+                                            seg.cpu(), 0.25, out.cpu())
+    # the public wrapper copies what is not addressable instead
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(cuda_attention.flash_attention(q, kt, v, mask, 0.25),
+                       cuda_attention.flash_attention(q, k, v, mask, 0.25))
+
+
+def test_flash_encoder_on_the_card_matches_the_cpu(cuda):
+    """The tiny fp32 encoder with attention_impl="flash": kernels on the
+    card against the plain version on the CPU, same weights and inputs."""
+    from carel_tpu_torch.models.encoder import (TransformerEncoder,
+                                                init_flax_,
+                                                tiny_encoder_config)
+
+    enc = TransformerEncoder(tiny_encoder_config(
+        vocab_size=128, dropout=0.0, attention_impl="flash"))
+    init_flax_(enc, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids = torch.tensor(rng.integers(2, 128, (4, 24)))
+    mask = torch.ones(4, 24, dtype=torch.int32)
+    mask[1, 10:] = 0
+    mask[2, :] = 0
+    with torch.no_grad():
+        want = enc(ids, mask)
+        ops.reset_launch_counts()
+        got = enc.to(cuda)(ids.to(cuda), mask.to(cuda))
+    assert ops.launch_counts()["flash_fwd"] == 2  # one per layer
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=1e-5)
 
 
 def test_attention_scores_match_the_upcast_product(cuda):

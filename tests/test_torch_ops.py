@@ -23,7 +23,7 @@ from carel_tpu.ops.pallas_bow import fused_bow_loss as j_fused_bow
 from carel_tpu.ops.pallas_pairwise import mmd_pallas
 
 from carel_tpu_torch import ops
-from carel_tpu_torch.ops import cuda_bow, cuda_pairwise
+from carel_tpu_torch.ops import cuda_attention, cuda_bow, cuda_pairwise
 from carel_tpu_torch.ops.bow_recon import bow_reconstruction_loss
 
 
@@ -136,8 +136,16 @@ def test_cpu_tensors_take_the_plain_version():
             torch.tensor(mask))
     assert float(cuda_bow.fused_bow_loss(*args)) == \
         float(cuda_bow.fused_bow_loss_plain(*args))
-    assert ops.launch_counts() == {"mmd_fwd": 0, "mmd_bwd": 0, "hsic_fwd": 0,
-                                   "hsic_bwd": 0, "bow_fwd": 0, "bow_bwd": 0}
+    q = torch.tensor(np.random.default_rng(0).normal(size=(2, 2, 5, 16))
+                     .astype(np.float32))
+    seg = torch.tensor([[1, 1, 1, 0, 0], [0] * 5])
+    assert torch.equal(
+        cuda_attention.flash_attention(q, q, q, seg, 0.25),
+        cuda_attention.flash_attention_plain(q, q, q, seg, 0.25))
+    assert ops.launch_counts() == {
+        "mmd_fwd": 0, "mmd_bwd": 0, "hsic_fwd": 0, "hsic_bwd": 0,
+        "bow_fwd": 0, "bow_bwd": 0, "flash_fwd": 0, "flash_bwd_dkv": 0,
+        "flash_bwd_dq": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

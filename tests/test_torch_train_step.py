@@ -2,7 +2,11 @@
 params and batch, on the CPU at tiny widths, for the mmd and the hsic
 regularizers. The hsic case runs as the ec_hsic preset does, with the binary
 emotion head, and with emo_mul_loss_weight != cau_mul_loss_weight, so that
-the cause term taking the EMOTION weight under hsic is held.
+the cause term taking the EMOTION weight under hsic is held. The mmd_flash
+case sets attention_impl="flash" on both sides: the port takes the plain
+flash attention (segment mask, no dropout on the probabilities), JAX takes
+its XLA attention on the CPU; with dropout 0 the pooled output, and so the
+loss and every gradient, are the same function of the params.
 
 JAX side: value_and_grad over model.apply(deterministic=True, sample=False,
 compute_recon=False) + vae_and_classifier_loss(ops_impl="pallas", fused MMD
@@ -54,8 +58,9 @@ VOCAB, BOW, EC, B, L = 128, 300, 8, 8, 16
 LR = 1e-3
 
 
-def _cfgs(reg: str):
-    enc = dict(vocab_size=VOCAB, dropout=0.0)
+def _cfgs(case: str):
+    reg, _, impl = case.partition("_")
+    enc = dict(vocab_size=VOCAB, dropout=0.0, attention_impl=impl or "xla")
     binary = reg == "hsic"
     # unequal emotion and cause weights tell the hsic weighting apart
     loss = dict(emo_mul_loss_weight=7.0, cau_mul_loss_weight=3.0) \
@@ -119,7 +124,7 @@ def _adam_moments(opt_state, params):
                  for t in (adam[0].mu, adam[0].nu))
 
 
-@pytest.fixture(scope="module", params=["mmd", "hsic"])
+@pytest.fixture(scope="module", params=["mmd", "hsic", "mmd_flash"])
 def both_steps(request):
     jcfg, tcfg = _cfgs(request.param)
     batch = _batch()
