@@ -25,15 +25,20 @@
 //
 // What bounds it on this card: bytes. At [64, 12, 96, 64] bf16 the forward
 // reads q, k, v and writes o once, 37.7 MB (0.011 ms at 3.35 TB/s), against
-// 1.8 GFLOP (0.002 ms at the bf16 tensor-core rate). This first version is
-// right and simple and does not reach that bound: both products run as fp32
-// FMAs on the CUDA cores (a product of two bf16 values is exact in fp32, so
-// the sums are the fp32 sums of the input-type products that the tensor
-// cores would give), from fp32 tiles in shared memory, so one code path
-// serves bf16 and fp32 inputs. Tensor-core tiles (mma.sync / wgmma) and TMA
-// loads are later work.
+// 1.8 GFLOP (0.002 ms at the bf16 tensor-core rate).
 //
-// Design:
+// Which kernel runs. bf16 inputs: K7 and K8 are the tensor-core kernels of
+// flash_mma.cu (carel_flash_fwd and carel_flash_bwd_dkv send them there);
+// K9 is the kernel below. fp32 inputs: all three are the kernels below,
+// whose products are fp32 FMAs on the CUDA cores from fp32 tiles in shared
+// memory. fp32 stays on the CUDA cores because the tensor cores have no
+// full-fp32 product (TF32 keeps three digits) and do not round each
+// addition as fmaf does; the fp32 results are held to 1e-5. K9 serves both
+// types with one code path: a product of two bf16 values is exact in fp32,
+// so its sums are the fp32 sums of the input-type products. None of the
+// kernels below reaches the bytes bound.
+//
+// Design of the kernels below:
 //   - one block of 64 threads per (batch, head, tile of 32 rows); a loop
 //     over tiles of 32 rows of the other side inside the block replaces the
 //     TPU grid's sequential dimension; each thread holds a 4 x 4 piece of
@@ -601,28 +606,33 @@ bool bad_shape(const Shape& sh, int hd) {
   return sh.B < 1 || sh.h < 1 || sh.L < 1 || !takes_head_dim(hd);
 }
 
-// Calls LAUNCH<T, HD>(args...) for the input type and head dim.
-#define CAREL_FLASH_DISPATCH(LAUNCH, ...)                                   \
-  do {                                                                      \
-    if (is_bf16) {                                                          \
-      switch (hd) {                                                         \
-        case 16: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__);             \
-        case 32: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);             \
-        case 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);             \
-        default: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);            \
-      }                                                                     \
-    }                                                                       \
-    switch (hd) {                                                           \
-      case 16: return LAUNCH<float, 16>(__VA_ARGS__);                       \
-      case 32: return LAUNCH<float, 32>(__VA_ARGS__);                       \
-      case 64: return LAUNCH<float, 64>(__VA_ARGS__);                       \
-      default: return LAUNCH<float, 128>(__VA_ARGS__);                      \
-    }                                                                       \
-  } while (0)
+// Calls LAUNCH<T, HD>(args...) for the head dim.
+#define CAREL_FLASH_DISPATCH(LAUNCH, T, ...)                \
+  switch (hd) {                                             \
+    case 16: return LAUNCH<T, 16>(__VA_ARGS__);             \
+    case 32: return LAUNCH<T, 32>(__VA_ARGS__);             \
+    case 64: return LAUNCH<T, 64>(__VA_ARGS__);             \
+    default: return LAUNCH<T, 128>(__VA_ARGS__);            \
+  }
 
 }  // namespace
 
 extern "C" {
+
+// K7 and K8 for bf16 inputs: flash_mma.cu.
+int carel_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                         const int* seg, void* o, float* lse, int B, int h,
+                         int L, int hd, long long q_sb, long long q_sh,
+                         long long q_sl, long long o_sb, long long o_sh,
+                         long long o_sl, float scale, void* stream);
+int carel_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                             const int* seg, const void* dout,
+                             const float* lse, const float* delta, void* dk,
+                             void* dv, int B, int h, int L, int hd,
+                             long long q_sb, long long q_sh, long long q_sl,
+                             long long g_sb, long long g_sh, long long g_sl,
+                             long long d_sb, long long d_sh, long long d_sl,
+                             float scale, void* stream);
 
 int carel_flash_takes_head_dim(int hd) { return takes_head_dim(hd) ? 1 : 0; }
 
@@ -636,9 +646,12 @@ int carel_flash_fwd(const void* q, const void* k, const void* v,
                     float scale, int is_bf16, void* stream) {
   const Shape sh = {B, h, L};
   if (bad_shape(sh, hd)) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return carel_flash_fwd_bf16(q, k, v, seg, o, lse, B, h, L, hd, q_sb, q_sh,
+                                q_sl, o_sb, o_sh, o_sl, scale, stream);
   const Strides qs = {q_sb, q_sh, q_sl}, os = {o_sb, o_sh, o_sl};
-  CAREL_FLASH_DISPATCH(launch_fwd, q, k, v, seg, o, lse, sh, qs, os, scale,
-                       (cudaStream_t)stream);
+  CAREL_FLASH_DISPATCH(launch_fwd, float, q, k, v, seg, o, lse, sh, qs, os,
+                       scale, (cudaStream_t)stream);
 }
 
 // K9. Writes delta fp32 [B, h, L] (read by K8) and dq; do and dq have their
@@ -656,8 +669,12 @@ int carel_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(sh, hd)) return (int)cudaErrorInvalidValue;
   const Strides qs = {q_sb, q_sh, q_sl}, os = {o_sb, o_sh, o_sl};
   const Strides gs = {g_sb, g_sh, g_sl}, ds = {d_sb, d_sh, d_sl};
-  CAREL_FLASH_DISPATCH(launch_bwd_dq, q, k, v, seg, o, dout, lse, delta, dq,
-                       sh, qs, os, gs, ds, scale, (cudaStream_t)stream);
+  if (is_bf16)
+    CAREL_FLASH_DISPATCH(launch_bwd_dq, __nv_bfloat16, q, k, v, seg, o, dout,
+                         lse, delta, dq, sh, qs, os, gs, ds, scale,
+                         (cudaStream_t)stream);
+  CAREL_FLASH_DISPATCH(launch_bwd_dq, float, q, k, v, seg, o, dout, lse, delta,
+                       dq, sh, qs, os, gs, ds, scale, (cudaStream_t)stream);
 }
 
 // K8. Reads the delta of K9 for the same inputs; dk and dv share the stride
@@ -672,10 +689,14 @@ int carel_flash_bwd_dkv(const void* q, const void* k, const void* v,
                         void* stream) {
   const Shape sh = {B, h, L};
   if (bad_shape(sh, hd)) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return carel_flash_bwd_dkv_bf16(q, k, v, seg, dout, lse, delta, dk, dv, B,
+                                    h, L, hd, q_sb, q_sh, q_sl, g_sb, g_sh,
+                                    g_sl, d_sb, d_sh, d_sl, scale, stream);
   const Strides qs = {q_sb, q_sh, q_sl}, gs = {g_sb, g_sh, g_sl};
   const Strides ds = {d_sb, d_sh, d_sl};
-  CAREL_FLASH_DISPATCH(launch_bwd_dkv, q, k, v, seg, dout, lse, delta, dk, dv,
-                       sh, qs, gs, ds, scale, (cudaStream_t)stream);
+  CAREL_FLASH_DISPATCH(launch_bwd_dkv, float, q, k, v, seg, dout, lse, delta,
+                       dk, dv, sh, qs, gs, ds, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,10 @@ dV) and K9 (dQ, with the row term delta = sum(o * do) as its prologue).
 
 Port of the stock Pallas TPU flash attention that carel_tpu's SelfAttention
 calls under ``attention_impl="flash"`` (carel_tpu/models/encoder.py:48-67).
-The kernels live in ``carel_tpu_torch/csrc/flash.cu``; this module checks the
+The kernels live in ``carel_tpu_torch/csrc``: for bf16 inputs K7 and K8 run
+on the tensor cores (``flash_mma.cu``), for fp32 inputs on the CUDA cores
+(``flash.cu``, which also holds K9 for both types); the C entry points pick
+by the input type, there is nothing to choose here. This module checks the
 inputs, allocates outputs and scratch, launches on the current stream and
 counts launches.
 
@@ -79,10 +82,28 @@ def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _row_alignment(t: torch.Tensor) -> int:
+    """The boundary, in elements, on which every row of a view must start:
+    16 bytes (the kernels' vector loads, ``cp.async`` and ``ldmatrix``), so 4
+    fp32 or 8 bf16 elements."""
+    return 16 // t.element_size()
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the last dimension is contiguous and every row starts on the
+    boundary of ``_row_alignment``: the base pointer and every other
+    stride."""
+    align = _row_alignment(t)
+    return t.stride(-1) == 1 \
+        and not any(s % align for s in t.stride()[:-1]) \
+        and t.data_ptr() % 16 == 0
+
+
 def _check_view(t: torch.Tensor, name: str, like: torch.Tensor) -> None:
     """Raise unless ``t`` is a ``[B, h, L, hd]`` view the kernels can
     address: like's device, dtype and shape, a contiguous last dimension,
-    and rows that start on a 4-element boundary."""
+    and rows that start on a 16-byte boundary (4 fp32 or 8 bf16
+    elements)."""
     if t.device != like.device:
         raise ValueError(f"{name}: on {t.device}, expected {like.device}")
     if t.dtype != like.dtype:
@@ -92,9 +113,9 @@ def _check_view(t: torch.Tensor, name: str, like: torch.Tensor) -> None:
                          f"{tuple(like.shape)}")
     if t.stride(3) != 1:
         raise ValueError(f"{name}: last dimension not contiguous")
-    if any(s % 4 for s in _strides(t)) \
-            or t.data_ptr() % (4 * t.element_size()):
-        raise ValueError(f"{name}: rows do not start on a 4-element boundary")
+    if not _rows_aligned(t):
+        raise ValueError(f"{name}: rows do not start on a "
+                         f"{_row_alignment(t)}-element boundary")
 
 
 def _check_qkv(q, k, v, seg):
@@ -199,10 +220,7 @@ def _backward(q, k, v, seg, out, dout, lse, sm_scale, dq, dk, dv) -> None:
 def _addressable(dout: torch.Tensor) -> torch.Tensor:
     """The cotangent as the kernels can address it (autograd may hand over
     an expanded or transposed one)."""
-    if dout.stride(-1) == 1 and not any(s % 4 for s in dout.stride()[:-1]) \
-            and dout.data_ptr() % (4 * dout.element_size()) == 0:
-        return dout
-    return dout.contiguous()
+    return dout if _rows_aligned(dout) else dout.contiguous()
 
 
 class _Flash(torch.autograd.Function):
@@ -266,7 +284,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K7-K9 on CUDA."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, sm_scale)
-    if not (_strides(q) == _strides(k) == _strides(v) and q.stride(3) == 1):
+    if not (_strides(q) == _strides(k) == _strides(v)
+            and all(_rows_aligned(t) for t in (q, k, v))):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _Flash.apply(q, k, v, segment_ids(mask), float(sm_scale))
 

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "carel_flash_bwd_dq": ([_P] * 9 + [_I] * 4 + [_LL] * 12 + [_F, _I, _P],
                            _I),
     # q k v seg do lse delta dk dv | B h L hd | strides of qkv, do, dkv | ...
+    # (flash.cu sends bf16 inputs of these two on to flash_mma.cu)
     "carel_flash_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_LL] * 9 + [_F, _I, _P],
                             _I),
 }

@@ -13,10 +13,14 @@ an error:
    and the plain version's time; hold the encoder's fp32 attention scores
    (bf16 tensor-core GEMM with an fp32 output) against the product of the
    upcast q and k; hold the flash attention kernels K7-K9 against their
-   plain version in fp32 and bf16, at the training and the inference shape
-   and at a ragged tiny one, with pad tails, an all-pad row and a row
+   plain version in fp32 (CUDA-core kernels) and bf16 (K7 and K8 on the
+   tensor cores), at the training and the inference shape, at a ragged tiny
+   one, at L over one block's rows (200, 513), at hd = 128 and with pad
+   tails longer than one tile of keys, with an all-pad row and a row
    without pads, in the stock and the packed layout, and require two runs
-   to give the same bits;
+   to give the same bits; time K7-K9, their plain version and the library
+   call by CUDA events and by the profiler's device time per call, and the
+   host's cost of one launch;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights and batch, under the
    flagship's MMD (with the default and the flash attention) and under
@@ -99,6 +103,46 @@ def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
+    """Device time of one call of fn: the summed duration of every device
+    kernel (and device copy) that torch.profiler records over iters calls,
+    divided by iters. Unlike an event pair around a Python call it holds
+    nothing of the host's work between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if total_us == 0:
+        fail("device_ms: the profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def host_launch_ms(fn, iters: int = 200, sync_every: int = 50) -> float:
+    """Median host time of one call of fn that is not waited for (the
+    wrapper's checks, allocations and the launch), with a synchronize every
+    sync_every calls so that the launch queue never fills."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if (i + 1) % sync_every == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -472,17 +516,22 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # the same inputs. fp32 inputs: only the order of the sums differs. bf16
 # inputs: the kernels round exp(s - max) (K7), p and ds (K8, K9) and their
 # results to bf16, each rounding 2^-9 relative at most; the gates are three
-# times the errors measured on the card (output 2.0e-3, gradients 2.6e-3).
+# times the errors measured on the card with the first, CUDA-core kernels
+# (output 2.0e-3, gradients 2.6e-3); the tensor-core K7 and K8 are held to
+# the same gates.
 FLASH_GATES = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (6e-3, 8e-3)}
 
 
-def flash_inputs(B: int, h: int, L: int, hd: int, dtype, seed: int):
+def flash_inputs(B: int, h: int, L: int, hd: int, dtype, seed: int,
+                 min_tail: int = 0):
     """q, k, v and a cotangent, N(0, 1) from a seed, and a mask with pad
-    tails of varied length: row 0 has no pads, row 1 is all pads."""
+    tails of varied length, each min_tail at least: row 0 has no pads, row 1
+    is all pads."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn(B, h, L, hd, device="cuda", generator=gen)
                   .to(dtype) for _ in range(4))
-    lengths = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    lengths = torch.randint(1, L - min_tail + 1, (B,), device="cuda",
+                            generator=gen)
     lengths[0], lengths[1] = L, 0
     mask = (torch.arange(L, device="cuda")[None, :]
             < lengths[:, None]).to(torch.int32)
@@ -496,14 +545,17 @@ def pack_heads(q, k, v):
                        dim=2).contiguous()
 
 
-def flash_case(B: int, h: int, L: int, hd: int, dtype, backward: bool):
+def flash_case(B: int, h: int, L: int, hd: int, dtype, backward: bool,
+               min_tail: int = 0):
     """K7 (and K8/K9) against the plain version at one shape; returns the
     largest absolute errors of the output and of the gradients."""
     from carel_tpu_torch.ops import cuda_attention as ca
 
-    q, k, v, g, mask = flash_inputs(B, h, L, hd, dtype, seed=B + L)
+    q, k, v, g, mask = flash_inputs(B, h, L, hd, dtype, seed=B + L,
+                                    min_tail=min_tail)
     scale = 1.0 / math.sqrt(hd)
-    name = f"flash {str(dtype).split('.')[-1]} [{B}, {h}, {L}, {hd}]"
+    name = f"flash {str(dtype).split('.')[-1]} [{B}, {h}, {L}, {hd}]" \
+        + (f" pad tails >= {min_tail}" if min_tail else "")
 
     def run_kernels():
         leaves = [t.clone().requires_grad_(backward) for t in (q, k, v)]
@@ -555,6 +607,40 @@ def flash_case(B: int, h: int, L: int, hd: int, dtype, backward: bool):
     return abs_out, abs_grad
 
 
+def flash_work(mask: torch.Tensor, h: int, hd: int, element_size: int):
+    """The least (bytes, operations) of K7-K9 under this mask: every tensor
+    moved once; of the L * L pairs of a row only those inside one segment
+    (real with real, pad with pad) need their products, each 2 * hd
+    operations per product and ~8 for the softmax."""
+    B, L = mask.shape
+    real = mask.sum(dim=1).double()
+    pairs = float((real * real + (L - real) * (L - real)).sum()) * h
+    tensor = B * h * L * hd * element_size
+    rows = 4 * B * h * L  # one fp32 vector of row terms (lse or delta)
+    return {
+        # q, k, v, seg -> o, lse: the products s and p.v
+        "flash_fwd": (4 * tensor + 4 * B * L + rows,
+                      pairs * (4 * hd + 8)),
+        # q, k, v, do, seg, lse, delta -> dk, dv: s, dp, dv and dk
+        "flash_bwd_dkv": (6 * tensor + 4 * B * L + 2 * rows,
+                          pairs * (8 * hd + 8)),
+        # q, k, v, o, do, seg, lse -> dq, delta: s, dp and dq, and sum(o.do)
+        "flash_bwd_dq": (6 * tensor + 4 * B * L + 2 * rows,
+                         pairs * (6 * hd + 8) + 2 * B * h * L * hd),
+    }
+
+
+# (shape [B, h, L, hd], with backward, least pad tail): the training and the
+# inference shape; ragged tiny ones (hd = 16 is one k16 step, L = 37 not a
+# multiple of 16); L over one block's 128 rows, so that the tensor-core
+# kernels' ring of 4 tiles of 32 rows wraps; hd = 128; pad tails longer than
+# one tile, where every key of a tile is masked for a row
+FLASH_CASES = (((64, 12, 96, 64), True, 0), ((512, 12, 96, 64), False, 0),
+               ((5, 4, 37, 16), True, 0), ((3, 2, 200, 64), True, 0),
+               ((2, 2, 513, 32), True, 0), ((2, 2, 96, 128), True, 0),
+               ((4, 2, 160, 64), True, 48))
+
+
 def phase_flash(records: dict) -> None:
     """K7-K9 against the plain flash attention, then their times at the
     shape and layout the training step gives them (bf16, packed)."""
@@ -566,10 +652,8 @@ def phase_flash(records: dict) -> None:
     resolve_device("cuda")  # full-fp32 matmuls for the plain version
     worst = {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, backward in (((64, 12, 96, 64), True),
-                                ((512, 12, 96, 64), False),
-                                ((5, 4, 37, 16), True)):
-            abs_out, abs_grad = flash_case(*shape, dtype, backward)
+        for shape, backward, min_tail in FLASH_CASES:
+            abs_out, abs_grad = flash_case(*shape, dtype, backward, min_tail)
             if dtype == torch.bfloat16:
                 worst["fwd"] = max(worst["fwd"], abs_out)
                 worst["bwd"] = max(worst["bwd"], abs_grad)
@@ -597,77 +681,80 @@ def phase_flash(records: dict) -> None:
     print(f"scaled_dot_product_attention with the segment mask vs plain: "
           f"normwise rel {lib_err:.2e}", flush=True)
 
-    def grad_ms(result, wrt):
-        return median_ms(lambda: torch.autograd.grad(result, wrt, g,
-                                                     retain_graph=True))
+    def grad_of(result, wrt):
+        return lambda: torch.autograd.grad(result, wrt, g, retain_graph=True)
 
-    t = {
+    # per kernel: the wrapper's call, the plain version, the library call
+    calls = {
         "flash_fwd": (
-            median_ms(lambda: ca.flash_forward_kernel(qp, kp, vp, seg, scale,
-                                                      out)),
-            median_ms(lambda: ca.flash_attention_plain(q, k, v, mask, scale)),
-            median_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=same, scale=scale))),
+            lambda: ca.flash_forward_kernel(qp, kp, vp, seg, scale, out),
+            lambda: ca.flash_attention_plain(q, k, v, mask, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same,
+                                                   scale=scale)),
         "flash_bwd_dkv": (
-            median_ms(lambda: ca.flash_backward_dkv_kernel(
-                qp, kp, vp, seg, dout, lse, delta, scale, dkp, dvp)),
-            grad_ms(plain_out, leaves[1:]), grad_ms(lib_out, lib_leaves[1:])),
+            lambda: ca.flash_backward_dkv_kernel(qp, kp, vp, seg, dout, lse,
+                                                 delta, scale, dkp, dvp),
+            grad_of(plain_out, leaves[1:]), grad_of(lib_out, lib_leaves[1:])),
         "flash_bwd_dq": (
-            median_ms(lambda: ca.flash_backward_dq_kernel(
-                qp, kp, vp, seg, out, dout, lse, scale, dqp)),
-            grad_ms(plain_out, leaves[:1]), grad_ms(lib_out, lib_leaves[:1])),
+            lambda: ca.flash_backward_dq_kernel(qp, kp, vp, seg, out, dout,
+                                                lse, scale, dqp),
+            grad_of(plain_out, leaves[:1]), grad_of(lib_out, lib_leaves[:1])),
     }
-    # least work: every tensor moved once; of the L * L pairs of a row only
-    # those inside one segment (real with real, pad with pad) need their
-    # products, each 2 * hd operations per product and ~8 for the softmax
-    real = mask.sum(dim=1).double()
-    pairs = float((real * real + (L - real) * (L - real)).sum()) * h
-    tensor = B * h * L * hd * q.element_size()
-    rows = 4 * B * h * L  # one fp32 vector of row terms (lse or delta)
-    work = {
-        # q, k, v, seg -> o, lse: the products s and p.v
-        "flash_fwd": (4 * tensor + 4 * B * L + rows,
-                      pairs * (4 * hd + 8)),
-        # q, k, v, do, seg, lse, delta -> dk, dv: s, dp, dv and dk
-        "flash_bwd_dkv": (6 * tensor + 4 * B * L + 2 * rows,
-                          pairs * (8 * hd + 8)),
-        # q, k, v, o, do, seg, lse -> dq, delta: s, dp and dq, and sum(o.do)
-        "flash_bwd_dq": (6 * tensor + 4 * B * L + 2 * rows,
-                         pairs * (6 * hd + 8) + 2 * B * h * L * hd),
-    }
+    work = flash_work(mask, h, hd, q.element_size())
     print("flash least work: " + "; ".join(
         f"{n} {nb} bytes, {fl:.0f} FLOP" for n, (nb, fl) in work.items()),
         flush=True)
     stock = {"flash_fwd": 331, "flash_bwd_dkv": 796, "flash_bwd_dq": 1146}
+    source = {"flash_fwd": "flash_mma.cu", "flash_bwd_dkv": "flash_mma.cu",
+              "flash_bwd_dq": "flash.cu"}
     for name in FLASH_KERNELS:
-        ms, plain_ms, lib_ms = t[name]
+        kernel, plain, library = calls[name]
         bnd = bound_ms(*work[name], PEAK_BF16_FLOPS)
-        records[name] = {
+        rec = records[name] = {
             "name": name, "route": "cuda",
-            "source": "carel_tpu_torch/csrc/flash.cu",
+            "source": f"carel_tpu_torch/csrc/{source[name]}",
             "replaces": "carel_tpu/models/encoder.py:61 (jax/experimental/"
                         f"pallas/ops/tpu/flash_attention.py:{stock[name]})",
             "launches": 0,
             "max_abs_err": worst["fwd" if name == "flash_fwd" else "bwd"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": lib_ms}
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {bnd[0]:.6f} ms by {bnd[1]}) at bf16 "
-              f"[{B}, {h}, {L}, {hd}], packed layout", flush=True)
+            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": median_ms(library),
+            "device_ms": device_ms(kernel),
+            "plain_device_ms": device_ms(plain),
+            "library_device_ms": device_ms(library),
+            "host_launch_ms": host_launch_ms(kernel)}
+        print(f"{name} at bf16 [{B}, {h}, {L}, {hd}], packed layout: device "
+              f"{rec['device_ms']:.4f} ms (plain {rec['plain_device_ms']:.4f}"
+              f", library {rec['library_device_ms']:.4f}); by events "
+              f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
+              f"{rec['library_ms']:.4f}); bound {bnd[0]:.6f} ms by {bnd[1]}; "
+              f"one launch costs the host {rec['host_launch_ms']:.4f} ms",
+              flush=True)
 
     # the forward at the inference batch
     q, k, v, _, mask = flash_inputs(512, h, L, hd, torch.bfloat16, seed=2)
     seg = ca.segment_ids(mask)
     out = torch.empty_like(q)
     same = (seg[:, None, :, None] == seg[:, None, None, :])
-    print("flash_fwd at bf16 [512, 12, 96, 64]: {:.4f} ms (plain {:.4f} ms, "
-          "library {:.4f} ms)".format(
-              median_ms(lambda: ca.flash_forward_kernel(q, k, v, seg, scale,
-                                                        out)),
-              median_ms(lambda: ca.flash_attention_plain(q, k, v, mask,
-                                                         scale)),
-              median_ms(lambda: F.scaled_dot_product_attention(
-                  q, k, v, attn_mask=same, scale=scale))), flush=True)
+    rec = records["flash_fwd"]
+    rec["bound_ms_b512"] = bound_ms(
+        *flash_work(mask, h, hd, q.element_size())["flash_fwd"],
+        PEAK_BF16_FLOPS)[0]
+    for key, fn in (
+            ("", lambda: ca.flash_forward_kernel(q, k, v, seg, scale, out)),
+            ("plain_", lambda: ca.flash_attention_plain(q, k, v, mask,
+                                                        scale)),
+            ("library_", lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=same, scale=scale))):
+        rec[f"{key}ms_b512"] = median_ms(fn)
+        rec[f"{key}device_ms_b512"] = device_ms(fn)
+    print("flash_fwd at bf16 [512, 12, 96, 64]: device {:.4f} ms (plain "
+          "{:.4f}, library {:.4f}); by events {:.4f} ms (plain {:.4f}, "
+          "library {:.4f}); bound {:.6f} ms".format(
+              *(rec[f"{key}{kind}_b512"] for kind in ("device_ms", "ms")
+                for key in ("", "plain_", "library_")),
+              rec["bound_ms_b512"]), flush=True)
 
 
 def tiny_config(preset: str, attention_impl: str = "xla"):
@@ -1181,9 +1268,11 @@ def profile_steps(train_step, state, batches, step_ms: float,
           f"{device_ms / step_ms:.3f}, {sum(c for _, c in per_kernel.values()) // n} "
           "kernels/step", flush=True)
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
-    for name, (us, calls) in top[:12]:
-        print(f"  {us / 1e3 / n:8.3f} ms/step {calls // n:5d} calls/step  "
-              f"{name[:90]}", flush=True)
+    # the twelve largest, and the flash kernels wherever they rank
+    for rank, (name, (us, calls)) in enumerate(top):
+        if rank < 12 or "flash_" in name:
+            print(f"  {us / 1e3 / n:8.3f} ms/step {calls // n:5d} calls/step  "
+                  f"{name[:90]}", flush=True)
     return device_ms
 
 

@@ -11,6 +11,16 @@ sides compute in fp32; the sums run in another order). The encoder with
 XLA path on the CPU: without dropout the two paths agree at real positions
 (``pooled`` and the hidden states there, atol 1e-5) and differ at pad
 positions, where a pad query attends to pad keys under the segment mask.
+
+The kernels themselves run only on the card. Their arithmetic for bf16
+inputs is repeated here in plain PyTorch (``_emulated_kernels``: the online
+softmax over tiles of 32 keys, ``exp(s - running max)`` rounded to bf16
+before the product with v, fp32 row sums of the unrounded values, ``p`` and
+``ds`` rounded to bf16 before the backward's products, results rounded to
+bf16) and held against the plain version in fp32 and against the stock
+reference: normwise 6e-3 (output) and 8e-3 (gradients), the gates that
+chip_smoke.py and tests/test_torch_kernels.py put on the kernels, which
+therefore are the arithmetic's own and not luck.
 """
 
 import jax
@@ -84,6 +94,99 @@ def test_plain_flash_matches_the_stock_reference(L, hd, pads):
                                rtol=1e-5, atol=1e-6)
     for name, a, b in zip("qkv", got_grads, want_grads):
         assert _relnorm(a.numpy(), b) <= 1e-4, name
+
+
+KERNEL_TILE = 32  # keys per tile of the tensor-core kernels' online softmax
+
+
+def _emulated_kernels(q, k, v, g, mask, scale):
+    """The arithmetic of K7-K9 for bf16 q, k, v, g ``[B, h, L, hd]`` in
+    plain PyTorch, every rounding where the kernels round; returns out, dq,
+    dk, dv in bf16."""
+    bf = torch.bfloat16
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    seg = ca.segment_ids(mask)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    s = (qf @ kf.transpose(-1, -2)) * scale + torch.where(same, 0.0,
+                                                          ca.MASK_VALUE)
+    L = s.shape[-1]
+    m = torch.full(s.shape[:-1], -torch.inf)
+    row_sum = torch.zeros(s.shape[:-1])
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, L, KERNEL_TILE):
+        tile = s[..., k0:k0 + KERNEL_TILE]
+        m_new = torch.maximum(m, tile.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new[..., None])
+        row_sum = row_sum * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] \
+            + p.to(bf).float() @ vf[..., k0:k0 + KERNEL_TILE, :]
+        m = m_new
+    out = (acc / row_sum[..., None]).to(bf)
+    lse = m + torch.log(row_sum)
+    # backward, from the rounded output as the kernels read it
+    delta = (out.float() * gf).sum(-1, keepdim=True)
+    p = torch.exp(s - lse[..., None])
+    ds = ((gf @ vf.transpose(-1, -2) - delta) * p) * scale
+    p16, ds16 = p.to(bf).float(), ds.to(bf).float()
+    dv = p16.transpose(-1, -2) @ gf
+    dk = ds16.transpose(-1, -2) @ qf
+    dq = ds16 @ kf
+    return out, dq.to(bf), dk.to(bf), dv.to(bf)
+
+
+@pytest.mark.parametrize("reference", ["plain", "stock"])
+@pytest.mark.parametrize("L,hd", [(37, 16), (96, 64), (200, 64), (513, 32)])
+def test_emulated_kernel_arithmetic_is_inside_the_card_gates(L, hd,
+                                                             reference):
+    """bf16 inputs with pad tails (row 1's is L // 2, over one tile from
+    L = 96 on), an all-pad row and a row with one real token. Gates: 6e-3
+    on the output, 8e-3 on each gradient, normwise against fp32."""
+    q, k, v, g, mask = _problem(L, hd, "tails", seed=L)
+    q, k, v, g = (torch.tensor(a).bfloat16() for a in (q, k, v, g))
+    mask_t = torch.tensor(mask)
+    scale = 1.0 / float(np.sqrt(hd))
+    got = [t.float().numpy() for t in _emulated_kernels(q, k, v, g, mask_t,
+                                                        scale)]
+    assert all(np.isfinite(a).all() for a in got)  # the all-pad row too
+    if reference == "plain":
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        ref = ca.flash_attention_plain(*leaves, mask_t, scale)
+        want = [ref.detach().numpy()] + [
+            a.numpy() for a in torch.autograd.grad(ref, leaves, g.float())]
+    else:
+        seg = jnp.asarray(mask) + 1
+        args = [jnp.asarray(t.float().numpy()) for t in (q, k, v)]
+
+        def j_fn(q, k, v):
+            return mha_reference_no_custom_vjp(
+                q, k, v, segment_ids=SegmentIds(q=seg, kv=seg),
+                sm_scale=scale)
+
+        want = [j_fn(*args)] + list(jax.grad(
+            lambda *a: jnp.sum(j_fn(*a) * g.float().numpy()),
+            argnums=(0, 1, 2))(*args))
+    assert _relnorm(got[0], want[0]) <= 6e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert _relnorm(a, b) <= 8e-3, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,hd", [(200, 64), (513, 32), (96, 128)])
+def test_cpu_wrappers_take_the_plain_version_at_the_new_shapes(L, hd, dtype):
+    """CPU tensors at the shapes the tensor-core kernels added (L over one
+    block, hd = 128) still go to the plain version, in both layouts."""
+    q, k, v, _, mask = _problem(L, hd, "tails", seed=hd)
+    q, k, v = (torch.tensor(a[:2, :2]).to(dtype) for a in (q, k, v))
+    mask_t = torch.tensor(mask[1:3])  # a pad tail over one tile, all pads
+    scale = 1.0 / float(np.sqrt(hd))
+    want = ca.flash_attention_plain(q, k, v, mask_t, scale)
+    assert torch.equal(ca.flash_attention(q, k, v, mask_t, scale), want)
+    qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], dim=2)
+    ctx = ca.flash_attention_packed(qkv, mask_t, scale)
+    assert ctx.dtype == dtype and ctx.shape == (2, L, 2 * hd)
+    assert torch.equal(ctx.view(2, L, 2, hd).transpose(1, 2), want)
+    assert bool(torch.isfinite(ctx).all())
 
 
 def test_cpu_wrappers_take_the_plain_version_in_both_layouts():

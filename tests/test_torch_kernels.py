@@ -10,11 +10,12 @@ Tolerances: values rtol 1e-5; grads normwise relative error 1e-5 (MMD) and
 double) is held against its plain version evaluated in float64 on the same
 inputs: with tight latents the plain fp32 version itself is off by ~3e-4
 (tests/test_torch_hsic.py). Flash attention (K7-K9) is held against its
-plain version evaluated in fp32 from the same inputs: fp32 inputs to 1e-5
-(output) and 1e-4 (gradients), where only the order of the sums differs;
-bf16 inputs to 6e-3 and 8e-3, three times the errors measured on the card
-(2.0e-3, 2.6e-3: the kernels round the probabilities, ds and the results to
-bf16).
+plain version evaluated in fp32 from the same inputs: fp32 inputs (the
+CUDA-core kernels) to 1e-5 (output) and 1e-4 (gradients), where only the
+order of the sums differs; bf16 inputs (K7 and K8 on the tensor cores) to
+6e-3 and 8e-3, three times the errors measured on the card (2.0e-3, 2.6e-3:
+the kernels round the probabilities, ds and the results to bf16;
+tests/test_torch_attention.py repeats that arithmetic on the CPU).
 """
 
 import numpy as np
@@ -152,12 +153,12 @@ def test_kernels_repeat_bit_for_bit(cuda):
     assert all(torch.equal(u, v) for u, v in zip(da, db))
 
 
-def _flash_problem(device, B, h, L, hd, dtype, seed=0):
+def _flash_problem(device, B, h, L, hd, dtype, seed=0, min_tail=0):
     rng = np.random.default_rng(seed)
     q, k, v, g = (torch.tensor(rng.normal(size=(B, h, L, hd))
                                .astype(np.float32), device=device).to(dtype)
                   for _ in range(4))
-    lengths = rng.integers(1, L + 1, B)
+    lengths = rng.integers(1, L - min_tail + 1, B)  # pad tails >= min_tail
     lengths[0], lengths[1] = L, 0  # a row without pads, an all-pad row
     mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
     return q, k, v, g, torch.tensor(mask, device=device)
@@ -165,11 +166,17 @@ def _flash_problem(device, B, h, L, hd, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype,tol_out,tol_grad", [
     (torch.float32, 1e-5, 1e-4), (torch.bfloat16, 6e-3, 8e-3)])
-@pytest.mark.parametrize("B,h,L,hd", [(8, 12, 96, 64), (5, 4, 37, 16),
-                                      (3, 2, 130, 32), (2, 2, 70, 128)])
-def test_flash_kernels_match_plain(cuda, B, h, L, hd, dtype, tol_out,
-                                   tol_grad):
-    q, k, v, g, mask = _flash_problem(cuda, B, h, L, hd, dtype)
+@pytest.mark.parametrize("B,h,L,hd,min_tail", [
+    (8, 12, 96, 64, 0), (5, 4, 37, 16, 0), (3, 2, 130, 32, 0),
+    (2, 2, 70, 128, 0),
+    # L over one block's rows, so that the tensor-core kernels' ring wraps;
+    # hd = 128; pad tails longer than one tile of 32 keys
+    (3, 2, 200, 64, 0), (2, 2, 513, 32, 0), (2, 2, 96, 128, 0),
+    (4, 2, 160, 64, 48)])
+def test_flash_kernels_match_plain(cuda, B, h, L, hd, min_tail, dtype,
+                                   tol_out, tol_grad):
+    q, k, v, g, mask = _flash_problem(cuda, B, h, L, hd, dtype,
+                                      min_tail=min_tail)
     scale = 1.0 / float(np.sqrt(hd))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ops.reset_launch_counts()
@@ -242,6 +249,23 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     kt = k.transpose(1, 2).contiguous().transpose(1, 2)
     assert torch.equal(cuda_attention.flash_attention(q, kt, v, mask, 0.25),
                        cuda_attention.flash_attention(q, k, v, mask, 0.25))
+    # bf16 rows must start on 8 elements (16 bytes: cp.async, ldmatrix): a
+    # view that starts on a 4- but not an 8-element boundary is refused by
+    # the kernel wrapper and copied by the public one
+    wide = torch.randn(2, 2, 16, 24, device=cuda).bfloat16()
+    q8, k8, v8 = (wide[..., 8:].contiguous() for _ in range(3))
+    q4 = wide[..., 4:20]
+    assert q4.data_ptr() % 16 == 8 and q4.stride(2) % 8 == 0
+    out16 = torch.empty_like(q8)
+    with pytest.raises(ValueError, match="8-element boundary"):
+        cuda_attention.flash_forward_kernel(q4, q4, q4, seg, 0.25, out16)
+    with pytest.raises(ValueError, match="8-element boundary"):
+        cuda_attention.flash_forward_kernel(q8, k8, v8, seg, 0.25,
+                                            wide[..., 4:20])
+    assert torch.equal(
+        cuda_attention.flash_attention(q4, q4, q4, mask, 0.25),
+        cuda_attention.flash_attention(*(q4.contiguous() for _ in range(3)),
+                                       mask, 0.25))
 
 
 def test_flash_encoder_on_the_card_matches_the_cpu(cuda):

@@ -155,3 +155,44 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     h = torch.zeros(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_bow.bow_forward_kernel(h, torch.zeros(10, 4), torch.zeros(10))
+
+
+def _view(dtype, offset, stride_pad):
+    """A ``[2, 2, 8, 16]`` view with a contiguous last dimension, its first
+    element ``offset`` elements into an aligned buffer and its rows
+    ``16 + stride_pad`` elements apart."""
+    width = 16 + stride_pad
+    buf = torch.zeros(2 * 2 * 8 * width + 16, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    return buf[offset:offset + 2 * 2 * 8 * width].view(2, 2, 8, width)[
+        ..., :16]
+
+
+@pytest.mark.parametrize("dtype,align", [(torch.float32, 4),
+                                         (torch.bfloat16, 8)])
+@pytest.mark.parametrize("case", ["aligned", "base", "stride"])
+def test_flash_views_must_start_rows_on_16_bytes(dtype, align, case):
+    """The kernels load 16 bytes at a time (fp32: float4; bf16: cp.async and
+    ldmatrix), so every row of a view starts on a 16-byte boundary: 4 fp32
+    or 8 bf16 elements, for the base pointer and for each stride. A view
+    off by half of that is refused by ``_check_view`` and copied by
+    ``_addressable``."""
+    half = align // 2
+    t = {"aligned": _view(dtype, 0, align), "base": _view(dtype, half, align),
+         "stride": _view(dtype, 0, half)}[case]
+    like = torch.zeros(2, 2, 8, 16, dtype=dtype)
+    assert cuda_attention._row_alignment(t) == align
+    if case == "aligned":
+        cuda_attention._check_view(t, "t", like)
+        assert cuda_attention._addressable(t) is t
+    else:
+        with pytest.raises(ValueError, match=f"{align}-element boundary"):
+            cuda_attention._check_view(t, "t", like)
+        copy = cuda_attention._addressable(t)
+        assert copy is not t and copy.is_contiguous()
+        assert torch.equal(copy, t)
+        cuda_attention._check_view(copy, "copy", like)
+    # a 4-element boundary is enough for fp32 and not for bf16
+    four = _view(dtype, 4, 4)
+    assert cuda_attention._rows_aligned(four) == (dtype == torch.float32)
+
