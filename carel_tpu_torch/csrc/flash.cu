@@ -27,16 +27,14 @@
 // reads q, k, v and writes o once, 37.7 MB (0.011 ms at 3.35 TB/s), against
 // 1.8 GFLOP (0.002 ms at the bf16 tensor-core rate).
 //
-// Which kernel runs. bf16 inputs: K7 and K8 are the tensor-core kernels of
-// flash_mma.cu (carel_flash_fwd and carel_flash_bwd_dkv send them there);
-// K9 is the kernel below. fp32 inputs: all three are the kernels below,
-// whose products are fp32 FMAs on the CUDA cores from fp32 tiles in shared
-// memory. fp32 stays on the CUDA cores because the tensor cores have no
-// full-fp32 product (TF32 keeps three digits) and do not round each
-// addition as fmaf does; the fp32 results are held to 1e-5. K9 serves both
-// types with one code path: a product of two bf16 values is exact in fp32,
-// so its sums are the fp32 sums of the input-type products. None of the
-// kernels below reaches the bytes bound.
+// Which kernel runs. bf16 inputs: K7, K8 and K9 are the tensor-core kernels
+// of flash_mma.cu (the entry points below send them there). fp32 inputs: all
+// three are the kernels below, whose products are fp32 FMAs on the CUDA
+// cores from fp32 tiles in shared memory. fp32 stays on the CUDA cores
+// because the tensor cores have no full-fp32 product (TF32 keeps three
+// digits) and do not round each addition as fmaf does; the fp32 results are
+// held to 1e-5 (output) and 1e-4 (gradients). None of the kernels below
+// reaches the bytes bound.
 //
 // Design of the kernels below:
 //   - one block of 64 threads per (batch, head, tile of 32 rows); a loop
@@ -56,7 +54,6 @@
 //     same bits.
 // Head dims taken: 16, 32, 64, 128.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -86,29 +83,6 @@ struct Io<float> {
     *reinterpret_cast<float4*>(p) = v;
   }
   static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const unsigned int*>(&lo);
-    raw.y = *reinterpret_cast<const unsigned int*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
 };
 
 // Rows row0 .. row0 + kTile of a [L, HD] slice (row stride in elements) into
@@ -619,7 +593,7 @@ bool bad_shape(const Shape& sh, int hd) {
 
 extern "C" {
 
-// K7 and K8 for bf16 inputs: flash_mma.cu.
+// K7, K8 and K9 for bf16 inputs: flash_mma.cu.
 int carel_flash_fwd_bf16(const void* q, const void* k, const void* v,
                          const int* seg, void* o, float* lse, int B, int h,
                          int L, int hd, long long q_sb, long long q_sh,
@@ -633,6 +607,15 @@ int carel_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                              long long g_sb, long long g_sh, long long g_sl,
                              long long d_sb, long long d_sh, long long d_sl,
                              float scale, void* stream);
+int carel_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                            const int* seg, const void* o, const void* dout,
+                            const float* lse, float* delta, void* dq, int B,
+                            int h, int L, int hd, long long q_sb,
+                            long long q_sh, long long q_sl, long long o_sb,
+                            long long o_sh, long long o_sl, long long g_sb,
+                            long long g_sh, long long g_sl, long long d_sb,
+                            long long d_sh, long long d_sl, float scale,
+                            void* stream);
 
 int carel_flash_takes_head_dim(int hd) { return takes_head_dim(hd) ? 1 : 0; }
 
@@ -667,12 +650,13 @@ int carel_flash_bwd_dq(const void* q, const void* k, const void* v,
                        void* stream) {
   const Shape sh = {B, h, L};
   if (bad_shape(sh, hd)) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return carel_flash_bwd_dq_bf16(q, k, v, seg, o, dout, lse, delta, dq, B, h,
+                                   L, hd, q_sb, q_sh, q_sl, o_sb, o_sh, o_sl,
+                                   g_sb, g_sh, g_sl, d_sb, d_sh, d_sl, scale,
+                                   stream);
   const Strides qs = {q_sb, q_sh, q_sl}, os = {o_sb, o_sh, o_sl};
   const Strides gs = {g_sb, g_sh, g_sl}, ds = {d_sb, d_sh, d_sl};
-  if (is_bf16)
-    CAREL_FLASH_DISPATCH(launch_bwd_dq, __nv_bfloat16, q, k, v, seg, o, dout,
-                         lse, delta, dq, sh, qs, os, gs, ds, scale,
-                         (cudaStream_t)stream);
   CAREL_FLASH_DISPATCH(launch_bwd_dq, float, q, k, v, seg, o, dout, lse, delta,
                        dq, sh, qs, os, gs, ds, scale, (cudaStream_t)stream);
 }

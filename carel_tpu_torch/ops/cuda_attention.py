@@ -3,10 +3,10 @@ dV) and K9 (dQ, with the row term delta = sum(o * do) as its prologue).
 
 Port of the stock Pallas TPU flash attention that carel_tpu's SelfAttention
 calls under ``attention_impl="flash"`` (carel_tpu/models/encoder.py:48-67).
-The kernels live in ``carel_tpu_torch/csrc``: for bf16 inputs K7 and K8 run
+The kernels live in ``carel_tpu_torch/csrc``: for bf16 inputs all three run
 on the tensor cores (``flash_mma.cu``), for fp32 inputs on the CUDA cores
-(``flash.cu``, which also holds K9 for both types); the C entry points pick
-by the input type, there is nothing to choose here. This module checks the
+(``flash.cu``); the C entry points pick by the input type, there is nothing
+to choose here. This module checks the
 inputs, allocates outputs and scratch, launches on the current stream and
 counts launches.
 

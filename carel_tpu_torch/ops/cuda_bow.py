@@ -12,10 +12,11 @@ dense sum decomposes into per-row scalars
         - (1-c)*S_log1mp + s*sum_nnz(w*log(1-p_g))
     T_sum = c*V + s*sum(w),  S_z = sum_v z_v,  S_log1mp = sum_v log(1-p_v)
 
-so the kernel (``carel_tpu_torch/csrc/bow.cu``) sweeps W twice and returns
-lse, S_z, S_log1mp and Qp = sum_v p/(1-p) per row; the [B, V] logits are
-never stored. The nnz part (z at the <= T bag-of-words indices) runs here in
-plain torch, as it ran in XLA. The backward, with per-row
+so the kernel (``carel_tpu_torch/csrc/bow.cu``: one launch, the logits
+evaluated once and kept on the chip between its two sweeps) returns lse, S_z,
+S_log1mp and Qp = sum_v p/(1-p) per row; the [B, V] logits are never stored
+in device memory. The nnz part (z at the <= T bag-of-words indices) runs
+here in plain torch, as it ran in XLA. The backward, with per-row
 A = c*V - (1-c)*Qp + s*Qw (Qw = sum_nnz w/(1-p_g)), is
 
     dR/dz_v = -c + A*p_v + (1-c)*p_v/(1-p_v)     (dense part, kernel K4)
@@ -92,11 +93,14 @@ def bow_forward_kernel(h: torch.Tensor, W: torch.Tensor,
     """K3: [4, B] = lse, S_z, S_log1mp, Qp per row of z = h W^T + b."""
     B, D, V = _check_dense(h, W, b)
     lib = native.lib()
-    scratch = torch.empty(lib.carel_bow_fwd_scratch(B, V),
-                          dtype=torch.float32, device=h.device)
-    out = torch.empty(4, B, dtype=torch.float32, device=h.device)
+    scratch = lib.carel_bow_fwd_scratch(B, D, V, 0)
+    if scratch < 0:
+        raise RuntimeError("bow forward kernel: the card could not be queried")
+    # the result and, behind it, the per-chunk partials of the two sweeps
+    buf = torch.empty(4 * B + scratch, dtype=torch.float32, device=h.device)
+    out = buf[:4 * B].view(4, B)
     err = lib.carel_bow_fwd(h.data_ptr(), W.data_ptr(), b.data_ptr(), B, D, V,
-                            scratch.data_ptr(), out.data_ptr(),
+                            buf[4 * B:].data_ptr(), out.data_ptr(),
                             native.stream(h.device))
     native.check(err, "bow forward kernel")
     launches["bow_fwd"] += 1
@@ -124,30 +128,41 @@ def bow_backward_kernel(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     return dW, db, dh
 
 
+def loss_from_row_sums(stats, h, W, b, bow_indices, bow_weights, mask,
+                       label_smoothing):
+    """The loss from the four dense row sums ``stats`` = (lse, S_z, S_log1mp,
+    Qp) and the nnz part, which is computed here; also returns what the
+    backward keeps: (safe indices, valid, w, p at the indices, W's rows
+    there, the denominator)."""
+    V = W.shape[0]
+    c = label_smoothing / V
+    s = 1.0 - label_smoothing
+    lse, S_z, S_log1mp, _ = stats
+    valid = bow_indices >= 0
+    safe = torch.where(valid, bow_indices, 0).long()
+    w = torch.where(valid, bow_weights, 0.0)
+    Wg = W[safe]  # [B, T, D]
+    zg = torch.einsum("btd,bd->bt", Wg, h) + b[safe]
+    pg = torch.clamp(torch.exp(zg - lse[:, None]), max=P_MAX)
+    T_sum = c * V + s * torch.sum(w, dim=1)
+    R = (-c * S_z - s * torch.sum(w * zg, dim=1) + lse * T_sum
+         - (1.0 - c) * S_log1mp
+         + s * torch.sum(w * torch.where(valid, torch.log1p(-pg), 0.0),
+                         dim=1))
+    denom = torch.clamp(torch.sum(mask), min=1.0) * V
+    return torch.sum(R * mask) / denom, (safe, valid, w, pg, Wg, denom)
+
+
 class _FusedBow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, W, b, bow_indices, bow_weights, mask, label_smoothing):
-        V = W.shape[0]
-        c = label_smoothing / V
-        s = 1.0 - label_smoothing
-        lse, S_z, S_log1mp, Qp = bow_forward_kernel(h, W, b)
-
-        valid = bow_indices >= 0
-        safe = torch.where(valid, bow_indices, 0).long()
-        w = torch.where(valid, bow_weights, 0.0)
-        Wg = W[safe]  # [B, T, D]
-        zg = torch.einsum("btd,bd->bt", Wg, h) + b[safe]
-        pg = torch.clamp(torch.exp(zg - lse[:, None]), max=P_MAX)
-        T_sum = c * V + s * torch.sum(w, dim=1)
-        R = (-c * S_z - s * torch.sum(w * zg, dim=1) + lse * T_sum
-             - (1.0 - c) * S_log1mp
-             + s * torch.sum(w * torch.where(valid, torch.log1p(-pg), 0.0),
-                             dim=1))
-        denom = torch.clamp(torch.sum(mask), min=1.0) * V
-        ctx.save_for_backward(h, W, b, safe, valid, w, mask, lse, Qp, pg, Wg,
-                              denom)
+        stats = bow_forward_kernel(h, W, b)
+        loss, (safe, valid, w, pg, Wg, denom) = loss_from_row_sums(
+            stats, h, W, b, bow_indices, bow_weights, mask, label_smoothing)
+        ctx.save_for_backward(h, W, b, safe, valid, w, mask, stats[0],
+                              stats[3], pg, Wg, denom)
         ctx.label_smoothing = label_smoothing
-        return torch.sum(R * mask) / denom
+        return loss
 
     @staticmethod
     def backward(ctx, g):

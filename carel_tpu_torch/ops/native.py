@@ -50,9 +50,11 @@ _SIGNATURES = {
     "carel_hsic_fwd": ([_P, _P, _P, _I, _I, _F, _F, _P, _P, _P], _I),
     "carel_hsic_bwd": ([_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P], _I),
     "carel_bow_max_dim": ([], _I),
-    "carel_bow_fwd_scratch": ([_I, _I], _LL),
+    "carel_bow_fwd_scratch": ([_I, _I, _I, _I], _LL),
     "carel_bow_bwd_scratch": ([_I, _I, _I], _LL),
     "carel_bow_fwd": ([_P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
+    # h W b | B D V | columns a chunk, blocks, keep z | scratch out stream
+    "carel_bow_fwd_planned": ([_P, _P, _P] + [_I] * 6 + [_P, _P, _P], _I),
     "carel_bow_bwd": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "carel_flash_takes_head_dim": ([_I], _I),
     # q k v seg o lse | B h L hd | strides of qkv, o | scale is_bf16 stream
@@ -61,7 +63,7 @@ _SIGNATURES = {
     "carel_flash_bwd_dq": ([_P] * 9 + [_I] * 4 + [_LL] * 12 + [_F, _I, _P],
                            _I),
     # q k v seg do lse delta dk dv | B h L hd | strides of qkv, do, dkv | ...
-    # (flash.cu sends bf16 inputs of these two on to flash_mma.cu)
+    # (flash.cu sends bf16 inputs of all three on to flash_mma.cu)
     "carel_flash_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_LL] * 9 + [_F, _I, _P],
                             _I),
 }

@@ -4,16 +4,17 @@ card, to pick its constants by measurement.
     python -m carel_tpu_torch.tools.flash_variants [--out FILE]
 
 A variant sets the constants at the head of the source: rows per ring stage
-(kTile), ring depth (kStages), strips a block owns at most (kMaxWarps), and
-the blocks per SM that __launch_bounds__ asks for at hd <= 64, which caps
-the registers (kFwdMinBlocks for K7, kDkvMinBlocks for K8).
-Each variant is written to a copy of the source, compiled on its own (all
-nvcc processes started together, with -Xptxas -v for registers and spills)
-and loaded with ctypes. K7 is timed at bf16 [64, 12, 96, 64] and
-[512, 12, 96, 64], K8 at [64, 12, 96, 64], on the packed layout, by CUDA
-events around 100 launches issued back to back (median of 7 such batches);
-K7's output and K8's gradients are held against the first variant's. Needs a
-GPU and nvcc; prints one line per variant and a JSON object last.
+(kTile), ring depth (kStages for K7 and K8, kDqStages for K9), strips a
+block owns at most (kMaxWarps), and the blocks per SM that __launch_bounds__
+asks for at hd <= 64, which caps the registers (kFwdMinBlocks for K7,
+kDkvMinBlocks for K8, kDqMinBlocks for K9). Each variant is written to a
+copy of the source, compiled on its own (all nvcc processes started
+together, with -Xptxas -v for registers and spills) and loaded with ctypes.
+K7 is timed at bf16 [64, 12, 96, 64] and [512, 12, 96, 64], K8 and K9 at
+[64, 12, 96, 64], on the packed layout, by CUDA events around 100 launches
+started back to back (median of 7 such batches); K7's output and K8's and
+K9's gradients are held against the first variant's. Needs a GPU and nvcc;
+prints one line per variant and a JSON object last.
 """
 
 from __future__ import annotations
@@ -33,14 +34,17 @@ import torch
 from carel_tpu_torch.ops import native
 
 SOURCE = native.CSRC / "flash_mma.cu"
-CONSTANTS = ("kTile", "kStages", "kMaxWarps", "kFwdMinBlocks",
-             "kDkvMinBlocks")
+CONSTANTS = ("kTile", "kStages", "kDqStages", "kMaxWarps", "kFwdMinBlocks",
+             "kDkvMinBlocks", "kDqMinBlocks")
 # the first is the source as it stands
 VARIANTS = (
     None,
-    (32, 4, 8, 1, 1), (32, 4, 8, 2, 2), (32, 4, 6, 2, 2), (32, 4, 6, 3, 2),
-    (32, 4, 6, 4, 2), (32, 4, 6, 3, 3), (32, 3, 6, 3, 2), (32, 2, 6, 3, 2),
-    (32, 4, 3, 6, 4), (32, 4, 2, 8, 6), (16, 8, 6, 3, 2), (16, 8, 6, 4, 3),
+    (32, 4, 4, 8, 1, 1, 1), (32, 4, 4, 8, 2, 2, 2), (32, 4, 4, 6, 2, 2, 2),
+    (32, 4, 4, 6, 3, 2, 3), (32, 4, 4, 6, 4, 2, 4), (32, 4, 4, 6, 3, 3, 1),
+    (32, 3, 3, 6, 3, 2, 3), (32, 2, 2, 6, 3, 2, 3), (32, 4, 3, 6, 3, 2, 2),
+    (32, 4, 2, 6, 3, 2, 2), (32, 4, 2, 6, 3, 2, 3), (32, 4, 2, 6, 3, 2, 4),
+    (32, 4, 4, 3, 6, 4, 6), (32, 4, 2, 3, 6, 4, 6), (32, 4, 2, 2, 8, 6, 8),
+    (16, 8, 8, 6, 3, 2, 3), (16, 8, 4, 6, 4, 3, 4),
 )
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
@@ -69,8 +73,8 @@ def registers(log: str) -> dict:
     out, name = {}, None
     spills = 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d(flash_(?:fwd|bwd_dkv)"
-                      r"_mma)_kernelILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*?\d(flash_(?:fwd|bwd_dkv|"
+                      r"bwd_dq)_mma)_kernelILi(\d+)E", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -104,6 +108,8 @@ def build_all(tmp: Path):
             [_P] * 6 + [_I] * 4 + [_LL] * 6 + [_F, _P])
         handle.carel_flash_bwd_dkv_bf16.argtypes = (
             [_P] * 9 + [_I] * 4 + [_LL] * 9 + [_F, _P])
+        handle.carel_flash_bwd_dq_bf16.argtypes = (
+            [_P] * 9 + [_I] * 4 + [_LL] * 12 + [_F, _P])
         built.append((handle, registers(log)))
     return built
 
@@ -149,7 +155,8 @@ def problem(B: int, h: int = 12, L: int = 96, hd: int = 64, seed: int = 0):
     delta = ca.flash_backward_dq_kernel(q, k, v, seg, out, dout, lse, scale,
                                         dq)
     return dict(B=B, h=h, L=L, hd=hd, q=q, k=k, v=v, seg=seg, out=out,
-                dout=dout, lse=lse, delta=delta, dk=dk, dv=dv, scale=scale)
+                dout=dout, lse=lse, delta=delta, dq=dq, dk=dk, dv=dv,
+                scale=scale)
 
 
 def calls(handle, p):
@@ -174,7 +181,16 @@ def calls(handle, p):
         if err:
             raise RuntimeError(f"dk/dv launch failed: CUDA error {err}")
 
-    return fwd, dkv
+    def dq():
+        err = handle.carel_flash_bwd_dq_bf16(
+            *ptr(p["q"], p["k"], p["v"], p["seg"], p["out"], p["dout"],
+                 p["lse"], p["delta"], p["dq"]),
+            p["B"], p["h"], p["L"], p["hd"], *st(p["q"]), *st(p["out"]),
+            *st(p["dout"]), *st(p["dq"]), p["scale"], stream)
+        if err:
+            raise RuntimeError(f"dq launch failed: CUDA error {err}")
+
+    return fwd, dkv, dq
 
 
 def main() -> int:
@@ -194,17 +210,18 @@ def main() -> int:
         built = build_all(Path(tmp))
         want = None
         for values, (handle, regs) in zip(VARIANTS, built):
-            fwd, dkv = calls(handle, train)
-            fwd512, _ = calls(handle, serve)
+            fwd, dkv, dq = calls(handle, train)
+            fwd512, *_ = calls(handle, serve)
             row = {
                 "constants": dict(zip(CONSTANTS, values or current_values())),
                 "as_committed": values is None,
                 "fwd_ms": batch_ms(fwd), "dkv_ms": batch_ms(dkv),
-                "fwd_b512_ms": batch_ms(fwd512),
+                "dq_ms": batch_ms(dq), "fwd_b512_ms": batch_ms(fwd512),
                 "registers": {k: regs[k] for k in (
-                    "flash_fwd_mma<64>", "flash_bwd_dkv_mma<64>")}}
-            got = [t.clone() for t in (train["out"], train["dk"],
-                                       train["dv"])]
+                    "flash_fwd_mma<64>", "flash_bwd_dkv_mma<64>",
+                    "flash_bwd_dq_mma<64>")}}
+            got = [t.clone() for t in (train["out"], train["dq"],
+                                       train["dk"], train["dv"])]
             want = want or got
             # the tile width changes where the online softmax rounds
             row["max_abs_vs_first"] = max(

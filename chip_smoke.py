@@ -12,15 +12,18 @@ an error:
    float64, at two input scales), print errors, median times by CUDA events
    and the plain version's time; hold the encoder's fp32 attention scores
    (bf16 tensor-core GEMM with an fp32 output) against the product of the
-   upcast q and k; hold the flash attention kernels K7-K9 against their
-   plain version in fp32 (CUDA-core kernels) and bf16 (K7 and K8 on the
-   tensor cores), at the training and the inference shape, at a ragged tiny
+   upcast q and k; hold the fused BoW kernels also at ragged shapes (V =
+   1,003 with B = 5 and 200, and B = 300 at the full V, where the forward
+   evaluates its logits twice) and require two runs of the forward to give
+   the same bits; hold the flash attention kernels K7-K9 against their
+   plain version in fp32 (CUDA-core kernels) and bf16 (tensor-core
+   kernels), at the training and the inference shape, at a ragged tiny
    one, at L over one block's rows (200, 513), at hd = 128 and with pad
    tails longer than one tile of keys, with an all-pad row and a row
    without pads, in the stock and the packed layout, and require two runs
-   to give the same bits; time K7-K9, their plain version and the library
-   call by CUDA events and by the profiler's device time per call, and the
-   host's cost of one launch;
+   to give the same bits; time every kernel, its plain version and, for
+   K7-K9, the library call by CUDA events and by the profiler's device time
+   per call, and the host's cost of one launch;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights and batch, under the
    flagship's MMD (with the default and the flash attention) and under
@@ -105,11 +108,12 @@ def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    """Device time of one call of fn: the summed duration of every device
-    kernel (and device copy) that torch.profiler records over iters calls,
-    divided by iters. Unlike an event pair around a Python call it holds
-    nothing of the host's work between launches."""
+def device_profile(fn, iters: int = 30, warmup: int = 5):
+    """(device ms, device kernels) of one call of fn: the summed duration
+    and the number of the device kernels (and device copies) that
+    torch.profiler records over iters calls, divided by iters. Unlike an
+    event pair around a Python call the time holds nothing of the host's
+    work between launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,12 +124,17 @@ def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    if total_us == 0:
-        fail("device_ms: the profiler recorded no device time")
-    return total_us / 1e3 / iters
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    if not spans or sum(spans) == 0:
+        fail("device_profile: the profiler recorded no device time")
+    return sum(spans) / 1e3 / iters, len(spans) / iters
+
+
+def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
+    """Device time of one call of fn (see device_profile)."""
+    return device_profile(fn, iters, warmup)[0]
 
 
 def host_launch_ms(fn, iters: int = 200, sync_every: int = 50) -> float:
@@ -143,6 +152,31 @@ def host_launch_ms(fn, iters: int = 200, sync_every: int = 50) -> float:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
     return float(np.median(times)) * 1e3
+
+
+def timed(kernel, plain, library=None) -> dict:
+    """The times of one kernel record: by events (``ms``, ``plain_ms``,
+    ``library_ms``), the profiler's device time per call of each, the
+    device kernels one call of the wrapper launches, and the host's cost of
+    one such call."""
+    kernel_ms, kernels = device_profile(kernel)
+    rec = {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
+           "library_ms": median_ms(library) if library else None,
+           "device_ms": kernel_ms, "kernels_per_call": kernels,
+           "plain_device_ms": device_ms(plain),
+           "host_launch_ms": host_launch_ms(kernel)}
+    if library:
+        rec["library_device_ms"] = device_ms(library)
+    return rec
+
+
+def print_times(name: str, rec: dict) -> None:
+    print(f"{name}: device {rec['device_ms']:.4f} ms in "
+          f"{rec['kernels_per_call']:g} kernels a call (plain "
+          f"{rec['plain_device_ms']:.4f}); by events {rec['ms']:.4f} ms "
+          f"(plain {rec['plain_ms']:.4f}); bound {rec['bound_ms']:.6f} ms by "
+          f"{rec['bound_by']}; one launch costs the host "
+          f"{rec['host_launch_ms']:.4f} ms", flush=True)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -232,13 +266,11 @@ def phase_mmd(records: dict) -> None:
     yp = y.clone().requires_grad_(True)
     val_p = cp.mmd_statistic_plain(xp, yp, alphas, mask)
     t = {
-        "fwd": median_ms(lambda: cp.mmd_forward_kernel(x, y, mask, alphas)),
-        "fwd_plain": median_ms(
-            lambda: cp.mmd_statistic_plain(x, y, alphas, mask)),
-        "bwd": median_ms(
-            lambda: cp.mmd_backward_kernel(x, y, mask, n, g, alphas)),
-        "bwd_plain": median_ms(lambda: torch.autograd.grad(
-            val_p, (xp, yp), retain_graph=True)),
+        "fwd": timed(lambda: cp.mmd_forward_kernel(x, y, mask, alphas),
+                     lambda: cp.mmd_statistic_plain(x, y, alphas, mask)),
+        "bwd": timed(lambda: cp.mmd_backward_kernel(x, y, mask, n, g, alphas),
+                     lambda: torch.autograd.grad(val_p, (xp, yp),
+                                                 retain_graph=True)),
     }
     # the distinct pairs: the xx and yy blocks are symmetric and their
     # diagonals drop out of the estimator, so B(B-1)/2 pairs each; the xy
@@ -266,11 +298,9 @@ def phase_mmd(records: dict) -> None:
             "name": name, "route": "cuda",
             "source": "carel_tpu_torch/csrc/mmd.cu",
             "replaces": f"carel_tpu/ops/pallas_pairwise.py:{route_line}",
-            "launches": 0, "max_abs_err": worst[key],
-            "ms": t[key], "plain_ms": t[key + "_plain"],
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
-        print(f"{name}: {t[key]:.4f} ms (plain {t[key + '_plain']:.4f} ms, "
-              f"bound {b[0]:.6f} ms by {b[1]})", flush=True)
+            "launches": 0, "max_abs_err": worst[key], **t[key],
+            "bound_ms": b[0], "bound_by": b[1]}
+        print_times(name, records[name])
 
 
 HSIC_SPREAD, HSIC_TIGHT = 0.2, 0.2e-2
@@ -350,13 +380,12 @@ def phase_hsic(records: dict) -> None:
     yp = y.clone().requires_grad_(True)
     val_p = cp.hsic_plain(xp, yp, s_x, s_y, mask)
     t = {
-        "fwd": median_ms(
-            lambda: cp.hsic_forward_kernel(x, y, mask, s_x, s_y)),
-        "fwd_plain": median_ms(lambda: cp.hsic_plain(x, y, s_x, s_y, mask)),
-        "bwd": median_ms(lambda: cp.hsic_backward_kernel(
-            x, y, mask, s_x, s_y, res, g)),
-        "bwd_plain": median_ms(lambda: torch.autograd.grad(
-            val_p, (xp, yp), retain_graph=True)),
+        "fwd": timed(lambda: cp.hsic_forward_kernel(x, y, mask, s_x, s_y),
+                     lambda: cp.hsic_plain(x, y, s_x, s_y, mask)),
+        "bwd": timed(lambda: cp.hsic_backward_kernel(x, y, mask, s_x, s_y,
+                                                     res, g),
+                     lambda: torch.autograd.grad(val_p, (xp, yp),
+                                                 retain_graph=True)),
     }
     # least work for the function, counted as for MMD: each row's squared
     # norm once (2 B rows of d FMA). Each Gram is symmetric with a diagonal
@@ -389,11 +418,9 @@ def phase_hsic(records: dict) -> None:
             "name": name, "route": "cuda",
             "source": "carel_tpu_torch/csrc/hsic.cu",
             "replaces": f"carel_tpu/ops/pallas_pairwise.py:{line}",
-            "launches": 0, "max_abs_err": worst[key],
-            "ms": t[key], "plain_ms": t[key + "_plain"],
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
-        print(f"{name}: {t[key]:.4f} ms (plain {t[key + '_plain']:.4f} ms, "
-              f"bound {b[0]:.6f} ms by {b[1]})", flush=True)
+            "launches": 0, "max_abs_err": worst[key], **t[key],
+            "bound_ms": b[0], "bound_by": b[1]}
+        print_times(name, records[name])
 
 
 def bow_inputs(B=64, D=48, V=23808, T=128, masked=4, seed=1):
@@ -415,12 +442,15 @@ def bow_inputs(B=64, D=48, V=23808, T=128, masked=4, seed=1):
     return tuple(torch.tensor(a, device=dev) for a in (h, W, b, idx, wts, mask))
 
 
-def phase_bow(records: dict) -> None:
+def bow_case(B: int, V: int, masked: int):
+    """K3 and K4 through fused_bow_loss against the plain version at one
+    shape: value rtol 1e-5, gradients normwise 1e-4; two runs of K3 must
+    give the same bits. Returns the largest absolute errors (value, grads)
+    and the plain version's graph for the timing."""
     from carel_tpu_torch.ops import cuda_bow as cb
 
-    h, W, b, idx, wts, mask = bow_inputs()
-    B, D = h.shape
-    V = W.shape[0]
+    h, W, b, idx, wts, mask = bow_inputs(B=B, V=V, masked=masked)
+    D = h.shape[1]
     leaves_k = [t.clone().requires_grad_(True) for t in (h, W, b)]
     val_k = cb.fused_bow_loss(*leaves_k, idx, wts, 0.1, mask)
     gk = torch.autograd.grad(val_k, leaves_k)
@@ -430,27 +460,45 @@ def phase_bow(records: dict) -> None:
     vk, vp = float(val_k.detach()), float(val_p.detach())
     rel = abs(vk - vp) / abs(vp)
     grel = {n: relnorm(a, c) for n, a, c in zip(("dh", "dW", "db"), gk, gp)}
+    if not torch.equal(cb.bow_forward_kernel(h, W, b),
+                       cb.bow_forward_kernel(h, W, b)):
+        fail(f"bow B={B} V={V}: two runs of the forward kernel differ")
     print(f"bow B={B} D={D} V={V}: value {vk:.8e} vs plain "
           f"{vp:.8e} rel {rel:.2e}; grads normwise rel "
-          + " ".join(f"{n} {v:.2e}" for n, v in grel.items()), flush=True)
+          + " ".join(f"{n} {v:.2e}" for n, v in grel.items())
+          + "; two forward runs bit-equal", flush=True)
     if not rel <= 1e-5:
         fail(f"bow forward value rel err {rel:.2e} > 1e-5")
     if not max(grel.values()) <= 1e-4:
         fail(f"bow backward normwise rel err {max(grel.values()):.2e} > 1e-4")
-    err_v = abs(vk - vp)
     err_g = max(float((a - c).abs().max()) for a, c in zip(gk, gp))
+    return abs(vk - vp), err_g, (val_p, leaves_p)
 
+
+def phase_bow(records: dict) -> None:
+    from carel_tpu_torch.ops import cuda_bow as cb
+
+    # the training shape, then ragged ones: V no multiple of anything with a
+    # few and with many rows, and more rows than the forward keeps on chip
+    err_v, err_g, (val_p, leaves_p) = bow_case(64, 23808, 4)
+    for B, V in ((5, 1003), (200, 1003), (300, 23808)):
+        ev, eg, _ = bow_case(B, V, 1)
+        err_v, err_g = max(err_v, ev), max(err_g, eg)
+
+    h, W, b, idx, wts, mask = bow_inputs()
+    B, D = h.shape
+    V = W.shape[0]
     stats = cb.bow_forward_kernel(h, W, b)
     rowp = torch.stack([stats[0], torch.zeros_like(stats[0]),
                         mask * 0.9 / (B * V), mask * 0.1 / (V * B * V),
                         mask / (B * V)]).contiguous()
     t = {
-        "fwd": median_ms(lambda: cb.bow_forward_kernel(h, W, b)),
-        "fwd_plain": median_ms(lambda: cb.fused_bow_loss_plain(
-            h, W, b, idx, wts, 0.1, mask)),
-        "bwd": median_ms(lambda: cb.bow_backward_kernel(h, W, b, rowp)),
-        "bwd_plain": median_ms(lambda: torch.autograd.grad(
-            val_p, leaves_p, retain_graph=True)),
+        "fwd": timed(lambda: cb.bow_forward_kernel(h, W, b),
+                     lambda: cb.fused_bow_loss_plain(h, W, b, idx, wts, 0.1,
+                                                     mask)),
+        "bwd": timed(lambda: cb.bow_backward_kernel(h, W, b, rowp),
+                     lambda: torch.autograd.grad(val_p, leaves_p,
+                                                 retain_graph=True)),
     }
     zflops = 2 * B * D * V
     w_bytes = 4 * (V * D + V)
@@ -467,11 +515,9 @@ def phase_bow(records: dict) -> None:
             "source": "carel_tpu_torch/csrc/bow.cu",
             "replaces": f"carel_tpu/ops/pallas_bow.py:{line}",
             "launches": 0,
-            "max_abs_err": err_v if key == "fwd" else err_g,
-            "ms": t[key], "plain_ms": t[key + "_plain"],
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
-        print(f"{name}: {t[key]:.4f} ms (plain {t[key + '_plain']:.4f} ms, "
-              f"bound {bnd[0]:.6f} ms by {bnd[1]})", flush=True)
+            "max_abs_err": err_v if key == "fwd" else err_g, **t[key],
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print_times(name, records[name])
 
 
 def phase_scores() -> None:
@@ -517,8 +563,8 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # inputs: the kernels round exp(s - max) (K7), p and ds (K8, K9) and their
 # results to bf16, each rounding 2^-9 relative at most; the gates are three
 # times the errors measured on the card with the first, CUDA-core kernels
-# (output 2.0e-3, gradients 2.6e-3); the tensor-core K7 and K8 are held to
-# the same gates.
+# (output 2.0e-3, gradients 2.6e-3); the tensor-core kernels are held to the
+# same gates.
 FLASH_GATES = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (6e-3, 8e-3)}
 
 
@@ -705,25 +751,18 @@ def phase_flash(records: dict) -> None:
         f"{n} {nb} bytes, {fl:.0f} FLOP" for n, (nb, fl) in work.items()),
         flush=True)
     stock = {"flash_fwd": 331, "flash_bwd_dkv": 796, "flash_bwd_dq": 1146}
-    source = {"flash_fwd": "flash_mma.cu", "flash_bwd_dkv": "flash_mma.cu",
-              "flash_bwd_dq": "flash.cu"}
     for name in FLASH_KERNELS:
         kernel, plain, library = calls[name]
         bnd = bound_ms(*work[name], PEAK_BF16_FLOPS)
         rec = records[name] = {
             "name": name, "route": "cuda",
-            "source": f"carel_tpu_torch/csrc/{source[name]}",
+            "source": "carel_tpu_torch/csrc/flash_mma.cu",
             "replaces": "carel_tpu/models/encoder.py:61 (jax/experimental/"
                         f"pallas/ops/tpu/flash_attention.py:{stock[name]})",
             "launches": 0,
             "max_abs_err": worst["fwd" if name == "flash_fwd" else "bwd"],
-            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
-            "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": median_ms(library),
-            "device_ms": device_ms(kernel),
-            "plain_device_ms": device_ms(plain),
-            "library_device_ms": device_ms(library),
-            "host_launch_ms": host_launch_ms(kernel)}
+            **timed(kernel, plain, library),
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
         print(f"{name} at bf16 [{B}, {h}, {L}, {hd}], packed layout: device "
               f"{rec['device_ms']:.4f} ms (plain {rec['plain_device_ms']:.4f}"
               f", library {rec['library_device_ms']:.4f}); by events "

@@ -17,8 +17,11 @@ inputs is repeated here in plain PyTorch (``_emulated_kernels``: the online
 softmax over tiles of 32 keys, ``exp(s - running max)`` rounded to bf16
 before the product with v, fp32 row sums of the unrounded values, ``p`` and
 ``ds`` rounded to bf16 before the backward's products, results rounded to
-bf16) and held against the plain version in fp32 and against the stock
-reference: normwise 6e-3 (output) and 8e-3 (gradients), the gates that
+bf16; ``delta`` the fp32 sum of the rounded output times the cotangent; in
+the dQ kernel ``p`` stays fp32, ``ds`` is rounded to bf16 and dq is summed
+in fp32 tile by tile over the keys) and held against the plain version in
+fp32 and against the stock reference: normwise 6e-3 (output) and 8e-3
+(gradients), the gates that
 chip_smoke.py and tests/test_torch_kernels.py put on the kernels, which
 therefore are the arithmetic's own and not luck.
 """
@@ -124,19 +127,25 @@ def _emulated_kernels(q, k, v, g, mask, scale):
         m = m_new
     out = (acc / row_sum[..., None]).to(bf)
     lse = m + torch.log(row_sum)
-    # backward, from the rounded output as the kernels read it
+    # backward, from the rounded output as the kernels read it: delta is
+    # the dQ kernel's prologue, and the dK/dV kernel reads the same values
     delta = (out.float() * gf).sum(-1, keepdim=True)
     p = torch.exp(s - lse[..., None])
     ds = ((gf @ vf.transpose(-1, -2) - delta) * p) * scale
     p16, ds16 = p.to(bf).float(), ds.to(bf).float()
     dv = p16.transpose(-1, -2) @ gf
     dk = ds16.transpose(-1, -2) @ qf
-    dq = ds16 @ kf
+    # dq: a warp's fp32 accumulator takes one tile of keys after another
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, L, KERNEL_TILE):
+        dq = dq + ds16[..., k0:k0 + KERNEL_TILE] \
+            @ kf[..., k0:k0 + KERNEL_TILE, :]
     return out, dq.to(bf), dk.to(bf), dv.to(bf)
 
 
 @pytest.mark.parametrize("reference", ["plain", "stock"])
-@pytest.mark.parametrize("L,hd", [(37, 16), (96, 64), (200, 64), (513, 32)])
+@pytest.mark.parametrize("L,hd", [(37, 16), (96, 64), (200, 64), (513, 32),
+                                  (96, 128)])
 def test_emulated_kernel_arithmetic_is_inside_the_card_gates(L, hd,
                                                              reference):
     """bf16 inputs with pad tails (row 1's is L // 2, over one tile from

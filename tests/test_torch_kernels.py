@@ -12,10 +12,13 @@ inputs: with tight latents the plain fp32 version itself is off by ~3e-4
 (tests/test_torch_hsic.py). Flash attention (K7-K9) is held against its
 plain version evaluated in fp32 from the same inputs: fp32 inputs (the
 CUDA-core kernels) to 1e-5 (output) and 1e-4 (gradients), where only the
-order of the sums differs; bf16 inputs (K7 and K8 on the tensor cores) to
-6e-3 and 8e-3, three times the errors measured on the card (2.0e-3, 2.6e-3:
-the kernels round the probabilities, ds and the results to bf16;
-tests/test_torch_attention.py repeats that arithmetic on the CPU).
+order of the sums differs; bf16 inputs (the tensor-core kernels) to 6e-3
+and 8e-3, three times the errors measured on the card (2.0e-3, 2.6e-3: the
+kernels round the probabilities, ds and the results to bf16;
+tests/test_torch_attention.py repeats that arithmetic on the CPU). The BoW
+forward (K3, one cooperative launch) is also held at ragged shapes, with its
+logits kept on the chip and evaluated twice, and must refuse a grid that
+cannot be resident.
 """
 
 import numpy as np
@@ -135,6 +138,97 @@ def test_bow_kernels_match_plain(cuda, V):
         assert _relnorm(a, c) <= 1e-4
 
 
+def _dense_row_sums(h, W, b):
+    """lse, S_z, S_log1mp, Qp of z = h W^T + b in float64, and sum |z|."""
+    z = h.double() @ W.double().T + b.double()
+    lse = torch.logsumexp(z, 1)
+    p = torch.clamp(torch.exp(z - lse[:, None]), max=cuda_bow.P_MAX)
+    return torch.stack([lse, z.sum(1), torch.log1p(-p).sum(1),
+                        (p / (1 - p)).sum(1)]), z.abs().sum(1)
+
+
+# V not a multiple of anything with a few and with many rows; more rows than
+# the kernel keeps logits for on the chip; more chunks of V than SMs, with a
+# D that is no multiple of 4 (no 16-byte loads); one row
+@pytest.mark.parametrize("B,D,V", [(5, 48, 1003), (200, 48, 1003),
+                                   (300, 48, 23808), (5, 33, 40000),
+                                   (1, 7, 50)])
+def test_bow_forward_kernel_at_ragged_shapes(cuda, B, D, V):
+    h, W, b, idx, wts, _ = _bow_problem(cuda, B=B, D=D, V=V, T=32, masked=0)
+    ops.reset_launch_counts()
+    got = cuda_bow.bow_forward_kernel(h, W, b)
+    assert ops.launch_counts()["bow_fwd"] == 1
+    assert torch.equal(got, cuda_bow.bow_forward_kernel(h, W, b))
+    want, abs_z = _dense_row_sums(h, W, b)
+    scale = torch.stack([want[0].abs(), abs_z, want[2].abs(), want[3].abs()])
+    assert float(((got.double() - want).abs() / scale).max()) <= 1e-5
+    mask = torch.ones(B, device=cuda)
+    torch.testing.assert_close(
+        cuda_bow.fused_bow_loss(h, W, b, idx, wts, 0.1, mask),
+        cuda_bow.fused_bow_loss_plain(h, W, b, idx, wts, 0.1, mask),
+        rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("cols,keep", [(181, 1), (181, 0), (64, 0), (256, 0)])
+def test_bow_forward_plans_agree(cuda, cols, keep):
+    """The same row sums whether the logits stay on the chip between the
+    sweeps or are evaluated again, and for other cuts of V."""
+    from carel_tpu_torch.ops import native
+
+    h, W, b, *_ = _bow_problem(cuda)
+    B, D = h.shape
+    V = W.shape[0]
+    lib = native.lib()
+    chunks = -(-V // cols)
+    scratch = torch.empty(lib.carel_bow_fwd_scratch(B, D, V, cols),
+                          device=cuda)
+    out = torch.empty(4, B, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    native.check(lib.carel_bow_fwd_planned(
+        h.data_ptr(), W.data_ptr(), b.data_ptr(), B, D, V, cols,
+        min(chunks, sms), keep, scratch.data_ptr(), out.data_ptr(),
+        native.stream(cuda)), "bow forward kernel")
+    want, abs_z = _dense_row_sums(h, W, b)
+    scale = torch.stack([want[0].abs(), abs_z, want[2].abs(), want[3].abs()])
+    assert float(((out.double() - want).abs() / scale).max()) <= 1e-5
+
+
+def test_bow_forward_refuses_a_grid_that_cannot_be_resident(cuda):
+    """A cooperative launch needs every block on the card at once: chunks of
+    8 columns would be 2,976 blocks. The entry point returns the error and
+    launches nothing; there is no other path to fall to."""
+    from carel_tpu_torch.ops import native
+
+    h, W, b, *_ = _bow_problem(cuda)
+    B, D = h.shape
+    V = W.shape[0]
+    lib = native.lib()
+    scratch = torch.empty(lib.carel_bow_fwd_scratch(B, D, V, 8), device=cuda)
+    out = torch.full((4, B), 7.0, device=cuda)
+    err = lib.carel_bow_fwd_planned(
+        h.data_ptr(), W.data_ptr(), b.data_ptr(), B, D, V, 8, -(-V // 8), 0,
+        scratch.data_ptr(), out.data_ptr(), native.stream(cuda))
+    with pytest.raises(RuntimeError, match="too many blocks|cooperative"):
+        native.check(err, "bow forward kernel")
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+
+
+def test_bow_forward_launch_can_be_captured_in_a_cuda_graph(cuda):
+    """The cooperative launch goes on the current stream and is recorded by
+    a stream capture; the replay writes the same bits."""
+    h, W, b, *_ = _bow_problem(cuda)
+    want = cuda_bow.bow_forward_kernel(h, W, b).clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cuda_bow.bow_forward_kernel(h, W, b)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_kernels_repeat_bit_for_bit(cuda):
     x, y, mask = _mmd_problem(cuda, 64, 0)
     a = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))[0]
@@ -206,6 +300,38 @@ def test_flash_kernels_match_plain(cuda, B, h, L, hd, min_tail, dtype,
     assert dqkv.shape == qkv.shape and dqkv.is_contiguous()
     for a, c in zip(dqkv.unbind(2), grads):
         assert torch.equal(a.transpose(1, 2), c)
+
+
+@pytest.mark.parametrize("B,h,L,hd,min_tail", [
+    (64, 12, 96, 64, 0), (5, 4, 37, 16, 0), (3, 2, 45, 16, 0),
+    (3, 2, 200, 64, 0), (2, 2, 513, 32, 0), (2, 2, 96, 128, 0),
+    (4, 2, 160, 64, 48)])
+def test_flash_dq_kernel_on_tensor_cores_matches_plain(cuda, B, h, L, hd,
+                                                       min_tail):
+    """K9 alone for bf16: dq against the plain version's (8e-3 normwise),
+    delta against the fp32 sum of the rounded output times the cotangent,
+    all-pad rows finite, two runs bit-equal."""
+    q, k, v, g, mask = _flash_problem(cuda, B, h, L, hd, torch.bfloat16,
+                                      min_tail=min_tail)
+    scale = 1.0 / float(np.sqrt(hd))
+    seg = cuda_attention.segment_ids(mask)
+    out = torch.empty_like(q)
+    lse = cuda_attention.flash_forward_kernel(q, k, v, seg, scale, out)
+    runs = []
+    for _ in range(2):
+        dq = torch.empty_like(q)
+        delta = cuda_attention.flash_backward_dq_kernel(
+            q, k, v, seg, out, g, lse, scale, dq)
+        runs.append((dq, delta))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    dq, delta = runs[0]
+    assert bool(torch.isfinite(dq).all()) and bool(torch.isfinite(delta).all())
+    torch.testing.assert_close(delta, (out.float() * g.float()).sum(-1),
+                               rtol=1e-5, atol=1e-5)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = cuda_attention.flash_attention_plain(*leaves, mask, scale)
+    (ref_dq,) = torch.autograd.grad(ref, leaves[:1], g.float())
+    assert _relnorm(dq.float(), ref_dq) <= 8e-3
 
 
 def test_flash_kernels_repeat_bit_for_bit(cuda):
