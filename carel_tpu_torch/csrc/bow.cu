@@ -22,9 +22,10 @@
 //   K3  one cooperative launch of one block an SM. V is cut into chunks of
 //       ceil(V / SMs) columns (181 at the training shape on 132 SMs; 64 at
 //       least, 256 at most); a block loads its chunk of W and b once and
-//       evaluates its [B, cols] piece of z once, as 4 x 4 register tiles
-//       (8 16-byte shared-memory reads for 64 FMAs), into shared memory,
-//       where the piece stays between the sweeps. Sweep 1 writes the
+//       evaluates its [B, cols] piece of z once, as 4 x J register tiles
+//       (J = cols / 32 rounded up to 2, 4, 6 or 8: 4 + J 16-byte
+//       shared-memory reads for 16 J FMAs, every thread busy), into shared
+//       memory, where the piece stays between the sweeps. Sweep 1 writes the
 //       chunk's (max, sumexp, sum z) per row; a grid-wide barrier; every
 //       block merges all chunks' partials of a row in the same fixed order,
 //       in double, and so holds lse; sweep 2 runs over the kept z and writes
@@ -33,10 +34,24 @@
 //       shared memory (a large B), or a V of more chunks than SMs (a block
 //       then owns several), is evaluated again in sweep 2, inside the same
 //       launch.
-//   K4  each block owns kBwdChunks chunks of kBwdCols columns, rebuilds z and
-//       G = dL/dz for them, writes dW and db of its own columns exactly, and
-//       accumulates a partial dh [B, D] of its own; a last pass adds the
-//       partial dh of all blocks in a fixed order.
+//   K4  the same launch shape and cut of V as K3: one cooperative launch of
+//       one block an SM, a chunk of ceil(V / SMs) columns a block. The block
+//       loads its chunk of W (16-byte cp.async, in two halves of k so that
+//       z starts on the first) and, per group of kRows rows of h, evaluates
+//       its [rows, cols] piece of z once in K3's register tiles, turning it
+//       into G = dL/dz as it leaves the registers, into shared memory. Two
+//       products follow from there, in 4 x 4 register tiles fed by 16-byte
+//       shared-memory reads: dW = G^T h and db (the block's own columns,
+//       written from the registers, where neighbouring lanes hold
+//       neighbouring 16 bytes of a row; a later row group adds to them), and
+//       its partial dh = G W (two half-warps split the columns and add with a
+//       shuffle). The first warps take dh, so the last take the dW tiles
+//       past one a thread and db. The partials of dh [B, D] go to scratch;
+//       after a grid-wide barrier every block adds up its share of the B*D
+//       outputs over all blocks' partials in one fixed order, in double.
+//       Operations bound the function: 3 * 2*B*D*V ~ 440 MFLOP of fp32 FMAs,
+//       ~6.6 us on the CUDA cores, one product ~2.3 us at an SM's 128 FMAs a
+//       cycle; the loads of W, the barrier and the merge come on top.
 // No float atomics anywhere, so every output repeats bit for bit.
 
 #include <cooperative_groups.h>
@@ -44,54 +59,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K4
-constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;      // batch rows per pass over a chunk
-constexpr int kFwdThreads = 512;  // K3
+constexpr int kFwdThreads = 512;  // K3 and K4
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFwdMinCols = 64;   // V columns per K3 chunk, at least
 constexpr int kFwdMaxCols = 256;  // and at most
 constexpr int kColGroup = 64;  // columns one pass of K3's register tiles covers
 constexpr int kSmemPad = 4;    // floats of row padding in K3's shared memory
-constexpr int kBwdCols = 64;   // V columns per K4 chunk
-constexpr int kBwdChunks = 2;  // K4 chunks per block
 constexpr int kMaxD = 64;
+constexpr int kBwdTiles = 2;   // K4: 4 x 4 tiles of dW a thread holds
+static_assert((kRows / 4) * (kMaxD / 4) * 2 <= kFwdThreads,
+              "a dh tile for every two lanes");
+static_assert((kFwdMaxCols / 4) * (kMaxD / 4) <= kBwdTiles * kFwdThreads,
+              "the chunk's dW in the threads' register tiles");
 constexpr float kNeg = -1e30f;
 constexpr float kPMax = 1.f - 1e-7f;
 
 __device__ __forceinline__ double warp_sum(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Rows v0 .. v0+cols of W [V, D] into Ws[k * (cols+1) + c]; zero past V.
-__device__ void load_w_chunk(const float* __restrict__ W,
-                             const float* __restrict__ b, int D, int V, int v0,
-                             int cols, float* Ws, float* bs) {
-  const int ld = cols + 1;
-  for (int e = threadIdx.x; e < cols * D; e += blockDim.x) {
-    const int c = e / D;
-    const int k = e - c * D;
-    Ws[k * ld + c] = (v0 + c < V) ? W[(size_t)v0 * D + e] : 0.f;
-  }
-  for (int c = threadIdx.x; c < cols; c += blockDim.x)
-    bs[c] = (v0 + c < V) ? b[v0 + c] : 0.f;
-}
-
-// z for row r of hs at the columns lane + 32 q of the chunk.
-template <int Q>
-__device__ __forceinline__ void row_logits(const float* hs, const float* Ws,
-                                           const float* bs, int D, int ld,
-                                           int r, int lane, float (&z)[Q]) {
-#pragma unroll
-  for (int q = 0; q < Q; ++q) z[q] = 0.f;
-  for (int k = 0; k < D; ++k) {
-    const float hk = hs[r * D + k];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) z[q] = fmaf(hk, Ws[k * ld + lane + 32 * q], z[q]);
-  }
-#pragma unroll
-  for (int q = 0; q < Q; ++q) z[q] += bs[lane + 32 * q];
 }
 
 // Sum or max over the kPerRow neighbouring lanes that share a row in K3.
@@ -148,20 +134,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the group committed last
+__device__ __forceinline__ void cp_async_wait_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Columns k0 .. k1 (multiples of 4) of the rows 0 .. total of a row-major
+// [valid, D] block at src into dst[row][ld], as asynchronous 16-byte copies
+// (zeros past `valid` rows), which cp_async_wait_all and a barrier complete.
+__device__ __forceinline__ void load_cols(float* dst, int ld, const float* src,
+                                          int D, int k0, int k1, int valid,
+                                          int total) {
+  const int c4 = (k1 - k0) / 4;
+  for (int e = threadIdx.x; e < total * c4; e += kFwdThreads) {
+    const int r = e / c4, k = k0 + (e - r * c4) * 4;
+    cp_async16(dst + r * ld + k, src + (size_t)(r < valid ? r : 0) * D + k,
+               r < valid);
+  }
+}
+
 // Rows 0 .. total of a row-major [valid, D] block at src into dst[row][ld]
 // (ld >= d4 = D rounded up to 4); zeros past `valid` rows and past D. With
-// `vec` (D a multiple of 4 and src on 16 bytes) as asynchronous 16-byte
-// copies, which cp_async_wait_all and a barrier complete.
+// `vec` (D a multiple of 4 and src on 16 bytes) as load_cols does.
 __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
                                           int D, int d4, int valid, int total,
                                           bool vec) {
   if (vec) {
-    const int c4 = d4 / 4;
-    for (int e = threadIdx.x; e < total * c4; e += kFwdThreads) {
-      const int r = e / c4, k = (e - r * c4) * 4;
-      cp_async16(dst + r * ld + k, src + (size_t)(r < valid ? r : 0) * D + k,
-                 r < valid);
-    }
+    load_cols(dst, ld, src, D, 0, d4, valid, total);
   } else {
     for (int e = threadIdx.x; e < total * d4; e += kFwdThreads) {
       const int r = e / d4, k = e - r * d4;
@@ -170,55 +173,99 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
   }
 }
 
-// z of rows r0 .. r0 + rows at the chunk's columns into zbuf[row][ldz]: a
-// thread holds 4 rows x 4 columns (tx + 16 j of a group of kColGroup) and
-// walks k in fours, h and W both as [row][ld] tiles, k ascending.
-__device__ __forceinline__ void chunk_logits(const float* hs, const float* Ws,
-                                             const float* bs, int d4, int ld,
-                                             int cols_pad, int rows,
-                                             float* zbuf, int ldz) {
-  const int tx = threadIdx.x & 15, ty = (threadIdx.x >> 4) & 15;
-  for (int c0 = (threadIdx.x >> 8) * kColGroup; c0 < cols_pad;
-       c0 += (kFwdThreads >> 8) * kColGroup) {
-    float acc[4][4];
+// z of the rows 0 .. rows of hs at the chunk's columns, through
+// epi(row, column, z without b) into zbuf[row][ldz]. A thread holds 4 rows
+// (ty + 16 i) x J columns (tx + 32 j), J = cols_pad / 32, and walks k in
+// fours, h and W both as [row][ld] tiles, k ascending: one fmaf chain per z,
+// whatever J. A warp covers 4 neighbouring rows and 8 neighbouring columns,
+// so that its 16-byte reads of h and of W each fall in distinct banks. At
+// k = ksplit (< d4) the block first waits for its copies still in flight.
+template <int J, typename Epi>
+__device__ __forceinline__ void chunk_logits_j(const float* hs, const float* Ws,
+                                               int d4, int ksplit, int ld,
+                                               int rows, float* zbuf, int ldz,
+                                               const Epi& epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = (warp & 3) * 8 + (lane & 7);   // 0 .. 31
+  const int ty = (warp >> 2) * 4 + (lane >> 3);  // 0 .. 15
+  static_assert(kFwdThreads == 512, "16 x 32 threads");
+  float acc[4][J];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+  for (int k = 0; k < d4; k += 4) {
+    if (k == ksplit) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    float4 a[4], w[J];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(hs + (ty + 16 * i) * ld + k);
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      w[j] = *reinterpret_cast<const float4*>(Ws + (tx + 32 * j) * ld + k);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < d4; k += 4) {
-      float4 a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(hs + (ty * 4 + i) * ld + k);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = *reinterpret_cast<const float4*>(Ws + (c0 + tx + 16 * j) * ld +
-                                                k);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float z = acc[i][j];
-          z = fmaf(a[i].x, w[j].x, z);
-          z = fmaf(a[i].y, w[j].y, z);
-          z = fmaf(a[i].z, w[j].z, z);
-          z = fmaf(a[i].w, w[j].w, z);
-          acc[i][j] = z;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      if (r < rows) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = c0 + tx + 16 * j;
-          zbuf[(size_t)r * ldz + c] = acc[i][j] + bs[c];
-        }
+      for (int j = 0; j < J; ++j) {
+        float z = acc[i][j];
+        z = fmaf(a[i].x, w[j].x, z);
+        z = fmaf(a[i].y, w[j].y, z);
+        z = fmaf(a[i].z, w[j].z, z);
+        z = fmaf(a[i].w, w[j].w, z);
+        acc[i][j] = z;
       }
+  }
+  // every value first, then the stores: no store between two calls of epi,
+  // so that the loads of a row's constants are shared
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      acc[i][j] = epi(ty + 16 * i, tx + 32 * j, acc[i][j]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r < rows) {
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        zbuf[(size_t)r * ldz + tx + 32 * j] = acc[i][j];
     }
   }
 }
+
+template <typename Epi>
+__device__ __forceinline__ void chunk_logits(const float* hs, const float* Ws,
+                                             int d4, int ksplit, int ld,
+                                             int cols_pad, int rows,
+                                             float* zbuf, int ldz,
+                                             const Epi& epi) {
+  static_assert(kColGroup == 64 && kFwdMaxCols == 256, "J of 2, 4, 6, 8");
+  switch (cols_pad / 32) {
+    case 2:
+      chunk_logits_j<2>(hs, Ws, d4, ksplit, ld, rows, zbuf, ldz, epi);
+      break;
+    case 4:
+      chunk_logits_j<4>(hs, Ws, d4, ksplit, ld, rows, zbuf, ldz, epi);
+      break;
+    case 6:
+      chunk_logits_j<6>(hs, Ws, d4, ksplit, ld, rows, zbuf, ldz, epi);
+      break;
+    default:
+      chunk_logits_j<8>(hs, Ws, d4, ksplit, ld, rows, zbuf, ldz, epi);
+      break;
+  }
+}
+
+// K3 keeps z itself.
+struct Logit {
+  const float* bs;
+  __device__ float operator()(int, int c, float acc) const {
+    return acc + bs[c];
+  }
+};
 
 // The arguments of K3 that both sweeps read.
 struct FwdArgs {
@@ -294,7 +341,8 @@ __device__ __forceinline__ void fwd_sweep(const FwdArgs& a, float* smem) {
       cp_async_wait_all();
       __syncthreads();
       if (evaluate) {
-        chunk_logits(hs, Ws, bs, d4, ld, cols_pad, rows, zbuf, ldz);
+        chunk_logits(hs, Ws, d4, d4, ld, cols_pad, rows, zbuf, ldz,
+                     Logit{bs});
         __syncthreads();
       }
       const float* z = zbuf + (size_t)(in ? r : 0) * ldz;
@@ -367,127 +415,274 @@ __global__ void __launch_bounds__(kFwdThreads) bow_fwd_kernel(FwdArgs a) {
   }
 }
 
-// rowp is [5, B]: lse, A, (1-c)*gscale, c*gscale, gscale.
-// dh_partial is [gridDim.x, B, D], one slice per block.
-__global__ void __launch_bounds__(kThreads)
-    bow_bwd(const float* __restrict__ h, const float* __restrict__ W,
-            const float* __restrict__ b, int B, int D, int V,
-            const float* __restrict__ rowp, float* __restrict__ dW,
-            float* __restrict__ db, float* __restrict__ dh_partial) {
-  extern __shared__ float smem[];
-  constexpr int TV = kBwdCols;
-  constexpr int Q = TV / 32;
-  constexpr int KQ = kThreads / TV;  // k stride of a thread's dW columns
-  constexpr int RQ = kThreads / kRows;  // k stride of a thread's dh entries
-  const int ld = TV + 1;
-  float* Ws = smem;               // [D][ld]
-  float* hs = Ws + D * ld;        // [kRows][D]
-  float* Gs = hs + kRows * D;     // [kRows][ld]
-  float* bs = Gs + kRows * ld;    // [TV]
-  float* rp = bs + TV;            // [5][kRows]
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nchunk = (V + TV - 1) / TV;
-  float* dhp = dh_partial + (size_t)blockIdx.x * B * D;
+// Shared memory of K4 in floats: W's chunk [cols_pad][ld], kRows rows of h
+// [kRows][ld], b's chunk, the rows' rowp [5][kRows], and G [kRows][ldz]
+// (also the merge of dh at the end).
+__host__ __device__ constexpr size_t bwd_smem_floats(int D, int cols) {
+  const int ld = round_up(D, 4) + kSmemPad;
+  const int cols_pad = round_up(cols, kColGroup);
+  return (size_t)cols_pad * ld + (size_t)kRows * ld + cols_pad + 5 * kRows +
+         (size_t)kRows * (cols_pad + kSmemPad);
+}
 
-  for (int ci = 0; ci < kBwdChunks; ++ci) {
-    const int chunk = blockIdx.x * kBwdChunks + ci;
-    if (chunk >= nchunk) break;
-    const int v0 = chunk * TV;
-    __syncthreads();
-    load_w_chunk(W, b, D, V, v0, TV, Ws, bs);
-
-    // this thread's dW entries: column wc, k = wk, wk + KQ, ...
-    const int wc = threadIdx.x % TV;
-    const int wk = threadIdx.x / TV;
-    float dw[kMaxD / KQ];
-#pragma unroll
-    for (int j = 0; j < kMaxD / KQ; ++j) dw[j] = 0.f;
-    float dbacc = 0.f;
-
-    for (int r0 = 0; r0 < B; r0 += kRows) {
-      const int rows = min(kRows, B - r0);
-      __syncthreads();
-      for (int e = threadIdx.x; e < rows * D; e += blockDim.x)
-        hs[e] = h[(size_t)r0 * D + e];
-      for (int e = threadIdx.x; e < 5 * kRows; e += blockDim.x) {
-        const int f = e / kRows;
-        const int r = e - f * kRows;
-        rp[e] = (r < rows) ? rowp[(size_t)f * B + r0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      // G tile; zero past the last row and past V
-      for (int r = warp; r < kRows; r += kWarps) {
-        float z[Q];
-        if (r < rows) row_logits<Q>(hs, Ws, bs, D, ld, r, lane, z);
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int c = lane + 32 * q;
-          float g = 0.f;
-          if (r < rows && v0 + c < V) {
-            const float p = fminf(expf(z[q] - rp[r]), kPMax);
-            g = -rp[3 * kRows + r] + rp[4 * kRows + r] * rp[kRows + r] * p +
-                rp[2 * kRows + r] * p / (1.f - p);
-          }
-          Gs[r * ld + c] = g;
-        }
-      }
-      __syncthreads();
-
-      // dW[c, k] += sum_r G[r, c] h[r, k];  db[c] += sum_r G[r, c]
-      for (int r = 0; r < rows; ++r) {
-        const float g = Gs[r * ld + wc];
-#pragma unroll
-        for (int j = 0; j < kMaxD / KQ; ++j) {
-          const int k = wk + KQ * j;
-          if (k < D) dw[j] = fmaf(g, hs[r * D + k], dw[j]);
-        }
-        dbacc += g;
-      }
-
-      // dh[r, k] += sum_c G[r, c] W[c, k]
-      {
-        const int r = threadIdx.x % kRows;
-        if (r < rows) {
-          for (int k = threadIdx.x / kRows; k < D; k += RQ) {
-            float s = 0.f;
-            for (int c = 0; c < TV; ++c) s = fmaf(Gs[r * ld + c], Ws[k * ld + c], s);
-            const size_t idx = (size_t)(r0 + r) * D + k;
-            dhp[idx] = (ci == 0) ? s : dhp[idx] + s;
-          }
-        }
-      }
-    }
-
-    // stage dW through shared memory (Gs is free now) for coalesced stores
-    __syncthreads();
-    float* stage = Gs;  // TV * D <= kRows * ld floats
-#pragma unroll
-    for (int j = 0; j < kMaxD / KQ; ++j) {
-      const int k = wk + KQ * j;
-      if (k < D) stage[wc * D + k] = dw[j];
-    }
-    if (wk == 0 && v0 + wc < V) db[v0 + wc] = dbacc;
-    __syncthreads();
-    const int valid_cols = min(TV, V - v0);
-    for (int e = threadIdx.x; e < valid_cols * D; e += blockDim.x)
-      dW[(size_t)v0 * D + e] = stage[e];
+// K4 turns z into G = dL/dz as it leaves the registers: rp is the rows'
+// rowp [5][kRows]; zero past V. exp and p / (1 - p) by the fast intrinsics:
+// 1 - p >= 1e-7 is far inside the division's range, and for z - lse >= -88
+// __expf's error is a few 1e-7 relative, far inside the gradients' 1e-4.
+struct GradOfLogit {
+  const float* bs;
+  const float* rp;
+  int ncols;
+  __device__ float operator()(int r, int c, float acc) const {
+    const float p = fminf(__expf(acc + bs[c] - rp[r]), kPMax);
+    const float g = -rp[3 * kRows + r] + rp[4 * kRows + r] * rp[kRows + r] * p +
+                    rp[2 * kRows + r] * __fdividef(p, 1.f - p);
+    return c < ncols ? g : 0.f;
   }
-}
+};
 
-__global__ void bow_dh_combine(const float* __restrict__ dh_partial,
-                               int blocks, int n, float* __restrict__ dh) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int blk = 0; blk < blocks; ++blk) s += dh_partial[(size_t)blk * n + i];
-  dh[i] = s;
-}
+// The arguments of K4.
+struct BwdArgs {
+  const float* h;
+  const float* W;
+  const float* b;
+  const float* rowp;  // [5][B]: lse, A, (1-c)*gscale, c*gscale, gscale
+  int B, D, V, cols, chunks;
+  float* dW;    // [V][D]
+  float* db;    // [V]
+  float* dh;    // [B][D]
+  float* part;  // [gridDim.x][B][D]: each block's partial dh
+};
 
-size_t bwd_smem(int D) {
-  return sizeof(float) * ((size_t)D * (kBwdCols + 1) + kRows * D +
-                          kRows * (kBwdCols + 1) + kBwdCols + 5 * kRows);
+// K4, launched cooperatively like K3: the barrier before the merge of dh
+// cannot hang.
+__global__ void __launch_bounds__(kFwdThreads) bow_bwd_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int d4 = round_up(a.D, 4), ld = d4 + kSmemPad;
+  const int cols_pad = round_up(a.cols, kColGroup), ldz = cols_pad + kSmemPad;
+  float* Ws = smem;                // [cols_pad][ld]
+  float* hs = Ws + cols_pad * ld;  // [kRows][ld]
+  float* bs = hs + kRows * ld;     // [cols_pad]
+  float* rp = bs + cols_pad;       // [5][kRows]
+  float* Gs = rp + 5 * kRows;      // [kRows][ldz]
+  const bool vec = a.D % 4 == 0 &&
+                   ((size_t)a.W | (size_t)a.h | (size_t)a.dW) % 16 == 0;
+  const int tid = threadIdx.x;
+  // dW tiles: 4 columns x 4 k, the k tile fastest, so that a warp reads few
+  // G vectors (broadcast) and neighbouring h vectors
+  const int nkt = d4 / 4;
+  // dh tiles: 4 rows (rt + 16 i) x 4 k (hk ..). A warp takes 4 rt two rows
+  // apart, 4 neighbouring k tiles and, in its upper half-warp, the odd
+  // column quads: its 16-byte reads of G and of W each fall in distinct
+  // banks (ldz = 4 mod 32; ld = 16 mod 32 when d4 / 4 is even). Warps
+  // 0 .. 4 * ceil(nkt / 4) - 1 take part; lanes past nkt compute k tile 0
+  // and write nothing.
+  const int warp = tid / 32, lane = tid % 32;
+  const bool hwarp = warp < 4 * ((nkt + 3) / 4);
+  const int hsplit = lane >> 4;
+  const int rt = (warp & 1) + 8 * ((warp >> 1) & 1) + 2 * ((lane >> 2) & 3);
+  const int kt = (warp >> 2) * 4 + (lane & 3);
+  const bool hvalid = hwarp && kt < nkt;
+  const int hk = hvalid ? kt * 4 : 0;
+  float* part = a.part + (size_t)blockIdx.x * a.B * a.D;
+
+  for (int chunk = blockIdx.x; chunk < a.chunks; chunk += gridDim.x) {
+    const int v0 = chunk * a.cols;
+    const int ncols = min(a.cols, a.V - v0);
+    const bool first = chunk == blockIdx.x;
+    // the columns of the chunk that carry V, in quads (dW) and octets (dh)
+    const int ndw = (ncols + 3) / 4 * nkt, ncols8 = round_up(ncols, 8);
+    __syncthreads();  // the chunk before is done with Ws, bs and Gs
+    for (int r0 = 0; r0 < a.B; r0 += kRows) {
+      const int rows = min(kRows, a.B - r0);
+      __syncthreads();  // the rows before are done with hs, rp and Gs
+      load_rows(hs, ld, a.h + (size_t)r0 * a.D, a.D, d4, rows, kRows, vec);
+      // with the first rows, W's chunk: its first half of k in a group of
+      // copies of its own, so that z starts before the second half is in
+      int ksplit = d4;
+      if (r0 == 0) {
+        const float* Wc = a.W + (size_t)v0 * a.D;
+        if (vec) {
+          ksplit = d4 / 8 * 4;
+          cp_async_commit();
+          load_cols(Ws, ld, Wc, a.D, 0, ksplit, ncols, cols_pad);
+          cp_async_commit();
+          load_cols(Ws, ld, Wc, a.D, ksplit, d4, ncols, cols_pad);
+          cp_async_commit();
+        } else {
+          load_rows(Ws, ld, Wc, a.D, d4, ncols, cols_pad, false);
+        }
+      }
+      // b and rowp by plain loads, while the copies are in flight
+      if (r0 == 0)
+        for (int c = tid; c < cols_pad; c += kFwdThreads)
+          bs[c] = c < ncols ? a.b[v0 + c] : 0.f;
+      for (int e = tid; e < 5 * kRows; e += kFwdThreads) {
+        const int f = e / kRows, r = e - f * kRows;
+        rp[e] = r < rows ? a.rowp[(size_t)f * a.B + r0 + r] : 0.f;
+      }
+      if (ksplit < d4)
+        cp_async_wait_but_one();
+      else
+        cp_async_wait_all();
+      __syncthreads();
+      // G of the rows < rows; the rows past them are not read
+      chunk_logits(hs, Ws, d4, ksplit, ld, cols_pad, rows, Gs, ldz,
+                   GradOfLogit{bs, rp, ncols});
+      __syncthreads();
+
+      // dW[c, k] of these rows = sum_r G[r, c] h[r, k], r ascending. A
+      // thread's second tile, and db, go to the last warps first: the first
+      // warps also take dh.
+      float dw[kBwdTiles][4][4];
+#pragma unroll
+      for (int t = 0; t < kBwdTiles; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dw[t][i][j] = 0.f;
+#pragma unroll
+      for (int t = 0; t < kBwdTiles; ++t) {
+        const int tile = t == 0 ? tid : 2 * kFwdThreads - 1 - tid;
+        if (tile < ndw) {
+          const int c0 = tile / nkt * 4, k0 = tile % nkt * 4;
+          for (int r = 0; r < rows; ++r) {
+            const float4 g =
+                *reinterpret_cast<const float4*>(Gs + r * ldz + c0);
+            const float4 x =
+                *reinterpret_cast<const float4*>(hs + r * ld + k0);
+            const float gv[4] = {g.x, g.y, g.z, g.w};
+            const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                dw[t][i][j] = fmaf(gv[i], xv[j], dw[t][i][j]);
+          }
+        }
+      }
+      // db[c] of these rows, column c in thread kFwdThreads - 1 - c
+      const int dbc = kFwdThreads - 1 - tid;
+      float dbacc = 0.f;
+      if (dbc < ncols)
+        for (int r = 0; r < rows; ++r) dbacc += Gs[r * ldz + dbc];
+
+      // dW and db of these rows, written from the registers: the k tile is
+      // the fastest, so neighbouring lanes write neighbouring 16 bytes of a
+      // row of dW. A later group of rows adds to them.
+      float* dst = a.dW + (size_t)v0 * a.D;
+#pragma unroll
+      for (int t = 0; t < kBwdTiles; ++t) {
+        const int tile = t == 0 ? tid : 2 * kFwdThreads - 1 - tid;
+        if (tile < ndw) {
+          const int c0 = tile / nkt * 4, k0 = tile % nkt * 4;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (c0 + i >= ncols) break;
+            float* row = dst + (size_t)(c0 + i) * a.D + k0;
+            if (vec) {
+              float4 v = make_float4(dw[t][i][0], dw[t][i][1], dw[t][i][2],
+                                     dw[t][i][3]);
+              if (r0 > 0) {
+                const float4 u = *reinterpret_cast<const float4*>(row);
+                v = make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
+              }
+              *reinterpret_cast<float4*>(row) = v;
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (k0 + j < a.D)
+                  row[j] = r0 == 0 ? dw[t][i][j] : row[j] + dw[t][i][j];
+            }
+          }
+        }
+      }
+      if (dbc < ncols)
+        a.db[v0 + dbc] = r0 == 0 ? dbacc : a.db[v0 + dbc] + dbacc;
+
+      // this block's dh[r, k] += sum_c G[r, c] W[c, k], c ascending in each
+      // half-warp, then the two halves' sums added
+      if (hwarp) {
+        float acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int c = 4 * hsplit; c < ncols8; c += 8) {
+          float4 g[4], w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            g[i] = *reinterpret_cast<const float4*>(Gs + (rt + 16 * i) * ldz +
+                                                    c);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            w[q] = *reinterpret_cast<const float4*>(Ws + (c + q) * ld + hk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float gv[4] = {g[i].x, g[i].y, g[i].z, g[i].w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[i][0] = fmaf(gv[q], w[q].x, acc[i][0]);
+              acc[i][1] = fmaf(gv[q], w[q].y, acc[i][1]);
+              acc[i][2] = fmaf(gv[q], w[q].z, acc[i][2]);
+              acc[i][3] = fmaf(gv[q], w[q].w, acc[i][3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], 16);
+        if (hvalid && hsplit == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = rt + 16 * i;
+            if (r >= rows) break;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (hk + j >= a.D) break;
+              const size_t idx = (size_t)(r0 + r) * a.D + hk + j;
+              part[idx] = first ? acc[i][j] : part[idx] + acc[i][j];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  grid.sync();
+  // dh: a block takes 32 neighbouring outputs at a time; warp w adds the
+  // partials of blocks w, w + kFwdWarps, ... in double, then warp 0 adds the
+  // warps' sums in order
+  double* red = reinterpret_cast<double*>(Gs);  // [kFwdWarps][32]
+  const int n = a.B * a.D;
+  constexpr int kLoads = 16;  // partials a lane asks for before it adds
+  for (int o0 = blockIdx.x * 32; o0 < n; o0 += gridDim.x * 32) {
+    const int o = o0 + lane;
+    double s = 0.0;
+    if (o < n)
+      for (int blk0 = warp; blk0 < (int)gridDim.x; blk0 += kFwdWarps * kLoads) {
+        float v[kLoads];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const int blk = blk0 + u * kFwdWarps;
+          v[u] = blk < (int)gridDim.x ? a.part[(size_t)blk * n + o] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) s += v[u];
+      }
+    __syncthreads();  // the outputs before are done with red
+    red[warp * 32 + lane] = s;
+    __syncthreads();
+    if (warp == 0 && o < n) {
+      double t = 0.0;
+      for (int w = 0; w < kFwdWarps; ++w) t += red[w * 32 + lane];
+      a.dh[o] = (float)t;
+    }
+  }
 }
 
 // The card this thread is on: its SM count and the most shared memory a
@@ -548,13 +743,6 @@ long long carel_bow_fwd_scratch(int B, int D, int V, int cols) {
   return 5LL * B * ((V + cols - 1) / cols);
 }
 
-// Floats of scratch K4 needs: one partial dh [B, D] per block.
-long long carel_bow_bwd_scratch(int B, int D, int V) {
-  const int nchunk = (V + kBwdCols - 1) / kBwdCols;
-  const int blocks = (nchunk + kBwdChunks - 1) / kBwdChunks;
-  return (long long)blocks * B * D;
-}
-
 // K3 with its plan given: chunks of `cols` columns, `grid` blocks, z kept in
 // shared memory between the sweeps or not. One cooperative launch; an error,
 // and no launch, if the grid cannot be resident or the shared memory is not
@@ -604,22 +792,61 @@ int carel_bow_fwd(const float* h, const float* W, const float* b, int B, int D,
                                scratch, out, stream);
 }
 
-// K4: dW [V, D], db [V], dh [B, D] of the dense part of the loss.
+// Floats of scratch K4 needs for a grid of `grid` blocks: one partial dh
+// [B, D] a block. grid = 0: the grid carel_bow_bwd launches.
+long long carel_bow_bwd_scratch(int B, int D, int V, int grid) {
+  if (grid < 1) {
+    Card c;
+    if (bad_shape(B, D, V) || card(&c) != cudaSuccess) return -1;
+    grid = fwd_plan(B, D, V, c).grid;
+  }
+  return (long long)grid * B * D;
+}
+
+// K4 with its plan given: chunks of `cols` columns, `grid` blocks. One
+// cooperative launch; an error, and no launch, if the grid cannot be
+// resident or the shared memory is not to be had. scratch:
+// carel_bow_bwd_scratch(B, D, V, grid) floats.
+int carel_bow_bwd_planned(const float* h, const float* W, const float* b,
+                          int B, int D, int V, int cols, int grid,
+                          const float* rowp, float* dW, float* db, float* dh,
+                          float* scratch, void* stream) {
+  if (bad_shape(B, D, V) || cols < 1 || cols > kFwdMaxCols || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (V + cols - 1) / cols;
+  if (grid > chunks) return (int)cudaErrorInvalidValue;
+  Card c;
+  cudaError_t err = card(&c);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = bwd_smem_floats(D, cols) * sizeof(float);
+  if (smem > (size_t)c.smem) return (int)cudaErrorInvalidValue;
+  err = allow_smem((const void*)bow_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, bow_bwd_kernel, kFwdThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)resident * c.sms < grid)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  BwdArgs a = {h, W, b, rowp, B, D, V, cols, chunks, dW, db, dh, scratch};
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)bow_bwd_kernel,
+                                          dim3(grid), dim3(kFwdThreads), args,
+                                          smem, (cudaStream_t)stream);
+}
+
+// K4: dW [V, D], db [V], dh [B, D] of the dense part of the loss, in K3's
+// cut of V. scratch: carel_bow_bwd_scratch(B, D, V, 0) floats.
 int carel_bow_bwd(const float* h, const float* W, const float* b, int B, int D,
                   int V, const float* rowp, float* dW, float* db, float* dh,
                   float* scratch, void* stream) {
   if (bad_shape(B, D, V)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nchunk = (V + kBwdCols - 1) / kBwdCols;
-  const int blocks = (nchunk + kBwdChunks - 1) / kBwdChunks;
-  const size_t smem = bwd_smem(D);
-  cudaError_t err = allow_smem((const void*)bow_bwd, smem);
+  Card c;
+  const cudaError_t err = card(&c);
   if (err != cudaSuccess) return (int)err;
-  bow_bwd<<<blocks, kThreads, smem, s>>>(h, W, b, B, D, V, rowp, dW, db,
-                                         scratch);
-  const int n = B * D;
-  bow_dh_combine<<<(n + 255) / 256, 256, 0, s>>>(scratch, blocks, n, dh);
-  return (int)cudaGetLastError();
+  const FwdPlan p = fwd_plan(B, D, V, c);
+  return carel_bow_bwd_planned(h, W, b, B, D, V, p.cols, p.grid, rowp, dW, db,
+                               dh, scratch, stream);
 }
 
 }  // extern "C"

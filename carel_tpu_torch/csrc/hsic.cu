@@ -18,10 +18,20 @@
 // in double, from the fp32 inputs, and the centring is explicit (each centred
 // entry is formed before the product), never the expanded
 // sum(K o L) - 2/n sum(rK rL) + ... form that cancels O(n^2) terms.
-//   K5  one block: row sums of K and L into the residual buffer, then n and
-//       the totals, then sum(center(K) o center(L)) over all pairs. Sums run
-//       in a fixed order (per-thread loops, then fixed trees): no atomics, so
-//       the value repeats bit for bit.
+//   K5  one cooperative launch of blocks of 8 warps, a warp a row of both
+//       Grams (B = 64: 8 blocks). Phase 1: each lane
+//       evaluates the entries (i, j), j = lane, lane + 32, ... of K and L
+//       once and keeps them in registers (B <= 32 kKeep, one row a warp),
+//       and the warp adds them into rK_i, rL_i. A grid-wide barrier. Phase
+//       2: every block forms n and the totals from the row sums in the same
+//       fixed order, and each warp sums its row of center(K) o center(L) from
+//       the kept entries into a partial of that row. A second barrier; block
+//       0 adds the B partials in a fixed order. Everything in double; no
+//       atomics, so the value repeats bit for bit. A B too large to keep the
+//       entries, or with more rows than the grid has warps, evaluates them
+//       again in phase 2, inside the same launch. One launch and not two:
+//       at the training shape the grid is 8 blocks, always resident, and a
+//       barrier costs less than a second launch.
 //   K6  grid (B, 2): one block per output row of dx or dy. With the residuals
 //       of K5 (row sums, n, totals) it rebuilds its row of the centred other
 //       Gram on the fly: dx_i = sum_j W_ij (x_i - x_j) with
@@ -30,12 +40,15 @@
 // d2 is sum_k (a_k - b_k)^2 in double: symmetric bit for bit, exactly 0 on
 // the diagonal, and free of the cancellation of |a|^2 + |b|^2 - 2 a.b.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxDim = 32;
-constexpr int kFwdThreads = 512;
+constexpr int kFwdThreads = 256;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kKeep = 4;  // Gram entries of a row a K5 lane keeps
 constexpr int kBwdThreads = 128;
 constexpr int kMaxRows = 1 << 15;
 
@@ -45,11 +58,17 @@ constexpr int kResExtra = 3;
 __device__ __forceinline__ double gram(const float* a, const float* b, int d,
                                        double inv_s) {
   double s = 0.0;
+#pragma unroll 8
   for (int k = 0; k < d; ++k) {
     const double t = (double)a[k] - (double)b[k];
     s = fma(t, t, s);
   }
   return exp(-s * inv_s);
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // fixed-order block reduction of one double per thread; the result is valid
@@ -74,36 +93,89 @@ __device__ __forceinline__ double centred(double g, double mi, double mj,
   return g - (mi * rj) / n - (ri * mj) / n + (mi * mj) * (tot / (n * n));
 }
 
-__global__ void __launch_bounds__(kFwdThreads)
-hsic_fwd(const float* __restrict__ x, const float* __restrict__ y,
-         const float* __restrict__ mask, int B, int d, double inv_sx,
-         double inv_sy, double* __restrict__ res, float* __restrict__ out) {
-  __shared__ double red[kFwdThreads];
-  double* rK = res;
-  double* rL = res + B;
+// The arguments of K5.
+struct FwdArgs {
+  const float* x;
+  const float* y;
+  const float* mask;
+  int B, d;
+  double inv_sx, inv_sy;
+  double* res;   // rK[B], rL[B], n, sum(K), sum(L)
+  double* part;  // [B]: the row sums of center(K) o center(L)
+  float* out;
+};
 
-  // 1. row sums of the masked Grams: one row per thread, j in order
-  for (int r = threadIdx.x; r < 2 * B; r += blockDim.x) {
-    const bool isK = r < B;
-    const int i = isK ? r : r - B;
-    const float* z = isK ? x : y;
-    const double inv_s = isK ? inv_sx : inv_sy;
-    const double mi = mask[i];
-    double acc = 0.0;
-    if (mi != 0.0)
-      for (int j = 0; j < B; ++j) {
-        const double mj = mask[j];
-        if (mj != 0.0)
-          acc += gram(z + (size_t)i * d, z + (size_t)j * d, d, inv_s) * mi * mj;
-      }
-    res[r] = acc;
+// Entry (i, j) of the masked K and of the masked L, with row i of x and of y
+// given as xi, yi (in shared memory) and mi = mask[i].
+__device__ __forceinline__ void gram_pair(const FwdArgs& a, const float* xi,
+                                          const float* yi, double mi, int j,
+                                          double* k, double* l) {
+  const double mm = mi * (double)a.mask[j];
+  *k = 0.0;
+  *l = 0.0;
+  if (mm != 0.0) {
+    *k = gram(xi, a.x + (size_t)j * a.d, a.d, a.inv_sx) * mm;
+    *l = gram(yi, a.y + (size_t)j * a.d, a.d, a.inv_sy) * mm;
   }
-  __syncthreads();  // res[] written by this block is visible to it
+}
 
-  // 2. n and the totals, each a fixed-order block sum
+// K5, launched cooperatively: every block is resident, so the two
+// grid-wide barriers cannot hang.
+__global__ void __launch_bounds__(kFwdThreads) hsic_fwd_kernel(FwdArgs a) {
+  __shared__ double red[kFwdThreads];
+  __shared__ float own[kFwdWarps][2][kMaxDim];  // x_i, y_i of a warp's row
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int B = a.B, d = a.d;
+  const int first = blockIdx.x * kFwdWarps + warp;
+  const int stride = gridDim.x * kFwdWarps;
+  // kept: one row a warp, at most kKeep entries of it a lane
+  const bool keep = B <= 32 * kKeep && stride >= B;
+  double* rK = a.res;
+  double* rL = a.res + B;
+  double kk[kKeep], ll[kKeep];
+
+  // 1. row sums of the masked Grams, j ascending per lane, then the warp
+  for (int i = first; i < B; i += stride) {
+    if (lane < d) {
+      own[warp][0][lane] = a.x[(size_t)i * d + lane];
+      own[warp][1][lane] = a.y[(size_t)i * d + lane];
+    }
+    __syncwarp();
+    const double mi = a.mask[i];
+    double sk = 0.0, sl = 0.0;
+    if (keep) {
+#pragma unroll
+      for (int q = 0; q < kKeep; ++q) {
+        const int j = lane + 32 * q;
+        kk[q] = ll[q] = 0.0;
+        if (j < B) gram_pair(a, own[warp][0], own[warp][1], mi, j, &kk[q],
+                             &ll[q]);
+        sk += kk[q];
+        sl += ll[q];
+      }
+    } else {
+      for (int j = lane; j < B; j += 32) {
+        double k, l;
+        gram_pair(a, own[warp][0], own[warp][1], mi, j, &k, &l);
+        sk += k;
+        sl += l;
+      }
+    }
+    sk = warp_sum(sk);
+    sl = warp_sum(sl);
+    if (lane == 0) {
+      rK[i] = sk;
+      rL[i] = sl;
+    }
+    __syncwarp();  // the next row may overwrite own
+  }
+  grid.sync();
+
+  // 2. n and the totals, the same fixed-order block sums in every block
   double pn = 0.0, pk = 0.0, pl = 0.0;
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    pn += mask[i];
+  for (int i = threadIdx.x; i < B; i += kFwdThreads) {
+    pn += a.mask[i];
     pk += rK[i];
     pl += rL[i];
   }
@@ -111,27 +183,52 @@ hsic_fwd(const float* __restrict__ x, const float* __restrict__ y,
   const double totK = block_sum(pk, red);
   const double totL = block_sum(pl, red);
 
-  // 3. sum over all pairs of the explicitly centred entries
-  double acc = 0.0;
-  const long long pairs = (long long)B * B;
-  for (long long p = threadIdx.x; p < pairs; p += blockDim.x) {
-    const int i = (int)(p / B);
-    const int j = (int)(p % B);
-    const double mi = mask[i], mj = mask[j];
-    const double mm = mi * mj;
-    const double k = mm != 0.0
-        ? gram(x + (size_t)i * d, x + (size_t)j * d, d, inv_sx) * mm : 0.0;
-    const double l = mm != 0.0
-        ? gram(y + (size_t)i * d, y + (size_t)j * d, d, inv_sy) * mm : 0.0;
-    acc += centred(k, mi, mj, rK[i], rK[j], totK, n)
-         * centred(l, mi, mj, rL[i], rL[j], totL, n);
+  // the row's sum of the explicitly centred entries' products
+  for (int i = first; i < B; i += stride) {
+    if (!keep) {
+      if (lane < d) {
+        own[warp][0][lane] = a.x[(size_t)i * d + lane];
+        own[warp][1][lane] = a.y[(size_t)i * d + lane];
+      }
+      __syncwarp();
+    }
+    const double mi = a.mask[i], rKi = rK[i], rLi = rL[i];
+    double acc = 0.0;
+    if (keep) {
+#pragma unroll
+      for (int q = 0; q < kKeep; ++q) {
+        const int j = lane + 32 * q;
+        if (j < B) {
+          const double mj = a.mask[j];
+          acc += centred(kk[q], mi, mj, rKi, rK[j], totK, n) *
+                 centred(ll[q], mi, mj, rLi, rL[j], totL, n);
+        }
+      }
+    } else {
+      for (int j = lane; j < B; j += 32) {
+        double k, l;
+        gram_pair(a, own[warp][0], own[warp][1], mi, j, &k, &l);
+        const double mj = a.mask[j];
+        acc += centred(k, mi, mj, rKi, rK[j], totK, n) *
+               centred(l, mi, mj, rLi, rL[j], totL, n);
+      }
+      __syncwarp();  // the next row may overwrite own
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) a.part[i] = acc;
   }
-  const double total = block_sum(acc, red);
+  grid.sync();
+
+  // 3. the rows' partials in a fixed order, in block 0
+  if (blockIdx.x != 0) return;
+  double pt = 0.0;
+  for (int i = threadIdx.x; i < B; i += kFwdThreads) pt += a.part[i];
+  const double total = block_sum(pt, red);
   if (threadIdx.x == 0) {
-    res[2 * B] = n;
-    res[2 * B + 1] = totK;
-    res[2 * B + 2] = totL;
-    out[0] = (float)(total / ((n - 1.0) * (n - 1.0)));
+    a.res[2 * B] = n;
+    a.res[2 * B + 1] = totK;
+    a.res[2 * B + 2] = totL;
+    a.out[0] = (float)(total / ((n - 1.0) * (n - 1.0)));
   }
 }
 
@@ -213,15 +310,33 @@ int carel_hsic_max_dim() { return kMaxDim; }
 
 int carel_hsic_max_rows() { return kMaxRows; }
 
+// Doubles of scratch K5 needs besides the residuals, for B rows.
+int carel_hsic_fwd_scratch(int B) { return B; }
+
 // K5: out[0] = HSIC; res gets the row sums, n and the totals for K6.
+// scratch: carel_hsic_fwd_scratch(B) doubles. One cooperative launch; an
+// error, and no launch, if the grid cannot be resident.
 int carel_hsic_fwd(const float* x, const float* y, const float* mask, int B,
-                   int d, float s_x, float s_y, double* res, float* out,
-                   void* stream) {
+                   int d, float s_x, float s_y, double* res, double* scratch,
+                   float* out, void* stream) {
   if (bad_shape(B, d, s_x, s_y)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  hsic_fwd<<<1, kFwdThreads, 0, s>>>(x, y, mask, B, d, 1.0 / (double)s_x,
-                                     1.0 / (double)s_y, res, out);
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, hsic_fwd_kernel, kFwdThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = (B + kFwdWarps - 1) / kFwdWarps;  // blocks of a row a warp
+  const int grid = rows < resident * sms ? rows : resident * sms;
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  FwdArgs a = {x, y, mask, B, d, 1.0 / (double)s_x, 1.0 / (double)s_y,
+               res, scratch, out};
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)hsic_fwd_kernel,
+                                          dim3(grid), dim3(kFwdThreads), args,
+                                          0, (cudaStream_t)stream);
 }
 
 // K6: dx, dy of g * HSIC, with g = *g_ptr read on the device and res the

@@ -22,6 +22,10 @@ A = c*V - (1-c)*Qp + s*Qw (Qw = sum_nnz w/(1-p_g)), is
     dR/dz_v = -c + A*p_v + (1-c)*p_v/(1-p_v)     (dense part, kernel K4)
               - s*w_v - s*w_v*p_v/(1-p_v)        (nnz corrections, index_add_)
 
+The backward kernel is one launch as well: it evaluates the logits once more,
+forms G = dR/dz (dense part) from them on the chip and, from G, dW, db and
+dh.
+
 W is the decoder's ``nn.Linear`` weight, [V, D].
 
 ``fused_bow_loss`` is what the loss calls: a CPU tensor goes to
@@ -114,8 +118,12 @@ def bow_backward_kernel(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     B, D, V = _check_dense(h, W, b)
     native.check_input(rowp, "rowp", (5, B), h.device)
     lib = native.lib()
-    scratch = torch.empty(lib.carel_bow_bwd_scratch(B, D, V),
-                          dtype=torch.float32, device=h.device)
+    floats = lib.carel_bow_bwd_scratch(B, D, V, 0)
+    if floats < 0:
+        raise RuntimeError("bow backward kernel: the card could not be "
+                           "queried")
+    # each block's partial dh, which the kernel adds up after a grid barrier
+    scratch = torch.empty(floats, dtype=torch.float32, device=h.device)
     dW = torch.empty_like(W)
     db = torch.empty_like(b)
     dh = torch.empty_like(h)

@@ -134,11 +134,15 @@ def hsic_forward_kernel(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     sums of both masked Grams, n and their totals)."""
     B, d = _hsic_check(x, y, mask, s_x, s_y)
     lib = native.lib()
-    res = torch.empty(lib.carel_hsic_residuals(B), dtype=torch.float64,
-                      device=x.device)
+    n_res = lib.carel_hsic_residuals(B)
+    # the residuals and, behind them, the kernel's per-row partials
+    buf = torch.empty(n_res + lib.carel_hsic_fwd_scratch(B),
+                      dtype=torch.float64, device=x.device)
+    res = buf[:n_res]
     out = torch.empty((), dtype=torch.float32, device=x.device)
     err = lib.carel_hsic_fwd(x.data_ptr(), y.data_ptr(), mask.data_ptr(), B,
-                             d, s_x, s_y, res.data_ptr(), out.data_ptr(),
+                             d, s_x, s_y, res.data_ptr(),
+                             buf[n_res:].data_ptr(), out.data_ptr(),
                              native.stream(x.device))
     native.check(err, "hsic forward kernel")
     launches["hsic_fwd"] += 1

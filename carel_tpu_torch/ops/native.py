@@ -47,15 +47,19 @@ _SIGNATURES = {
     "carel_hsic_residuals": ([_I], _I),
     "carel_hsic_max_dim": ([], _I),
     "carel_hsic_max_rows": ([], _I),
-    "carel_hsic_fwd": ([_P, _P, _P, _I, _I, _F, _F, _P, _P, _P], _I),
+    "carel_hsic_fwd_scratch": ([_I], _I),
+    # x y mask | B d | s_x s_y | res scratch out stream
+    "carel_hsic_fwd": ([_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P], _I),
     "carel_hsic_bwd": ([_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P], _I),
     "carel_bow_max_dim": ([], _I),
     "carel_bow_fwd_scratch": ([_I, _I, _I, _I], _LL),
-    "carel_bow_bwd_scratch": ([_I, _I, _I], _LL),
+    "carel_bow_bwd_scratch": ([_I, _I, _I, _I], _LL),
     "carel_bow_fwd": ([_P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
     # h W b | B D V | columns a chunk, blocks, keep z | scratch out stream
     "carel_bow_fwd_planned": ([_P, _P, _P] + [_I] * 6 + [_P, _P, _P], _I),
     "carel_bow_bwd": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    # h W b | B D V | columns a chunk, blocks | rowp dW db dh scratch stream
+    "carel_bow_bwd_planned": ([_P, _P, _P] + [_I] * 5 + [_P] * 6, _I),
     "carel_flash_takes_head_dim": ([_I], _I),
     # q k v seg o lse | B h L hd | strides of qkv, o | scale is_bf16 stream
     "carel_flash_fwd": ([_P] * 6 + [_I] * 4 + [_LL] * 6 + [_F, _I, _P], _I),

@@ -187,7 +187,7 @@ def init_state(cfg: CarelConfig, device="cuda",
     device = resolve_device(device)
     seed = cfg.train.seed
     torch.manual_seed(seed)
-    model = DrlModel(cfg.model)
+    model = DrlModel(cfg.model, cfg.loss.regularizer)
     init_flax_(model, torch.Generator().manual_seed(seed))
     model.to(device)
     sample_gen = torch.Generator(device=device).manual_seed(seed + 1)

@@ -52,11 +52,7 @@ def kernel_calls(cs) -> dict:
     hx, hy, hmask = cs.hsic_inputs(64, 0, cs.HSIC_SPREAD)
     _, res = cp.hsic_forward_kernel(hx, hy, hmask, 1.0, 1.0)
     h, W, b, _, _, bmask = cs.bow_inputs()
-    B, V = h.shape[0], W.shape[0]
-    stats = cb.bow_forward_kernel(h, W, b)
-    rowp = torch.stack([stats[0], torch.zeros_like(stats[0]),
-                        bmask * 0.9 / (B * V), bmask * 0.1 / (V * B * V),
-                        bmask / (B * V)]).contiguous()
+    rowp = cs.bow_rowp(cb.bow_forward_kernel(h, W, b), bmask, W.shape[0])
     return {
         "mmd_fwd": lambda: cp.mmd_forward_kernel(x, y, mask, alphas),
         "mmd_bwd": lambda: cp.mmd_backward_kernel(x, y, mask, n, one, alphas),

@@ -14,9 +14,11 @@ an error:
    (bf16 tensor-core GEMM with an fp32 output) against the product of the
    upcast q and k; hold the fused BoW kernels also at ragged shapes (V =
    1,003 with B = 5 and 200, and B = 300 at the full V, where the forward
-   evaluates its logits twice) and require two runs of the forward to give
-   the same bits; hold the flash attention kernels K7-K9 against their
-   plain version in fp32 (CUDA-core kernels) and bf16 (tensor-core
+   evaluates its logits twice) and require two runs of each to give the
+   same bits; hold HSIC also at B = 1,000 (where the forward evaluates its
+   Gram entries again) and require two runs of its forward to give the same
+   bits; hold the flash attention kernels K7-K9 against their plain version
+   in fp32 (CUDA-core kernels) and bf16 (tensor-core
    kernels), at the training and the inference shape, at a ragged tiny
    one, at L over one block's rows (200, 513), at hd = 128 and with pad
    tails longer than one tile of keys, with an all-pad row and a row
@@ -333,7 +335,8 @@ def phase_hsic(records: dict) -> None:
     s_x = s_y = 1.0  # hsic_sigma of the ec_hsic preset
     worst = {"fwd": 0.0, "bwd": 0.0}
     for scale in (HSIC_SPREAD, HSIC_TIGHT):
-        for B, masked in ((64, 0), (61, 3)):
+        # B = 1,000: K5's multi-block path, entries evaluated again
+        for B, masked in ((64, 0), (61, 3), (1000, 7)):
             x, y, mask = hsic_inputs(B, masked, scale)
             xk = x.clone().requires_grad_(True)
             yk = y.clone().requires_grad_(True)
@@ -356,11 +359,16 @@ def phase_hsic(records: dict) -> None:
             if masked and (float(dxk[-masked:].abs().max()) != 0.0
                            or float(dyk[-masked:].abs().max()) != 0.0):
                 fail("hsic kernel: masked rows got a gradient")
+            runs = [cp.hsic_forward_kernel(x, y, mask, s_x, s_y)
+                    for _ in range(2)]
+            if not (torch.equal(runs[0][0], runs[1][0])
+                    and torch.equal(runs[0][1], runs[1][1])):
+                fail(f"hsic B={B}: two runs of the forward kernel differ")
             print(f"hsic scale={scale} B={B} masked={masked}: value "
                   f"{vk:.8e} vs plain float64 {vp:.8e} rel {rel:.2e}; "
                   f"grads normwise rel dx {gx:.2e} dy {gy:.2e} (plain fp32 "
-                  f"vs float64: value {rel32:.2e}, grads {g32:.2e})",
-                  flush=True)
+                  f"vs float64: value {rel32:.2e}, grads {g32:.2e}); two "
+                  "forward runs bit-equal", flush=True)
             if not rel <= 1e-5:
                 fail(f"hsic forward value rel err {rel:.2e} > 1e-5")
             if not max(gx, gy) <= 1e-4:
@@ -442,11 +450,20 @@ def bow_inputs(B=64, D=48, V=23808, T=128, masked=4, seed=1):
     return tuple(torch.tensor(a, device=dev) for a in (h, W, b, idx, wts, mask))
 
 
+def bow_rowp(stats: torch.Tensor, mask: torch.Tensor, V: int) -> torch.Tensor:
+    """A rowp [5, B] for K4 from K3's row sums, with A = 0 and the weights
+    of a mean over B x V."""
+    B = stats.shape[1]
+    return torch.stack([stats[0], torch.zeros_like(stats[0]),
+                        mask * 0.9 / (B * V), mask * 0.1 / (V * B * V),
+                        mask / (B * V)]).contiguous()
+
+
 def bow_case(B: int, V: int, masked: int):
     """K3 and K4 through fused_bow_loss against the plain version at one
-    shape: value rtol 1e-5, gradients normwise 1e-4; two runs of K3 must
-    give the same bits. Returns the largest absolute errors (value, grads)
-    and the plain version's graph for the timing."""
+    shape: value rtol 1e-5, gradients normwise 1e-4; two runs of K3 and two
+    of K4 must give the same bits. Returns the largest absolute errors
+    (value, grads) and the plain version's graph for the timing."""
     from carel_tpu_torch.ops import cuda_bow as cb
 
     h, W, b, idx, wts, mask = bow_inputs(B=B, V=V, masked=masked)
@@ -460,13 +477,18 @@ def bow_case(B: int, V: int, masked: int):
     vk, vp = float(val_k.detach()), float(val_p.detach())
     rel = abs(vk - vp) / abs(vp)
     grel = {n: relnorm(a, c) for n, a, c in zip(("dh", "dW", "db"), gk, gp)}
-    if not torch.equal(cb.bow_forward_kernel(h, W, b),
-                       cb.bow_forward_kernel(h, W, b)):
+    stats = cb.bow_forward_kernel(h, W, b)
+    if not torch.equal(stats, cb.bow_forward_kernel(h, W, b)):
         fail(f"bow B={B} V={V}: two runs of the forward kernel differ")
+    rowp = bow_rowp(stats, mask, V)
+    if not all(torch.equal(u, v) for u, v in zip(
+            cb.bow_backward_kernel(h, W, b, rowp),
+            cb.bow_backward_kernel(h, W, b, rowp))):
+        fail(f"bow B={B} V={V}: two runs of the backward kernel differ")
     print(f"bow B={B} D={D} V={V}: value {vk:.8e} vs plain "
           f"{vp:.8e} rel {rel:.2e}; grads normwise rel "
           + " ".join(f"{n} {v:.2e}" for n, v in grel.items())
-          + "; two forward runs bit-equal", flush=True)
+          + "; two forward and two backward runs bit-equal", flush=True)
     if not rel <= 1e-5:
         fail(f"bow forward value rel err {rel:.2e} > 1e-5")
     if not max(grel.values()) <= 1e-4:
@@ -488,10 +510,7 @@ def phase_bow(records: dict) -> None:
     h, W, b, idx, wts, mask = bow_inputs()
     B, D = h.shape
     V = W.shape[0]
-    stats = cb.bow_forward_kernel(h, W, b)
-    rowp = torch.stack([stats[0], torch.zeros_like(stats[0]),
-                        mask * 0.9 / (B * V), mask * 0.1 / (V * B * V),
-                        mask / (B * V)]).contiguous()
+    rowp = bow_rowp(cb.bow_forward_kernel(h, W, b), mask, V)
     t = {
         "fwd": timed(lambda: cb.bow_forward_kernel(h, W, b),
                      lambda: cb.fused_bow_loss_plain(h, W, b, idx, wts, 0.1,

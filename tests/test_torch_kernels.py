@@ -16,9 +16,9 @@ order of the sums differs; bf16 inputs (the tensor-core kernels) to 6e-3
 and 8e-3, three times the errors measured on the card (2.0e-3, 2.6e-3: the
 kernels round the probabilities, ds and the results to bf16;
 tests/test_torch_attention.py repeats that arithmetic on the CPU). The BoW
-forward (K3, one cooperative launch) is also held at ragged shapes, with its
-logits kept on the chip and evaluated twice, and must refuse a grid that
-cannot be resident.
+forward (K3) and backward (K4), each one cooperative launch, are also held
+at ragged shapes and under other plans, must refuse a grid that cannot be
+resident, and replay bit-equal from a CUDA graph.
 """
 
 import numpy as np
@@ -99,8 +99,10 @@ def _hsic_problem(device, B, masked, scale, d=24, seed=0):
     return tuple(torch.tensor(a, device=device) for a in (x, y, mask))
 
 
+# B = 1,000 takes K5's multi-block path that evaluates the Gram entries again
+# in its second phase (more than 128 rows)
 @pytest.mark.parametrize("scale", [0.2, 0.2e-2])
-@pytest.mark.parametrize("B,masked", [(64, 0), (61, 3), (13, 2)])
+@pytest.mark.parametrize("B,masked", [(64, 0), (61, 3), (13, 2), (1000, 7)])
 def test_hsic_kernels_match_plain(cuda, B, masked, scale):
     x, y, mask = _hsic_problem(cuda, B, masked, scale)
     xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
@@ -136,6 +138,92 @@ def test_bow_kernels_match_plain(cuda, V):
     torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0)
     for a, c in zip(gk, gp):
         assert _relnorm(a, c) <= 1e-4
+
+
+def _bow_rowp(h, W, b, mask):
+    """K3's row sums of (h, W, b) and a rowp [5, B] for K4 with A = 0, as
+    the training step's weights would give it."""
+    B, V = h.shape[0], W.shape[0]
+    stats = cuda_bow.bow_forward_kernel(h, W, b)
+    return torch.stack([stats[0], torch.zeros_like(stats[0]),
+                        mask * 0.9 / (B * V), mask * 0.1 / (V * B * V),
+                        mask / (B * V)]).contiguous()
+
+
+# the shapes of the forward's ragged cases, with the gradients: a few and
+# many rows at a V of no round size, more rows than one pass takes, more
+# chunks of V than SMs with a D that is no multiple of 4
+@pytest.mark.parametrize("B,D,V", [(5, 48, 1003), (200, 48, 1003),
+                                   (300, 48, 23808), (5, 33, 40000)])
+def test_bow_backward_kernel_at_ragged_shapes(cuda, B, D, V):
+    h, W, b, idx, wts, _ = _bow_problem(cuda, B=B, D=D, V=V, T=32, masked=0)
+    mask = torch.ones(B, device=cuda)
+    mask[-1] = 0.0
+    leaves_k = [t.clone().requires_grad_() for t in (h, W, b)]
+    leaves_p = [t.clone().requires_grad_() for t in (h, W, b)]
+    ops.reset_launch_counts()
+    gk = torch.autograd.grad(
+        cuda_bow.fused_bow_loss(*leaves_k, idx, wts, 0.1, mask), leaves_k)
+    assert ops.launch_counts()["bow_bwd"] == 1
+    gp = torch.autograd.grad(
+        cuda_bow.fused_bow_loss_plain(*leaves_p, idx, wts, 0.1, mask),
+        leaves_p)
+    for a, c in zip(gk, gp):
+        assert _relnorm(a, c) <= 1e-4
+    rowp = _bow_rowp(h, W, b, mask)
+    assert all(torch.equal(u, v) for u, v in zip(
+        cuda_bow.bow_backward_kernel(h, W, b, rowp),
+        cuda_bow.bow_backward_kernel(h, W, b, rowp)))
+
+
+def _bow_backward_planned(h, W, b, rowp, cols, grid):
+    """K4 under a plan given: (error, dW, db, dh)."""
+    from carel_tpu_torch.ops import native
+
+    B, D = h.shape
+    V = W.shape[0]
+    lib = native.lib()
+    scratch = torch.empty(lib.carel_bow_bwd_scratch(B, D, V, grid),
+                          device=h.device)
+    dW = torch.full_like(W, 7.0)
+    db = torch.full_like(b, 7.0)
+    dh = torch.full_like(h, 7.0)
+    err = lib.carel_bow_bwd_planned(
+        h.data_ptr(), W.data_ptr(), b.data_ptr(), B, D, V, cols, grid,
+        rowp.data_ptr(), dW.data_ptr(), db.data_ptr(), dh.data_ptr(),
+        scratch.data_ptr(), native.stream(h.device))
+    return err, dW, db, dh
+
+
+@pytest.mark.parametrize("cols,grid", [(64, 132), (256, 60), (181, 66)])
+def test_bow_backward_plans_agree(cuda, cols, grid):
+    """Another cut of V, or fewer blocks that own several chunks each: dW
+    and db hold the same bits (each column's sums run over the rows in the
+    same order), dh the same sums merged in another order."""
+    from carel_tpu_torch.ops import native
+
+    h, W, b, *_, mask = _bow_problem(cuda)
+    rowp = _bow_rowp(h, W, b, mask)
+    want = cuda_bow.bow_backward_kernel(h, W, b, rowp)
+    err, *got = _bow_backward_planned(h, W, b, rowp, cols, grid)
+    native.check(err, "bow backward kernel")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _relnorm(got[2], want[2]) <= 1e-6
+
+
+def test_bow_backward_refuses_a_grid_that_cannot_be_resident(cuda):
+    """Chunks of 8 columns in 2,976 blocks cannot all be resident: the
+    entry point returns the error and launches nothing."""
+    from carel_tpu_torch.ops import native
+
+    h, W, b, *_, mask = _bow_problem(cuda)
+    rowp = _bow_rowp(h, W, b, mask)
+    err, dW, db, dh = _bow_backward_planned(h, W, b, rowp, 8,
+                                            -(-W.shape[0] // 8))
+    with pytest.raises(RuntimeError, match="too many blocks|cooperative"):
+        native.check(err, "bow backward kernel")
+    torch.cuda.synchronize()
+    assert all(bool((t == 7.0).all()) for t in (dW, db, dh))
 
 
 def _dense_row_sums(h, W, b):
@@ -229,22 +317,46 @@ def test_bow_forward_launch_can_be_captured_in_a_cuda_graph(cuda):
     assert torch.equal(got, want)
 
 
+def test_bow_backward_launch_can_be_captured_in_a_cuda_graph(cuda):
+    """K4's cooperative launch is recorded by a stream capture too, and the
+    replay writes the same bits."""
+    h, W, b, *_, mask = _bow_problem(cuda)
+    rowp = _bow_rowp(h, W, b, mask)
+    want = [t.clone() for t in cuda_bow.bow_backward_kernel(h, W, b, rowp)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cuda_bow.bow_backward_kernel(h, W, b, rowp)
+    for t in got:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
 def test_kernels_repeat_bit_for_bit(cuda):
     x, y, mask = _mmd_problem(cuda, 64, 0)
     a = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))[0]
     b = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))[0]
     assert torch.equal(a, b)
-    h, W, bias, *_ = _bow_problem(cuda)
+    h, W, bias, *_, bmask = _bow_problem(cuda)
     assert torch.equal(cuda_bow.bow_forward_kernel(h, W, bias),
                        cuda_bow.bow_forward_kernel(h, W, bias))
-    x, y, mask = _hsic_problem(cuda, 61, 3, 0.2)
-    a, res_a = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
-    b, res_b = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
-    assert torch.equal(a, b) and torch.equal(res_a, res_b)
-    g = torch.ones((), device=cuda)
-    da = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_a, g)
-    db = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_b, g)
-    assert all(torch.equal(u, v) for u, v in zip(da, db))
+    rowp = _bow_rowp(h, W, bias, bmask)
+    assert all(torch.equal(u, v) for u, v in zip(
+        cuda_bow.bow_backward_kernel(h, W, bias, rowp),
+        cuda_bow.bow_backward_kernel(h, W, bias, rowp)))
+    for B, masked in ((61, 3), (1000, 7)):
+        x, y, mask = _hsic_problem(cuda, B, masked, 0.2)
+        a, res_a = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
+        b, res_b = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
+        assert torch.equal(a, b) and torch.equal(res_a, res_b)
+        g = torch.ones((), device=cuda)
+        da = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_a,
+                                                g)
+        db = cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res_b,
+                                                g)
+        assert all(torch.equal(u, v) for u, v in zip(da, db))
 
 
 def _flash_problem(device, B, h, L, hd, dtype, seed=0, min_tail=0):

@@ -17,7 +17,7 @@ from carel_tpu.models.drl import DrlModel as JDrlModel
 from carel_tpu.models.encoder import TransformerEncoder as JEncoder
 from carel_tpu.models.encoder import tiny_encoder_config as j_tiny
 
-from carel_tpu_torch.config import ModelConfig
+from carel_tpu_torch.config import ModelConfig, Regularizer
 from carel_tpu_torch.convert import jax_params_to_state_dict
 from carel_tpu_torch.models.drl import DrlModel
 from carel_tpu_torch.models.encoder import TransformerEncoder, init_flax_
@@ -158,11 +158,46 @@ def test_drl_model_matches_jax_on_every_key(arch):
                        strict=True)
     with torch.no_grad():
         t_out = tm(torch.tensor(ids), torch.tensor(mask), torch.tensor(types),
-                   deterministic=True, sample=False)
+                   deterministic=True, sample=False, aux_outputs=True)
     assert set(t_out) == set(j_out)
     for key in j_out:
         np.testing.assert_allclose(t_out[key].numpy(), np.asarray(j_out[key]),
                                    atol=1e-5, rtol=0, err_msg=key)
+
+
+AUX_KEYS = {"disc": {"ec_disc_logits_sg", "ce_disc_logits_sg",
+                     "ec_disc_logits", "ce_disc_logits"},
+            "club": {"club_mu_sg", "club_lv_sg", "club_mu", "club_lv"}}
+
+
+@pytest.mark.parametrize("reg,aux_outputs,runs", [
+    ("none", False, ()), ("mmd", False, ()), ("hsic", False, ()),
+    ("gan", False, ("disc",)), ("vi", False, ("club",)),
+    ("mmd", True, ("disc", "club"))])
+def test_aux_networks_run_only_for_the_regularizer_that_reads_them(
+        reg, aux_outputs, runs):
+    """The discriminators run under gan, the CLUB net under vi, both with
+    aux_outputs=True; otherwise neither is called (a forward hook counts the
+    calls) and their keys are absent. In training mode, so that the
+    discriminators' dropout would draw too."""
+    _, tc = _configs("bert")
+    tm = DrlModel(tc, Regularizer(reg))
+    calls = {"disc": 0, "club": 0}
+    for name, mod in (("disc", tm.ec_disc), ("disc", tm.ce_disc),
+                      ("club", tm.club)):
+        mod.register_forward_hook(
+            lambda *_, name=name: calls.__setitem__(name, calls[name] + 1))
+    ids, mask, types = _inputs(seed=2)
+    out = tm(torch.tensor(ids), torch.tensor(mask), torch.tensor(types),
+             deterministic=False, sample=True,
+             generator=torch.Generator().manual_seed(0),
+             aux_outputs=aux_outputs)
+    assert calls == {"disc": 4 if "disc" in runs else 0,
+                     "club": 2 if "club" in runs else 0}
+    for group, keys in AUX_KEYS.items():
+        assert (keys <= set(out)) == (group in runs)
+        assert not (keys & set(out)) or group in runs
+    assert "pair_logits" in out
 
 
 @pytest.mark.parametrize("compat", [True, False])
