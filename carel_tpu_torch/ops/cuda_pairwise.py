@@ -4,7 +4,9 @@ K2 (backward), and HSIC, kernels K5 (forward) and K6 (backward).
 Port of carel_tpu/ops/pallas_pairwise.py. The kernels live in
 ``carel_tpu_torch/csrc/mmd.cu`` and ``csrc/hsic.cu``; this module checks the
 inputs, allocates outputs and scratch, launches on the current stream and
-counts launches.
+counts launches. Each call of an MMD wrapper makes one call into the
+library; the library's limits are read once, when it loads
+(``native.consts``).
 
 ``mmd_statistic`` and ``hsic_statistic`` are what the losses call. A CPU
 tensor goes to the plain version (``mmd_statistic_plain`` / ``hsic_plain``,
@@ -26,12 +28,24 @@ from carel_tpu_torch.ops.pairwise import mmd_statistic as mmd_statistic_plain
 launches = {"mmd_fwd": 0, "mmd_bwd": 0, "hsic_fwd": 0, "hsic_bwd": 0}
 
 
+# K1's tile rows (kTile in csrc/mmd.cu), for the CPU tests that repeat K1's
+# decomposition; the wrapper sizes K1's scratch from the library's own value
+MMD_TILE_ROWS = 8
+
+# K1's scratch on each device: its ticket (0 between launches) and its
+# partials. It only grows, and a buffer it outgrows is kept alive: a captured
+# CUDA graph may still hold its address. The port runs K1 on one stream; two
+# streams must not run it at once on one device.
+_mmd_scratch: dict = {}
+_outgrown: list = []
+
+
 def _alpha_args(alphas: Tuple[float, ...]):
-    lib = native.lib()
-    if not 1 <= len(alphas) <= lib.carel_mmd_max_alphas():
-        raise ValueError(f"mmd kernel takes 1..{lib.carel_mmd_max_alphas()} "
-                         f"alphas, got {len(alphas)}")
-    return [*alphas, *([0.0] * (4 - len(alphas)))], len(alphas)
+    most = native.consts["carel_mmd_max_alphas"]
+    if not 1 <= len(alphas) <= most:
+        raise ValueError(f"mmd kernel takes 1..{most} alphas, got "
+                         f"{len(alphas)}")
+    return [*alphas, *([0.0] * (most - len(alphas)))], len(alphas)
 
 
 def _check_inputs(x, y, mask, what="mmd"):
@@ -42,7 +56,8 @@ def _check_inputs(x, y, mask, what="mmd"):
         raise ValueError(f"{what} kernel: x must be [B, d], got "
                          f"{tuple(x.shape)}")
     B, d = x.shape
-    max_dim = getattr(native.lib(), f"carel_{what}_max_dim")()
+    native.lib()
+    max_dim = native.consts[f"carel_{what}_max_dim"]
     if d > max_dim:
         raise ValueError(f"{what} kernel: d = {d} exceeds {max_dim}")
     native.check_input(x, "x", (B, d), x.device)
@@ -51,39 +66,52 @@ def _check_inputs(x, y, mask, what="mmd"):
     return B, d
 
 
+def _mmd_scratch_for(device: torch.device, B: int) -> torch.Tensor:
+    """K1's scratch for B rows: the ticket and 3 partials for each of the
+    nt (nt + 1) / 2 blocks, nt = ceil(B / tile rows)."""
+    nt = -(-B // native.consts["carel_mmd_tile_rows"])
+    need = 1 + 3 * (nt * (nt + 1) // 2)
+    buf = _mmd_scratch.get(device)
+    if buf is None or buf.numel() < need:
+        if buf is not None:
+            _outgrown.append(buf)
+        buf = torch.zeros(need, dtype=torch.float64, device=device)
+        _mmd_scratch[device] = buf
+    return buf
+
+
 def mmd_forward_kernel(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                        alphas: Tuple[float, ...]):
-    """K1: (MMD^2 as a 0-d tensor, n = sum(mask) as a 0-d tensor)."""
+    """K1: (MMD^2 as a 0-d tensor, the residuals K2 reads: float32 [2B + 2]
+    holding MMD^2, n = sum(mask), then the squared norms of the rows of x
+    and of y). One allocation, of which the value is a view."""
     B, d = _check_inputs(x, y, mask)
-    lib = native.lib()
     al, n_al = _alpha_args(alphas)
-    partial = torch.empty(lib.carel_mmd_partials(B), dtype=torch.float64,
-                          device=x.device)
-    out = torch.empty((), dtype=torch.float32, device=x.device)
-    n = torch.empty((), dtype=torch.float32, device=x.device)
-    err = lib.carel_mmd_fwd(x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, d,
-                            *al, n_al, partial.data_ptr(), out.data_ptr(),
-                            n.data_ptr(), native.stream(x.device))
+    buf = torch.empty(2 + 2 * B, dtype=torch.float32, device=x.device)
+    err = native.lib().carel_mmd_fwd(
+        x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, d, *al, n_al,
+        _mmd_scratch_for(x.device, B).data_ptr(), buf.data_ptr(),
+        native.stream(x.device))
     native.check(err, "mmd forward kernel")
     launches["mmd_fwd"] += 1
-    return out, n
+    return buf[0], buf
 
 
 def mmd_backward_kernel(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-                        n: torch.Tensor, g: torch.Tensor,
+                        res: torch.Tensor, g: torch.Tensor,
                         alphas: Tuple[float, ...]):
-    """K2: (dx, dy) of g * MMD^2, with n and g as 0-d device tensors."""
+    """K2: (dx, dy) of g * MMD^2, with ``res`` the residuals of K1 for the
+    same inputs and g a 0-d device tensor."""
     B, d = _check_inputs(x, y, mask)
-    native.check_input(n, "n", (), x.device)
+    native.check_input(res, "res", (2 * B + 2,), x.device)
     native.check_input(g, "g", (), x.device)
-    lib = native.lib()
     al, n_al = _alpha_args(alphas)
     dx = torch.empty_like(x)
     dy = torch.empty_like(y)
-    err = lib.carel_mmd_bwd(x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, d,
-                            *al, n_al, n.data_ptr(), g.data_ptr(),
-                            dx.data_ptr(), dy.data_ptr(),
-                            native.stream(x.device))
+    err = native.lib().carel_mmd_bwd(
+        x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, d, *al, n_al,
+        res.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        native.stream(x.device))
     native.check(err, "mmd backward kernel")
     launches["mmd_bwd"] += 1
     return dx, dy
@@ -92,15 +120,15 @@ def mmd_backward_kernel(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
 class _FusedMmd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, mask, alphas):
-        out, n = mmd_forward_kernel(x, y, mask, alphas)
-        ctx.save_for_backward(x, y, mask, n)
+        out, res = mmd_forward_kernel(x, y, mask, alphas)
+        ctx.save_for_backward(x, y, mask, res)
         ctx.alphas = alphas
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, y, mask, n = ctx.saved_tensors
-        dx, dy = mmd_backward_kernel(x, y, mask, n, g.float().contiguous(),
+        x, y, mask, res = ctx.saved_tensors
+        dx, dy = mmd_backward_kernel(x, y, mask, res, g.float().contiguous(),
                                      ctx.alphas)
         return dx, dy, None, None
 
@@ -119,10 +147,9 @@ def mmd_statistic(x: torch.Tensor, y: torch.Tensor,
 
 def _hsic_check(x, y, mask, s_x, s_y):
     B, d = _check_inputs(x, y, mask, "hsic")
-    lib = native.lib()
-    if not 2 <= B <= lib.carel_hsic_max_rows():
-        raise ValueError(f"hsic kernel: B = {B} outside 2.."
-                         f"{lib.carel_hsic_max_rows()}")
+    most = native.consts["carel_hsic_max_rows"]
+    if not 2 <= B <= most:
+        raise ValueError(f"hsic kernel: B = {B} outside 2..{most}")
     if not (s_x > 0.0 and s_y > 0.0):
         raise ValueError(f"hsic kernel: sigmas must be > 0, got {s_x}, {s_y}")
     return B, d

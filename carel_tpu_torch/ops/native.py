@@ -37,11 +37,13 @@ _LL = ctypes.c_longlong
 # c_void_p so that 64-bit addresses are not cut to 32 bits
 _SIGNATURES = {
     "carel_error_string": ([_I], ctypes.c_char_p),
-    "carel_mmd_partials": ([_I], _I),
     "carel_mmd_max_dim": ([], _I),
     "carel_mmd_max_alphas": ([], _I),
-    "carel_mmd_fwd": ([_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P, _P],
+    "carel_mmd_tile_rows": ([], _I),
+    # x y mask | B d | alphas[4] n_alphas | scratch buf stream
+    "carel_mmd_fwd": ([_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P],
                       _I),
+    # x y mask | B d | alphas[4] n_alphas | res g dx dy stream
     "carel_mmd_bwd": ([_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P, _P,
                        _P], _I),
     "carel_hsic_residuals": ([_I], _I),
@@ -73,6 +75,10 @@ _SIGNATURES = {
 }
 
 _lib = None
+
+# the library's limits and constants (every entry point that takes no
+# argument), read once when it loads: {name: value}
+consts: dict = {}
 
 
 def _nvcc() -> str:
@@ -145,6 +151,8 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = restype
+            if not argtypes and restype is _I:
+                consts[name] = fn()
         _lib = handle
     return _lib
 
@@ -166,7 +174,12 @@ def check_input(t: torch.Tensor, name: str, shape: tuple,
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The address of the current stream on ``device`` (the current device
+    where it has no index): the raw handle, without a Stream object."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

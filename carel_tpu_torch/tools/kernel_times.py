@@ -1,21 +1,27 @@
 """Time the wrappers of the small kernels K1-K6 of a checkout on the card.
 
-    python3 carel_tpu_torch/tools/kernel_times.py [--root DIR] [--out FILE]
+    python3 <root>/carel_tpu_torch/tools/kernel_times.py --root <root>
+        [--out FILE]
 
 ``--root`` names the checkout whose ``carel_tpu_torch`` package is built and
 timed (default: the one this file lies in), so that two commits are compared
-in one run on one card: unpack the other commit with ``git archive``
-into a directory that ``.gitignore`` lists, and run this file once per root,
-in turns (other, this, this, other). Run it as a file, not with ``-m``, so
-that the package comes from ``--root``.
+in one run on one card: unpack the other commit with ``git archive`` into a
+directory that ``.gitignore`` lists, and run each checkout's own copy of
+this file with its own root, in turns (other, this, this, other): the
+wrappers' signatures differ between commits (K2 takes K1's residuals since
+they were redesigned), and each copy calls its own. Run it as a file, not
+with ``-m``, so that the package comes from ``--root``.
 
 Per kernel, at the shapes of the training step (B = 64; d = 24 for MMD and
 HSIC; D = 48 and V = 23,808 for the fused BoW loss): the median of 30 calls
 by CUDA events around the wrapper's Python call, the profiler's device time
 per call with the number of device kernels one call launches, and the host's
 cost of one call that is not waited for. The timing functions and the inputs
-are those of this checkout's ``chip_smoke.py``. Needs a GPU and nvcc; prints
-the card's name and power limit, one line per kernel and a JSON object last.
+are those of this checkout's ``chip_smoke.py``. The row ``floor`` is a
+one-element ``fill_``: the least device time of any launch on this card, the
+yardstick of the kernels that are bound by launch latency (K1, K2, K5, K6).
+Needs a GPU and nvcc; prints the card's name and power limit, one line per
+kernel and a JSON object last.
 """
 
 from __future__ import annotations
@@ -47,15 +53,18 @@ def kernel_calls(cs) -> dict:
 
     alphas = (0.1,)
     one = torch.ones((), device="cuda")
+    cell = torch.zeros(1, device="cuda")
     x, y, mask = cs.mmd_inputs(64, 0)
-    _, n = cp.mmd_forward_kernel(x, y, mask, alphas)
+    _, mres = cp.mmd_forward_kernel(x, y, mask, alphas)
     hx, hy, hmask = cs.hsic_inputs(64, 0, cs.HSIC_SPREAD)
     _, res = cp.hsic_forward_kernel(hx, hy, hmask, 1.0, 1.0)
     h, W, b, _, _, bmask = cs.bow_inputs()
     rowp = cs.bow_rowp(cb.bow_forward_kernel(h, W, b), bmask, W.shape[0])
     return {
+        "floor": lambda: cell.fill_(1.0),
         "mmd_fwd": lambda: cp.mmd_forward_kernel(x, y, mask, alphas),
-        "mmd_bwd": lambda: cp.mmd_backward_kernel(x, y, mask, n, one, alphas),
+        "mmd_bwd": lambda: cp.mmd_backward_kernel(x, y, mask, mres, one,
+                                                  alphas),
         "bow_fwd": lambda: cb.bow_forward_kernel(h, W, b),
         "bow_bwd": lambda: cb.bow_backward_kernel(h, W, b, rowp),
         "hsic_fwd": lambda: cp.hsic_forward_kernel(hx, hy, hmask, 1.0, 1.0),

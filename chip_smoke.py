@@ -17,8 +17,12 @@ an error:
    evaluates its logits twice) and require two runs of each to give the
    same bits; hold HSIC also at B = 1,000 (where the forward evaluates its
    Gram entries again) and require two runs of its forward to give the same
-   bits; hold the flash attention kernels K7-K9 against their plain version
-   in fp32 (CUDA-core kernels) and bf16 (tensor-core
+   bits; hold MMD also at B = 1,000 with 7 masked rows, with one alpha and
+   with four (the kernels' most), and at every shape require two runs of K1
+   and of K2 to give the same bits, K1 + K2 captured in one CUDA graph to
+   replay them, and (B = 64) one device kernel a call of each; hold the flash
+   attention kernels K7-K9 against their plain version in fp32 (CUDA-core
+   kernels) and bf16 (tensor-core
    kernels), at the training and the inference shape, at a ragged tiny
    one, at L over one block's rows (200, 513), at hd = 128 and with pad
    tails longer than one tile of keys, with an all-pad row and a row
@@ -225,20 +229,54 @@ def mmd_inputs(B: int, masked: int, d: int = 24, seed: int = 0):
             torch.tensor(mask, device=dev))
 
 
+MMD_FOUR_ALPHAS = (0.1, 0.5, 1.0, 2.0)  # as many as K1/K2 take
+
+
+def mmd_graph_replay(x, y, mask, alphas) -> bool:
+    """K1 and K2 captured together in one CUDA graph and replayed twice:
+    True if each replay writes the bits of the eager calls."""
+    from carel_tpu_torch.ops import cuda_pairwise as cp
+
+    g = torch.full((), 0.5, device="cuda")
+
+    def both():
+        out, res = cp.mmd_forward_kernel(x, y, mask, alphas)
+        grads = cp.mmd_backward_kernel(x, y, mask, res, g, alphas)
+        return (out, res, *grads)
+
+    want = [t.clone() for t in both()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = both()
+    same = True
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(u, v) for u, v in zip(got, want))
+    return same
+
+
 def phase_mmd(records: dict) -> None:
     from carel_tpu_torch.ops import cuda_pairwise as cp
 
     alphas = (0.1,)
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for B, masked in ((64, 0), (61, 3)):
+    # B = 1,000: K1 in 7,875 blocks whose last merges, K2 over 8 chunks;
+    # four alphas are the kernels' most
+    for B, masked, case_alphas in ((64, 0, alphas), (61, 3, alphas),
+                                   (1000, 7, alphas),
+                                   (1000, 7, MMD_FOUR_ALPHAS)):
         x, y, mask = mmd_inputs(B, masked)
         xk = x.clone().requires_grad_(True)
         yk = y.clone().requires_grad_(True)
-        val_k = cp.mmd_statistic(xk, yk, alphas, mask)
+        val_k = cp.mmd_statistic(xk, yk, case_alphas, mask)
         dxk, dyk = torch.autograd.grad(val_k, (xk, yk))
         xp = x.clone().requires_grad_(True)
         yp = y.clone().requires_grad_(True)
-        val_p = cp.mmd_statistic_plain(xp, yp, alphas, mask)
+        val_p = cp.mmd_statistic_plain(xp, yp, case_alphas, mask)
         dxp, dyp = torch.autograd.grad(val_p, (xp, yp))
         vk, vp = float(val_k.detach()), float(val_p.detach())
         rel = abs(vk - vp) / abs(vp)
@@ -249,9 +287,23 @@ def phase_mmd(records: dict) -> None:
         if masked and (float(dxk[-masked:].abs().max()) != 0.0
                        or float(dyk[-masked:].abs().max()) != 0.0):
             fail("mmd kernel: masked rows got a gradient")
-        print(f"mmd B={B} masked={masked}: value {vk:.8e} vs "
-              f"plain {vp:.8e} rel {rel:.2e}; grads normwise rel "
-              f"dx {gx:.2e} dy {gy:.2e}", flush=True)
+        one = torch.ones((), device="cuda")
+        runs = [cp.mmd_forward_kernel(x, y, mask, case_alphas)
+                for _ in range(2)]
+        if not all(torch.equal(u, v) for u, v in zip(*runs)):
+            fail(f"mmd B={B}: two runs of the forward kernel differ")
+        grads = [cp.mmd_backward_kernel(x, y, mask, res, one, case_alphas)
+                 for _, res in runs]
+        if not all(torch.equal(u, v) for u, v in zip(*grads)):
+            fail(f"mmd B={B}: two runs of the backward kernel differ")
+        if not mmd_graph_replay(x, y, mask, case_alphas):
+            fail(f"mmd B={B}: the CUDA-graph replay of K1 + K2 differs from "
+                 "the eager calls")
+        print(f"mmd B={B} masked={masked} alphas={len(case_alphas)}: value "
+              f"{vk:.8e} vs plain {vp:.8e} rel {rel:.2e}; grads normwise "
+              f"rel dx {gx:.2e} dy {gy:.2e}; two forward and two backward "
+              "runs bit-equal; K1 + K2 replayed from a CUDA graph bit-equal",
+              flush=True)
         if not rel <= 1e-5:
             fail(f"mmd forward value rel err {rel:.2e} > 1e-5")
         if not max(gx, gy) <= 1e-5:
@@ -262,7 +314,7 @@ def phase_mmd(records: dict) -> None:
     # times at the training shape, B = 64
     B, d = 64, 24
     x, y, mask = mmd_inputs(B, 0)
-    _, n = cp.mmd_forward_kernel(x, y, mask, alphas)
+    _, res = cp.mmd_forward_kernel(x, y, mask, alphas)
     g = torch.ones((), device="cuda")
     xp = x.clone().requires_grad_(True)
     yp = y.clone().requires_grad_(True)
@@ -270,7 +322,8 @@ def phase_mmd(records: dict) -> None:
     t = {
         "fwd": timed(lambda: cp.mmd_forward_kernel(x, y, mask, alphas),
                      lambda: cp.mmd_statistic_plain(x, y, alphas, mask)),
-        "bwd": timed(lambda: cp.mmd_backward_kernel(x, y, mask, n, g, alphas),
+        "bwd": timed(lambda: cp.mmd_backward_kernel(x, y, mask, res, g,
+                                                    alphas),
                      lambda: torch.autograd.grad(val_p, (xp, yp),
                                                  retain_graph=True)),
     }
@@ -293,6 +346,10 @@ def phase_mmd(records: dict) -> None:
     print("mmd least work: " + "; ".join(
         f"{k} {nb} bytes, {fl} FLOP" for k, (nb, fl) in work.items()),
         flush=True)
+    for key in ("fwd", "bwd"):
+        if round(t[key]["kernels_per_call"]) != 1:
+            fail(f"mmd {key}: {t[key]['kernels_per_call']:g} device kernels "
+                 "a call, want 1")
     fwd_b, bwd_b = bound_ms(*work["fwd"]), bound_ms(*work["bwd"])
     for name, route_line, b, key in (
             ("mmd_fwd", 62, fwd_b, "fwd"), ("mmd_bwd", 90, bwd_b, "bwd")):

@@ -18,7 +18,11 @@ kernels round the probabilities, ds and the results to bf16;
 tests/test_torch_attention.py repeats that arithmetic on the CPU). The BoW
 forward (K3) and backward (K4), each one cooperative launch, are also held
 at ragged shapes and under other plans, must refuse a grid that cannot be
-resident, and replay bit-equal from a CUDA graph.
+resident, and replay bit-equal from a CUDA graph. The MMD kernels K1
+(forward, one launch whose last block merges) and K2 (backward, a warp a
+row) are held at ragged B up to 1,024 and four alphas, launch one device
+kernel each, leave K1's ticket at 0 between calls, and replay bit-equal from
+one CUDA graph.
 """
 
 import numpy as np
@@ -70,23 +74,121 @@ def _bow_problem(device, B=64, D=48, V=23808, T=128, masked=4, seed=1):
                  for a in (h, W, b, idx, wts, mask))
 
 
-@pytest.mark.parametrize("B,masked", [(64, 0), (61, 3), (13, 2)])
-def test_mmd_kernels_match_plain(cuda, B, masked):
+MMD_FOUR_ALPHAS = (0.1, 0.5, 1.0, 2.0)  # as many as the kernels take
+
+
+# ragged B: one tile of K1 (2), a tile short of or past a multiple of the
+# tile rows (63, 65), many blocks (1,000, 1,024) and several chunks of K2
+@pytest.mark.parametrize("B,masked,alphas", [
+    (64, 0, (0.1,)), (61, 3, (0.1,)), (13, 2, (0.1,)), (2, 0, (0.1,)),
+    (63, 5, (0.1,)), (65, 1, (0.1,)), (1000, 7, (0.1,)), (1024, 9, (0.1,)),
+    (1000, 7, MMD_FOUR_ALPHAS)])
+def test_mmd_kernels_match_plain(cuda, B, masked, alphas):
     x, y, mask = _mmd_problem(cuda, B, masked)
     xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
     xp, yp = x.clone().requires_grad_(), y.clone().requires_grad_()
     ops.reset_launch_counts()
-    vk = cuda_pairwise.mmd_statistic(xk, yk, (0.1,), mask)
+    vk = cuda_pairwise.mmd_statistic(xk, yk, alphas, mask)
     gk = torch.autograd.grad(vk, (xk, yk))
     assert ops.launch_counts()["mmd_fwd"] == 1
     assert ops.launch_counts()["mmd_bwd"] == 1
-    vp = cuda_pairwise.mmd_statistic_plain(xp, yp, (0.1,), mask)
+    vp = cuda_pairwise.mmd_statistic_plain(xp, yp, alphas, mask)
     gp = torch.autograd.grad(vp, (xp, yp))
     torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0)
     for a, c in zip(gk, gp):
         assert _relnorm(a, c) <= 1e-5
         if masked:
             assert float(a[-masked:].abs().max()) == 0.0
+
+
+def _device_kernels(fn, calls: int = 20) -> list:
+    """The names of the device kernels the profiler records over ``calls``
+    calls of fn (it may drop a few events, never add any)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # the first profile of a process may record none of its device events
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+@pytest.mark.parametrize("B", [64, 1000])
+def test_mmd_kernels_launch_one_device_kernel_each(cuda, B):
+    """K1 is one launch (its last block merges the partials), K2 one: over
+    20 calls the profiler sees one kernel name each, at most 20 times."""
+    x, y, mask = _mmd_problem(cuda, B, 3)
+    _, res = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))
+    g = torch.ones((), device=cuda)
+    ops.reset_launch_counts()
+    for fn, name in (
+            (lambda: cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,)),
+             "mmd_fwd_kernel"),
+            (lambda: cuda_pairwise.mmd_backward_kernel(x, y, mask, res, g,
+                                                       (0.1,)),
+             "mmd_bwd_kernel")):
+        names = _device_kernels(fn)
+        assert 0 < len(names) <= 20, names
+        assert all(name in n for n in names), names
+    assert ops.launch_counts()["mmd_fwd"] == 22
+    assert ops.launch_counts()["mmd_bwd"] == 22
+
+
+def test_mmd_forward_ticket_returns_to_zero(cuda):
+    """Calls at alternating B share one scratch: each leaves K1's ticket at
+    0, so the next call's last block merges (a ticket left over would keep
+    every block from being the last, and the value would not be written)."""
+    from carel_tpu_torch.ops import native
+
+    assert native.consts["carel_mmd_tile_rows"] == \
+        cuda_pairwise.MMD_TILE_ROWS
+    for B, masked in ((1000, 7), (64, 0), (2, 0), (1000, 7), (65, 1)):
+        x, y, mask = _mmd_problem(cuda, B, masked, seed=B)
+        out, res = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))
+        torch.cuda.synchronize()
+        scratch = cuda_pairwise._mmd_scratch[x.device]
+        assert int(scratch[:1].view(torch.int32)[0]) == 0
+        want = cuda_pairwise.mmd_statistic_plain(x, y, (0.1,), mask)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=0)
+        assert torch.equal(res[0], out)
+        assert float(res[1]) == float(mask.sum())
+        torch.testing.assert_close(res[2:2 + B], (x * x).sum(1), rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(res[2 + B:], (y * y).sum(1), rtol=1e-6,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("B", [64, 1000])
+def test_mmd_kernels_replay_from_a_cuda_graph(cuda, B):
+    """K1 and K2 captured together in one CUDA graph: the replay writes the
+    bits of the eager calls (the ticket is back at 0 after every launch)."""
+    x, y, mask = _mmd_problem(cuda, B, 3)
+    g = torch.full((), 0.5, device=cuda)
+
+    def both():
+        out, res = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))
+        return (out, res, *cuda_pairwise.mmd_backward_kernel(
+            x, y, mask, res, g, (0.1,)))
+
+    want = [t.clone() for t in both()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = both()
+    for t in got:
+        t.zero_()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 def _hsic_problem(device, B, masked, scale, d=24, seed=0):
@@ -335,10 +437,15 @@ def test_bow_backward_launch_can_be_captured_in_a_cuda_graph(cuda):
 
 
 def test_kernels_repeat_bit_for_bit(cuda):
-    x, y, mask = _mmd_problem(cuda, 64, 0)
-    a = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))[0]
-    b = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))[0]
-    assert torch.equal(a, b)
+    for B, masked in ((64, 0), (1000, 7)):
+        x, y, mask = _mmd_problem(cuda, B, masked)
+        a, res_a = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))
+        b, res_b = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))
+        assert torch.equal(a, b) and torch.equal(res_a, res_b)
+        g = torch.ones((), device=cuda)
+        da = cuda_pairwise.mmd_backward_kernel(x, y, mask, res_a, g, (0.1,))
+        db = cuda_pairwise.mmd_backward_kernel(x, y, mask, res_b, g, (0.1,))
+        assert all(torch.equal(u, v) for u, v in zip(da, db))
     h, W, bias, *_, bmask = _bow_problem(cuda)
     assert torch.equal(cuda_bow.bow_forward_kernel(h, W, bias),
                        cuda_bow.bow_forward_kernel(h, W, bias))
@@ -563,6 +670,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="exceeds"):
         wide = torch.zeros(8, 40, device=cuda)
         cuda_pairwise.mmd_forward_kernel(wide, wide, mask, (0.1,))
+    with pytest.raises(ValueError, match="alphas"):
+        cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,) * 5)
+    _, res = cuda_pairwise.mmd_forward_kernel(x, y, mask, (0.1,))
+    one = torch.ones((), device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_pairwise.mmd_backward_kernel(x, y, mask, res[1:], one, (0.1,))
+    with pytest.raises(TypeError):
+        cuda_pairwise.mmd_backward_kernel(x, y, mask, res.double(), one,
+                                          (0.1,))
+    with pytest.raises(ValueError, match="exceeds"):
+        cuda_pairwise.mmd_backward_kernel(wide, wide, mask, res, one, (0.1,))
     h, W, b, *_ = _bow_problem(cuda, V=100)
     with pytest.raises(ValueError, match="shape"):
         cuda_bow.bow_forward_kernel(h, W, b[:50])
