@@ -32,16 +32,37 @@
 //       again in phase 2, inside the same launch. One launch and not two:
 //       at the training shape the grid is 8 blocks, always resident, and a
 //       barrier costs less than a second launch.
-//   K6  grid (B, 2): one block per output row of dx or dy. With the residuals
-//       of K5 (row sums, n, totals) it rebuilds its row of the centred other
-//       Gram on the fly: dx_i = sum_j W_ij (x_i - x_j) with
-//       W = center(L) o K * (-4 g / (s_x (n - 1)^2)), and dy likewise. No
-//       [B, B] buffer. Rows whose mask is 0 get exactly 0.
+//   K6  one launch, a warp an output row (rows of dx, then of dy; B = 64:
+//       128 warps in 32 blocks of 4, one warp to a scheduler of an SM).
+//       With the residuals of K5 (row sums, n, totals) a warp rebuilds its
+//       row of the centred other Gram on the fly: dx_i = sum_j W_ij
+//       (x_i - x_j) with W = center(L) o K, times -4 g / (s_x (n - 1)^2)
+//       at the end, and dy likewise. Row i of both samples is read once, in
+//       double; x and y go through shared memory in chunks of kChunk rows,
+//       converted to double once each, beside the chunk's row sums times
+//       1 / n. The lanes stride over j; a lane forms both squared distances
+//       of (i, j) in one pass and adds W_ij (z_i - z_j) into its d
+//       accumulators in double. The warp merges its lanes by recursive
+//       halving, 31 shuffles for 32 values, so that lane k ends with
+//       coordinate k: no shared-memory tree and no barrier after the loop.
+//       No [B, B] buffer, no atomics: the gradients repeat bit for bit, and
+//       the order of every sum depends on B alone, not on the grid. Rows
+//       whose mask is 0 get exactly 0. What is left at the training shape
+//       is latency, so the design shortens the chain a warp runs: g, n and
+//       the row's constants are read before the loop, not after it, and
+//       the divisions by n are one reciprocal. A warp for each side
+//       measured faster than one warp for both dx_i and dy_i (which
+//       evaluates each Gram entry half as often but holds 2 d accumulators
+//       a lane and spills), than two entries a lane side by side, than
+//       blocks of 2 or 8 warps and than reading the rows straight from
+//       global memory.
 // d2 is sum_k (a_k - b_k)^2 in double: symmetric bit for bit, exactly 0 on
 // the diagonal, and free of the cancellation of |a|^2 + |b|^2 - 2 a.b.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "warp_merge.cuh"
 
 namespace {
 
@@ -49,11 +70,18 @@ constexpr int kMaxDim = 32;
 constexpr int kFwdThreads = 256;
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kKeep = 4;  // Gram entries of a row a K5 lane keeps
-constexpr int kBwdThreads = 128;
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kChunk = 64;  // rows of x and of y K6 stages at a time
+// doubles a staged row: odd, so that the lanes, each reading its own row,
+// meet no bank conflict
+constexpr int kRowStride = kMaxDim + 1;
 constexpr int kMaxRows = 1 << 15;
 
 // residual layout (doubles): rK[B], rL[B], n, sum(K), sum(L)
 constexpr int kResExtra = 3;
+static_assert(kChunk % 32 == 0,
+              "a K6 lane must take the same j in every chunk");
 
 __device__ __forceinline__ double gram(const float* a, const float* b, int d,
                                        double inv_s) {
@@ -232,66 +260,115 @@ __global__ void __launch_bounds__(kFwdThreads) hsic_fwd_kernel(FwdArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
-hsic_bwd_rows(const float* __restrict__ x, const float* __restrict__ y,
-              const float* __restrict__ mask, int B, int d, double inv_sx,
-              double inv_sy, const double* __restrict__ res,
-              const float* __restrict__ g_ptr, float* __restrict__ dx,
-              float* __restrict__ dy) {
-  __shared__ float own[kMaxDim];
-  __shared__ double red[kBwdThreads][kMaxDim + 1];
-  const int i = blockIdx.x;
-  const int side = blockIdx.y;  // 0: row i of dx, 1: row i of dy
-  const float* self = side == 0 ? x : y;
-  const float* other = side == 0 ? y : x;
-  const double inv_self = side == 0 ? inv_sx : inv_sy;
-  const double inv_other = side == 0 ? inv_sy : inv_sx;
-  // the row sums and total of the OTHER Gram centre it
-  const double* r_other = res + (side == 0 ? B : 0);
-  const double n = res[2 * B];
-  const double tot_other = res[2 * B + (side == 0 ? 2 : 1)];
-  float* out = side == 0 ? dx : dy;
+// The arguments of K6.
+struct BwdArgs {
+  const float* x;
+  const float* y;
+  const float* mask;
+  int B, d;
+  double inv_sx, inv_sy;
+  const double* res;  // K5's: rK[B], rL[B], n, sum(K), sum(L)
+  const float* g;
+  float* dx;
+  float* dy;
+};
 
-  const double mi = mask[i];
-  if (mi == 0.0) {  // a padded row: exactly zero, as the reference's mask
-    if (threadIdx.x < d) out[(size_t)i * d + threadIdx.x] = 0.f;
-    return;
+// K6 with rows of DP coordinates (d rounded up to 8; the rows are zero past
+// d, which leaves every sum bit for bit as over d).
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads) hsic_bwd_kernel(BwdArgs a) {
+  __shared__ double rows_s[2][kChunk][kRowStride];  // x, y rows of a chunk
+  __shared__ double rsum_n[2][kChunk];  // rK_j, rL_j times 1 / n
+  __shared__ double mask_s[kChunk];
+  const int B = a.B, d = a.d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = blockIdx.x * kBwdWarps + warp;  // output row, of 2B
+  const bool active = q < 2 * B;
+  const int side = q >= B ? 1 : 0;  // 0: row i of dx, 1: row i of dy
+  const int i = active ? q - side * B : 0;
+  const float* self = side ? a.y : a.x;
+  const float* other = side ? a.x : a.y;
+  const double inv_self = side ? a.inv_sy : a.inv_sx;
+  const double inv_other = side ? a.inv_sx : a.inv_sy;
+  // the row sums and total of the OTHER Gram centre it:
+  // center(O)_ij = O_ij - m_i r_j / n - r_i / n m_j + m_i m_j tot / n^2,
+  // each over n as a product with 1 / n, formed once
+  const double n = a.res[2 * B];
+  const double inv_n = 1.0 / n;
+  const double tot_n2 = a.res[2 * B + (side ? 1 : 2)] * inv_n * inv_n;
+  const double ri_n = a.res[(side ? 0 : B) + i] * inv_n;
+  const double mi = a.mask[i];
+  const bool work = active && mi != 0.0;  // a masked row's gradient is 0
+  // read with the rest here, and not after the loop, where the load would
+  // be one more trip to memory on the way out
+  const double scale =
+      -4.0 * inv_self * (double)(*a.g) / ((n - 1.0) * (n - 1.0));
+
+  double zi[DP], oi[DP];  // row i of this sample and of the other one
+#pragma unroll
+  for (int k = 0; k < DP; ++k) {
+    zi[k] = k < d ? (double)self[(size_t)i * d + k] : 0.0;
+    oi[k] = k < d ? (double)other[(size_t)i * d + k] : 0.0;
   }
-  if (threadIdx.x < d) own[threadIdx.x] = self[(size_t)i * d + threadIdx.x];
-  __syncthreads();
+  double acc[DP];
+#pragma unroll
+  for (int k = 0; k < DP; ++k) acc[k] = 0.0;
 
-  double acc[kMaxDim];
-#pragma unroll
-  for (int k = 0; k < kMaxDim; ++k) acc[k] = 0.0;
-
-  const double ri = r_other[i];
-  for (int j = threadIdx.x; j < B; j += blockDim.x) {
-    const double mj = mask[j];
-    if (mj == 0.0) continue;
-    const float* zj = self + (size_t)j * d;
-    const double kij = gram(own, zj, d, inv_self) * mi * mj;
-    const double oij =
-        gram(other + (size_t)i * d, other + (size_t)j * d, d, inv_other) *
-        mi * mj;
-    const double w = centred(oij, mi, mj, ri, r_other[j], tot_other, n) * kij;
-#pragma unroll
-    for (int k = 0; k < kMaxDim; ++k)
-      if (k < d) acc[k] += w * ((double)own[k] - (double)zj[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxDim; ++k)
-    if (k < d) red[threadIdx.x][k] = acc[k];
-  __syncthreads();
-  for (int s = kBwdThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s)
-      for (int k = 0; k < d; ++k) red[threadIdx.x][k] += red[threadIdx.x + s][k];
+  for (int c0 = 0; c0 < B; c0 += kChunk) {
+    const int rows = min(kChunk, B - c0);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int e = threadIdx.x; e < rows * DP; e += kBwdThreads) {
+      const int j = e / DP, k = e % DP;
+      const size_t at = (size_t)(c0 + j) * d + k;
+      rows_s[0][j][k] = k < d ? (double)a.x[at] : 0.0;
+      rows_s[1][j][k] = k < d ? (double)a.y[at] : 0.0;
+    }
+    for (int j = threadIdx.x; j < rows; j += kBwdThreads) {
+      rsum_n[0][j] = a.res[c0 + j] * inv_n;
+      rsum_n[1][j] = a.res[B + c0 + j] * inv_n;
+      mask_s[j] = a.mask[c0 + j];
+    }
     __syncthreads();
+    if (!work) continue;
+    const double(*zs)[kRowStride] = rows_s[side];
+    const double(*os)[kRowStride] = rows_s[1 - side];
+    const double* rj_n = rsum_n[1 - side];
+    // lane l takes j = l, l + 32, ... in order (kChunk is a multiple of 32)
+    for (int j = lane; j < rows; j += 32) {
+      const double mj = mask_s[j];
+      if (mj == 0.0) continue;
+      // both squared distances as gram() forms them
+      double s_self = 0.0, s_other = 0.0;
+#pragma unroll
+      for (int k = 0; k < DP; ++k) {
+        const double t = zi[k] - zs[j][k];
+        s_self = fma(t, t, s_self);
+        const double u = oi[k] - os[j][k];
+        s_other = fma(u, u, s_other);
+      }
+      const double mm = mi * mj;
+      const double kij = exp(-s_self * inv_self) * mm;
+      const double oij = exp(-s_other * inv_other) * mm;
+      // the centred entry, formed explicitly, times this Gram's entry
+      const double w = (oij - mi * rj_n[j] - ri_n * mj + mm * tot_n2) * kij;
+#pragma unroll
+      for (int k = 0; k < DP; ++k) acc[k] = fma(w, zi[k] - zs[j][k], acc[k]);
+    }
   }
-  if (threadIdx.x < d) {
-    const double scale =
-        -4.0 * inv_self * (double)(*g_ptr) / ((n - 1.0) * (n - 1.0));
-    out[(size_t)i * d + threadIdx.x] = (float)(red[0][threadIdx.x] * scale);
-  }
+  if (!active) return;
+  // R accumulators, a power of two, zero past DP
+  constexpr int R = kMergedValues<DP>;
+  double v[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) v[k] = k < DP ? acc[k] : 0.0;
+  warp_reduce_scatter<R>(v, lane);
+  // lane l holds the sum of coordinate e(l); the lanes 32 / R apart hold
+  // each coordinate once
+  constexpr int spread = 32 / R;
+  const int e = lane / spread;
+  if (lane % spread != 0 || e >= d) return;
+  float* out = side ? a.dy : a.dx;
+  out[(size_t)i * d + e] = work ? (float)(v[0] * scale) : 0.f;
 }
 
 bool bad_shape(int B, int d, float s_x, float s_y) {
@@ -340,15 +417,18 @@ int carel_hsic_fwd(const float* x, const float* y, const float* mask, int B,
 }
 
 // K6: dx, dy of g * HSIC, with g = *g_ptr read on the device and res the
-// residuals K5 wrote for the same inputs.
+// residuals K5 wrote for the same inputs. One launch, a warp an output row.
 int carel_hsic_bwd(const float* x, const float* y, const float* mask, int B,
                    int d, float s_x, float s_y, const double* res,
                    const float* g_ptr, float* dx, float* dy, void* stream) {
   if (bad_shape(B, d, s_x, s_y)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  hsic_bwd_rows<<<dim3(B, 2), kBwdThreads, 0, s>>>(
-      x, y, mask, B, d, 1.0 / (double)s_x, 1.0 / (double)s_y, res, g_ptr, dx,
-      dy);
+  BwdArgs args{x, y, mask, B, d, 1.0 / (double)s_x, 1.0 / (double)s_y,
+               res, g_ptr, dx, dy};
+  const int grid = (2 * B + kBwdWarps - 1) / kBwdWarps;
+#define CAREL_LAUNCH(DP) \
+  hsic_bwd_kernel<DP><<<grid, kBwdThreads, 0, (cudaStream_t)stream>>>(args)
+  CAREL_DISPATCH_DIM(d, CAREL_LAUNCH);
+#undef CAREL_LAUNCH
   return (int)cudaGetLastError();
 }
 

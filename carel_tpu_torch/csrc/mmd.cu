@@ -44,6 +44,8 @@
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
+#include "warp_merge.cuh"
+
 namespace {
 
 constexpr float kEps = 1e-5f;
@@ -147,32 +149,6 @@ __device__ __forceinline__ void block_sums(double (&v)[N],
     v[q] = s;
   }
   __syncthreads();
-}
-
-// The sum over the warp of each of a lane's R values (R a power of two, at
-// most 32), by recursive halving: at offset O a lane keeps half of its
-// values, the upper half if bit O of its lane is set, and adds its partner's
-// copy of them (R / 2 shuffles instead of R). Each value is summed over the
-// same pairs of lanes, in the same tree, as by a butterfly of its own, so
-// the bits are those of that butterfly. Afterwards v[0] of lane l holds the
-// sum of value l / (32 / R), once in every 32 / R lanes.
-template <int R, int O = 16, int N>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int lane) {
-  if constexpr (O > 0) {
-    if constexpr (R > 1) {
-      const bool upper = (lane & O) != 0;
-#pragma unroll
-      for (int m = 0; m < R / 2; ++m) {
-        const float send = upper ? v[m] : v[m + R / 2];
-        const float keep = upper ? v[m + R / 2] : v[m];
-        v[m] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-      }
-      warp_reduce_scatter<R / 2, O / 2>(v, lane);
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-      warp_reduce_scatter<1, O / 2>(v, lane);
-    }
-  }
 }
 
 struct FwdArgs {
@@ -386,7 +362,7 @@ __global__ void __launch_bounds__(kBwdThreads) mmd_bwd_kernel(BwdArgs a) {
   }
   if (!active) return;
   // R accumulators, a power of two, zero past DP
-  constexpr int R = DP <= 8 ? 8 : (DP <= 16 ? 16 : 32);
+  constexpr int R = kMergedValues<DP>;
   float v[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) v[k] = k < DP ? acc[k] : 0.f;
@@ -412,20 +388,6 @@ Alphas make_alphas(float a0, float a1, float a2, float a3, int n) {
 bool bad_shape(int B, int d, int n_alphas) {
   return B < 1 || d < 1 || d > kMaxDim || n_alphas < 1 || n_alphas > kMaxAlphas;
 }
-
-// d rounded up to 8 coordinates; the staged rows are zero past d, which
-// leaves every norm and dot product bit for bit as over d
-#define CAREL_MMD_DISPATCH(d, KERNEL, GRID, BLOCK, STREAM, ARGS)     \
-  do {                                                               \
-    if ((d) <= 8)                                                    \
-      KERNEL<8><<<(GRID), (BLOCK), 0, (STREAM)>>>(ARGS);             \
-    else if ((d) <= 16)                                              \
-      KERNEL<16><<<(GRID), (BLOCK), 0, (STREAM)>>>(ARGS);            \
-    else if ((d) <= 24)                                              \
-      KERNEL<24><<<(GRID), (BLOCK), 0, (STREAM)>>>(ARGS);            \
-    else                                                             \
-      KERNEL<32><<<(GRID), (BLOCK), 0, (STREAM)>>>(ARGS);            \
-  } while (0)
 
 }  // namespace
 
@@ -454,8 +416,11 @@ int carel_mmd_fwd(const float* x, const float* y, const float* mask, int B,
   const int nt = (B + kTile - 1) / kTile;
   FwdArgs args{x, y, mask, B, d, make_alphas(a0, a1, a2, a3, n_alphas),
                reinterpret_cast<unsigned int*>(scratch), scratch + 1, buf};
-  CAREL_MMD_DISPATCH(d, mmd_fwd_kernel, nt * (nt + 1) / 2, kFwdThreads,
-                     (cudaStream_t)stream, args);
+  const int grid = nt * (nt + 1) / 2;
+#define CAREL_LAUNCH(DP) \
+  mmd_fwd_kernel<DP><<<grid, kFwdThreads, 0, (cudaStream_t)stream>>>(args)
+  CAREL_DISPATCH_DIM(d, CAREL_LAUNCH);
+#undef CAREL_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -468,8 +433,11 @@ int carel_mmd_bwd(const float* x, const float* y, const float* mask, int B,
   if (bad_shape(B, d, n_alphas)) return (int)cudaErrorInvalidValue;
   BwdArgs args{x, y, mask, B, d, make_alphas(a0, a1, a2, a3, n_alphas), res,
                g_ptr, dx, dy};
-  CAREL_MMD_DISPATCH(d, mmd_bwd_kernel, (2 * B + kBwdWarps - 1) / kBwdWarps,
-                     kBwdThreads, (cudaStream_t)stream, args);
+  const int grid = (2 * B + kBwdWarps - 1) / kBwdWarps;
+#define CAREL_LAUNCH(DP) \
+  mmd_bwd_kernel<DP><<<grid, kBwdThreads, 0, (cudaStream_t)stream>>>(args)
+  CAREL_DISPATCH_DIM(d, CAREL_LAUNCH);
+#undef CAREL_LAUNCH
   return (int)cudaGetLastError();
 }
 

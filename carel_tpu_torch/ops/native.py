@@ -5,8 +5,11 @@ together, into an object with a plain C interface; the objects are linked into
 one shared library that ``ctypes`` loads. The build happens at first use, into
 ``build/carel_tpu_torch/`` at the root of the checkout, under a name that
 carries a hash of the sources, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing here runs at import time: this module imports
-on machines without ``nvcc`` or a GPU, where only the plain versions run.
+one is loaded as it is. Each source's ``ptxas -v`` report (registers, stack
+and spills of every kernel) is kept beside the library as
+``<library>.<source>.log``; ``ptxas_resources`` reads it. Nothing here runs at
+import time: this module imports on machines without ``nvcc`` or a GPU, where
+only the plain versions run.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -100,7 +104,7 @@ def _sources() -> list:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(ARCH_FLAGS).encode())
@@ -119,8 +123,8 @@ def build() -> Path:
         procs = []
         for src in _sources():
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler",
-                   "-fPIC", "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *ARCH_FLAGS, "-O3", "-std=c++17", "-Xptxas", "-v",
+                   "-Xcompiler", "-fPIC", "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -129,6 +133,8 @@ def build() -> Path:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{src.name}:\n{log}")
+            else:
+                _log_path(out, src.stem).write_text(log)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp_lib = Path(tmp) / out.name
@@ -140,6 +146,36 @@ def build() -> Path:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         os.replace(tmp_lib, out)
     return out
+
+
+def _log_path(library: Path, source: str) -> Path:
+    return library.with_name(f"{library.name}.{source}.log")
+
+
+def ptxas_resources(log: str) -> dict:
+    """{mangled kernel name: (registers, stack bytes, spill bytes)} from a
+    ``ptxas -v`` report, spill bytes being stores plus loads."""
+    out, name, stack, spills = {}, None, 0, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, stack, spills = m.group(1), 0, 0
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            stack = int(m.group(1))
+            spills = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), stack, spills)
+            name = None
+    return out
+
+
+def build_report(source: str) -> str:
+    """The ``ptxas -v`` report of ``csrc/<source>.cu`` from the build of the
+    current sources (built here if it is not yet)."""
+    return _log_path(build(), source).read_text()
 
 
 def lib() -> ctypes.CDLL:

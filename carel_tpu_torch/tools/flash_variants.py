@@ -70,20 +70,12 @@ def current_values():
 
 def registers(log: str) -> dict:
     """{kernel<HD>: (registers, spill bytes)} from a ptxas -v log."""
-    out, name = {}, None
-    spills = 0
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d(flash_(?:fwd|bwd_dkv|"
-                      r"bwd_dq)_mma)_kernelILi(\d+)E", line)
+    out = {}
+    for name, (regs, _, spills) in native.ptxas_resources(log).items():
+        m = re.search(r"\d(flash_(?:fwd|bwd_dkv|bwd_dq)_mma)_kernelILi(\d+)E",
+                      name)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spills = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out[name] = (int(m.group(1)), spills)
+            out[f"{m.group(1)}<{m.group(2)}>"] = (regs, spills)
     return out
 
 

@@ -16,14 +16,16 @@ an error:
    1,003 with B = 5 and 200, and B = 300 at the full V, where the forward
    evaluates its logits twice) and require two runs of each to give the
    same bits; hold HSIC also at B = 1,000 (where the forward evaluates its
-   Gram entries again) and require two runs of its forward to give the same
-   bits; hold MMD also at B = 1,000 with 7 masked rows, with one alpha and
-   with four (the kernels' most), and at every shape require two runs of K1
-   and of K2 to give the same bits, K1 + K2 captured in one CUDA graph to
-   replay them, and (B = 64) one device kernel a call of each; hold the flash
-   attention kernels K7-K9 against their plain version in fp32 (CUDA-core
-   kernels) and bf16 (tensor-core
-   kernels), at the training and the inference shape, at a ragged tiny
+   Gram entries again) and at every shape require two runs of K5 and of K6
+   to give the same bits, K5 + K6 captured in one CUDA graph to replay
+   them, and (B = 64) one device kernel a call of each, and print K6's
+   registers a thread; hold MMD also at B = 1,000 with 7 masked rows, with
+   one alpha and with four (the kernels' most), and at every shape require
+   two runs of K1 and of K2 to give the same bits, K1 + K2 captured in one
+   CUDA graph to replay them, and (B = 64) one device kernel a call of
+   each; hold the flash attention kernels K7-K9 against their plain version
+   in fp32 (CUDA-core kernels) and bf16 (tensor-core kernels), at the
+   training and the inference shape, at a ragged tiny
    one, at L over one block's rows (200, 513), at hd = 128 and with pad
    tails longer than one tile of keys, with an all-pad row and a row
    without pads, in the stock and the packed layout, and require two runs
@@ -76,8 +78,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit); fp64 at
+# the tensor cores' rate, the card's fastest for double, for the kernels that
+# work in double
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -232,6 +237,24 @@ def mmd_inputs(B: int, masked: int, d: int = 24, seed: int = 0):
 MMD_FOUR_ALPHAS = (0.1, 0.5, 1.0, 2.0)  # as many as K1/K2 take
 
 
+def replays_bit_equal(launch) -> bool:
+    """launch() captured in one CUDA graph and replayed twice: True if each
+    replay writes the bits that the eager call returned."""
+    want = [t.clone() for t in launch()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = launch()
+    same = True
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(u, v) for u, v in zip(got, want))
+    return same
+
+
 def mmd_graph_replay(x, y, mask, alphas) -> bool:
     """K1 and K2 captured together in one CUDA graph and replayed twice:
     True if each replay writes the bits of the eager calls."""
@@ -244,19 +267,22 @@ def mmd_graph_replay(x, y, mask, alphas) -> bool:
         grads = cp.mmd_backward_kernel(x, y, mask, res, g, alphas)
         return (out, res, *grads)
 
-    want = [t.clone() for t in both()]
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        got = both()
-    same = True
-    for _ in range(2):
-        for t in got:
-            t.zero_()
-        graph.replay()
-        torch.cuda.synchronize()
-        same = same and all(torch.equal(u, v) for u, v in zip(got, want))
-    return same
+    return replays_bit_equal(both)
+
+
+def hsic_graph_replay(x, y, mask, s_x, s_y) -> bool:
+    """K5 and K6 captured together in one CUDA graph and replayed twice:
+    True if each replay writes the bits of the eager calls."""
+    from carel_tpu_torch.ops import cuda_pairwise as cp
+
+    g = torch.full((), 0.5, device="cuda")
+
+    def both():
+        out, res = cp.hsic_forward_kernel(x, y, mask, s_x, s_y)
+        grads = cp.hsic_backward_kernel(x, y, mask, s_x, s_y, res, g)
+        return (out, res, *grads)
+
+    return replays_bit_equal(both)
 
 
 def phase_mmd(records: dict) -> None:
@@ -387,14 +413,18 @@ def phase_hsic(records: dict) -> None:
     plain version evaluated in float64: with tight latents the plain fp32
     version is itself off by ~3e-4 (the cancellation the kernels avoid by
     working in double), and its error is printed beside."""
-    from carel_tpu_torch.ops import cuda_pairwise as cp
+    from carel_tpu_torch.ops import cuda_pairwise as cp, native
 
     s_x = s_y = 1.0  # hsic_sigma of the ec_hsic preset
     worst = {"fwd": 0.0, "bwd": 0.0}
+    # B = 1,000: K5's multi-block path, entries evaluated again; the widths
+    # other than 24 reach K6's other instances (8, 16, 32 coordinates)
+    cases = [(B, masked, 24) for B, masked in ((64, 0), (61, 3), (1000, 7))]
+    cases += [(B, masked, d) for d in (1, 8, 13, 17, 32)
+              for B, masked in ((64, 0), (61, 3))]
     for scale in (HSIC_SPREAD, HSIC_TIGHT):
-        # B = 1,000: K5's multi-block path, entries evaluated again
-        for B, masked in ((64, 0), (61, 3), (1000, 7)):
-            x, y, mask = hsic_inputs(B, masked, scale)
+        for B, masked, d in cases:
+            x, y, mask = hsic_inputs(B, masked, scale, d)
             xk = x.clone().requires_grad_(True)
             yk = y.clone().requires_grad_(True)
             val_k = cp.hsic_statistic(xk, yk, s_x, s_y, mask)
@@ -420,12 +450,23 @@ def phase_hsic(records: dict) -> None:
                     for _ in range(2)]
             if not (torch.equal(runs[0][0], runs[1][0])
                     and torch.equal(runs[0][1], runs[1][1])):
-                fail(f"hsic B={B}: two runs of the forward kernel differ")
-            print(f"hsic scale={scale} B={B} masked={masked}: value "
+                fail(f"hsic B={B} d={d}: two runs of the forward kernel "
+                     "differ")
+            g = torch.full((), 0.5, device="cuda")
+            grads = [cp.hsic_backward_kernel(x, y, mask, s_x, s_y, res, g)
+                     for _, res in runs]
+            if not all(torch.equal(u, v) for u, v in zip(*grads)):
+                fail(f"hsic B={B} d={d}: two runs of the backward kernel "
+                     "differ")
+            if not hsic_graph_replay(x, y, mask, s_x, s_y):
+                fail(f"hsic B={B} d={d}: the CUDA-graph replay of K5 + K6 "
+                     "differs from the eager calls")
+            print(f"hsic scale={scale} B={B} masked={masked} d={d}: value "
                   f"{vk:.8e} vs plain float64 {vp:.8e} rel {rel:.2e}; "
                   f"grads normwise rel dx {gx:.2e} dy {gy:.2e} (plain fp32 "
                   f"vs float64: value {rel32:.2e}, grads {g32:.2e}); two "
-                  "forward runs bit-equal", flush=True)
+                  "forward and two backward runs bit-equal; K5 + K6 "
+                  "replayed from a CUDA graph bit-equal", flush=True)
             if not rel <= 1e-5:
                 fail(f"hsic forward value rel err {rel:.2e} > 1e-5")
             if not max(gx, gy) <= 1e-4:
@@ -464,7 +505,8 @@ def phase_hsic(records: dict) -> None:
     # Grams and their row sums as above; per distinct pair and side W (3 for
     # the centred entry, 2 products) and its two row-sum adds; per ordered
     # pair and side one FMA per coordinate for W z; per row and side z_i
-    # times its row sum
+    # times its row sum. Bytes: the inputs and outputs of the function; K5's
+    # residuals are how the port splits it, not what it needs.
     norms = 2 * B * 2 * d
     half = B * (B - 1) // 2
     grams = 2 * half * (2 * d + 5) + half * 2 * 2
@@ -474,9 +516,19 @@ def phase_hsic(records: dict) -> None:
                     norms + grams + half * 2 * (5 + 2)
                     + 2 * B * (B - 1) * 2 * d + 2 * B * 2 * d)}
     print("hsic least work: " + "; ".join(
-        f"{k} {nb} bytes, {fl} FLOP" for k, (nb, fl) in work.items()),
-        flush=True)
-    fwd_b, bwd_b = bound_ms(*work["fwd"]), bound_ms(*work["bwd"])
+        f"{k} {nb} bytes, {fl} FLOP in double" for k, (nb, fl) in
+        work.items()), flush=True)
+    for key in ("fwd", "bwd"):
+        if round(t[key]["kernels_per_call"]) != 1:
+            fail(f"hsic {key}: {t[key]['kernels_per_call']:g} device kernels "
+                 "a call, want 1")
+    for name, (regs, stack, spills) in sorted(native.ptxas_resources(
+            native.build_report("hsic")).items()):
+        if "hsic_bwd_kernel" in name:
+            print(f"ptxas: {name}: {regs} registers, {stack} bytes of stack, "
+                  f"{spills} bytes spilled", flush=True)
+    fwd_b, bwd_b = (bound_ms(*work[k], PEAK_FP64_FLOPS) for k in ("fwd",
+                                                                  "bwd"))
     for name, line, b, key in (("hsic_fwd", 204, fwd_b, "fwd"),
                                ("hsic_bwd", 227, bwd_b, "bwd")):
         records[name] = {

@@ -22,7 +22,12 @@ resident, and replay bit-equal from a CUDA graph. The MMD kernels K1
 (forward, one launch whose last block merges) and K2 (backward, a warp a
 row) are held at ragged B up to 1,024 and four alphas, launch one device
 kernel each, leave K1's ticket at 0 between calls, and replay bit-equal from
-one CUDA graph.
+one CUDA graph. The HSIC backward K6 (a warp a gradient row, the lanes merged
+by shuffles) is held against the float64 plain version at ragged B up to
+4,096 with g != 1, and with K5 at d of 1, 8, 13, 17 and 32 (every instance
+of K6) at both input scales; K5 (one cooperative launch) and K6 launch one device
+kernel each, replay bit-equal from one CUDA graph, and the wrappers refuse
+d = 33, B = 1 and sigmas that are not positive.
 """
 
 import numpy as np
@@ -178,11 +183,17 @@ def test_mmd_kernels_replay_from_a_cuda_graph(cuda, B):
         return (out, res, *cuda_pairwise.mmd_backward_kernel(
             x, y, mask, res, g, (0.1,)))
 
-    want = [t.clone() for t in both()]
+    _assert_replays_bit_equal(both)
+
+
+def _assert_replays_bit_equal(launch):
+    """launch() captured in one CUDA graph and replayed twice writes the
+    bits of the eager call."""
+    want = [t.clone() for t in launch()]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        got = both()
+        got = launch()
     for t in got:
         t.zero_()
     for _ in range(2):
@@ -223,6 +234,106 @@ def test_hsic_kernels_match_plain(cuda, B, masked, scale):
         assert _relnorm(a, c) <= 1e-4
         if masked:
             assert float(a[-masked:].abs().max()) == 0.0
+
+
+# ragged B for K6: one pair of rows (2), short of and past one warp's 32
+# lanes (13, 33), short of and past one of its 64-row chunks (61, 65), many
+# chunks (1,000, 4,096)
+@pytest.mark.parametrize("B,masked", [(2, 0), (13, 0), (33, 0), (61, 3),
+                                      (65, 1), (1000, 7), (4096, 9)])
+def test_hsic_backward_kernel_at_ragged_b(cuda, B, masked):
+    x, y, mask = _hsic_problem(cuda, B, masked, 0.2, seed=B)
+    xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
+    xp = x.double().requires_grad_()
+    yp = y.double().requires_grad_()
+    ops.reset_launch_counts()
+    vk = cuda_pairwise.hsic_statistic(xk, yk, 1.0, 0.7, mask)
+    gk = torch.autograd.grad(vk * 0.5, (xk, yk))  # g = 0.5
+    assert ops.launch_counts()["hsic_bwd"] == 1
+    vp = cuda_pairwise.hsic_plain(xp, yp, 1.0, 0.7, mask.double())
+    gp = torch.autograd.grad(vp * 0.5, (xp, yp))
+    vk, vp = float(vk.detach()), float(vp.detach())
+    assert abs(vk - vp) <= 1e-5 * abs(vp)
+    for a, c in zip(gk, gp):
+        assert _relnorm(a, c) <= 1e-4
+        if masked:
+            assert float(a[-masked:].abs().max()) == 0.0
+
+
+# K6 is instantiated for rows of 8, 16, 24 and 32 coordinates (d rounded up
+# to 8): a width at or short of each, and d = 1
+@pytest.mark.parametrize("scale", [0.2, 0.2e-2])
+@pytest.mark.parametrize("B,masked", [(64, 0), (61, 3)])
+@pytest.mark.parametrize("d", [1, 8, 13, 17, 32])
+def test_hsic_kernels_at_every_width(cuda, d, B, masked, scale):
+    x, y, mask = _hsic_problem(cuda, B, masked, scale, d=d, seed=d)
+    xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
+    xp = x.double().requires_grad_()
+    yp = y.double().requires_grad_()
+    vk = cuda_pairwise.hsic_statistic(xk, yk, 1.0, 0.7, mask)
+    gk = torch.autograd.grad(vk * 0.5, (xk, yk))
+    vp = cuda_pairwise.hsic_plain(xp, yp, 1.0, 0.7, mask.double())
+    gp = torch.autograd.grad(vp * 0.5, (xp, yp))
+    vk, vp = float(vk.detach()), float(vp.detach())
+    assert abs(vk - vp) <= 1e-5 * abs(vp)
+    for a, c in zip(gk, gp):
+        assert _relnorm(a, c) <= 1e-4
+        if masked:
+            assert float(a[-masked:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B", [64, 1000])
+def test_hsic_kernels_launch_one_device_kernel_each(cuda, B):
+    """K5 is one cooperative launch, K6 one: over 20 calls the profiler sees
+    one kernel name each, at most 20 times."""
+    x, y, mask = _hsic_problem(cuda, B, 3, 0.2)
+    _, res = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 0.7)
+    g = torch.ones((), device=cuda)
+    ops.reset_launch_counts()
+    for fn, name in (
+            (lambda: cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 0.7),
+             "hsic_fwd_kernel"),
+            (lambda: cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 0.7,
+                                                        res, g),
+             "hsic_bwd_kernel")):
+        names = _device_kernels(fn)
+        assert 0 < len(names) <= 20, names
+        assert all(name in n for n in names), names
+    assert ops.launch_counts()["hsic_fwd"] == 22
+    assert ops.launch_counts()["hsic_bwd"] == 22
+
+
+@pytest.mark.parametrize("B", [64, 1000])
+def test_hsic_kernels_replay_from_a_cuda_graph(cuda, B):
+    """K5 and K6 captured together in one CUDA graph: the replay writes the
+    bits of the eager calls."""
+    x, y, mask = _hsic_problem(cuda, B, 3, 0.2)
+    g = torch.full((), 0.5, device=cuda)
+
+    def both():
+        out, res = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 0.7)
+        return (out, res, *cuda_pairwise.hsic_backward_kernel(
+            x, y, mask, 1.0, 0.7, res, g))
+
+    _assert_replays_bit_equal(both)
+
+
+def test_hsic_backward_refuses_what_the_kernel_does_not_take(cuda):
+    x, y, mask = _hsic_problem(cuda, 8, 0, 0.2)
+    _, res = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)
+    one = torch.ones((), device=cuda)
+    wide = torch.zeros(8, 33, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        cuda_pairwise.hsic_backward_kernel(wide, wide, mask, 1.0, 1.0, res,
+                                           one)
+    with pytest.raises(ValueError, match="outside"):
+        cuda_pairwise.hsic_backward_kernel(x[:1], y[:1], mask[:1], 1.0, 1.0,
+                                           res, one)
+    for s in (0.0, -1.0):
+        for s_x, s_y in ((s, 1.0), (1.0, s)):
+            with pytest.raises(ValueError, match="sigmas"):
+                cuda_pairwise.hsic_backward_kernel(x, y, mask, s_x, s_y, res,
+                                                   one)
 
 
 @pytest.mark.parametrize("V", [23808, 700])

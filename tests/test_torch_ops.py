@@ -196,3 +196,26 @@ def test_flash_views_must_start_rows_on_16_bytes(dtype, align, case):
     four = _view(dtype, 4, 4)
     assert cuda_attention._rows_aligned(four) == (dtype == torch.float32)
 
+
+
+def test_ptxas_report_gives_registers_stack_and_spills():
+    """The build keeps nvcc's ``-Xptxas -v`` report; the parser takes each
+    kernel's registers, stack frame and spill stores plus loads, and skips
+    lines that belong to no kernel."""
+    from carel_tpu_torch.ops import native
+
+    name = "_ZN12_GLOBAL__N_115hsic_bwd_kernelILi24EEEvNS_7BwdArgsE"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    8 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 8 bytes "
+        "cumulative stack size, 416 bytes cmem[0]",
+        "ptxas info    : Compiling entry function 'k2' for 'sm_90a'",
+        "ptxas info    : Function properties for k2",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 0 barriers",
+    ])
+    assert native.ptxas_resources(log) == {name: (255, 8, 24),
+                                           "k2": (64, 0, 0)}
