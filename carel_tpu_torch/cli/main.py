@@ -55,6 +55,8 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
             "train_file", "test_file", "max_len") if getattr(args, f)}
     if args.seed is not None:
         dkw["seed"] = args.seed
+    if args.self_chain:
+        dkw["self_chain"] = True
     data = dataclasses.replace(data, **dkw)
     if args.regularizer:
         loss = dataclasses.replace(loss,
@@ -147,6 +149,10 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
                         "this |emo-cau| sentence distance, beyond-window "
                         "predicted-positives become hard negatives (0 = "
                         "reference-exact)")
+    p.add_argument("--self_chain", action="store_true",
+                   help="self-chain pair construction (read_ECPE_self_chain_"
+                        "data: test keeps only emotion==cause docs; see "
+                        "preset ec_mmd_self_chain)")
     p.add_argument("--round_up", action="store_true",
                    help="rank rounded 0/1 predictions in self-training "
                         "(the reference default)")
@@ -183,7 +189,7 @@ def cmd_train(args) -> int:
     from carel_tpu_torch.train.steps import make_eval_step, make_train_step
 
     enc = _encoder_preset(args.encoder, cfg.data.language)
-    train_step = make_train_step(cfg)  # raises for unported regularizers
+    train_step = make_train_step(cfg)
     pipe = build_pipeline(cfg, cache_dir=args.cache_dir, encoder_cfg=enc,
                           max_train_docs=args.max_train_docs,
                           max_test_docs=args.max_test_docs)
@@ -211,8 +217,11 @@ def cmd_train(args) -> int:
     final_best = best
     if cfg.train.self_iteration > 0:
         if cfg.train.self_lr > 0.0:
-            # Adam's state does not depend on lr, so the fine-tunes go on
-            # with the same optimizer at the new rate
+            # the fine-tunes' main Adam takes self_lr (its state does not
+            # depend on lr); the disc and club optimizers keep adv_lr and
+            # aprx_lr, as JAX's self_cfg replaces only vae_lr. The JAX CLI
+            # rebuilds only the step, so there the new lr never reaches its
+            # optimizer; the port applies it, as JAX's comment says it does
             for group in state.optimizer.param_groups:
                 group["lr"] = cfg.train.self_lr
         state, sbest = self_train(

@@ -1,9 +1,9 @@
 """Classifier losses: emotion CE, cause BCE, pos-weighted pair BCE.
 
 Port of carel_tpu/losses/classify.py (reference get_emotion_mul_loss /
-get_cause_mul_loss / get_pair_mul_loss, flagship :461-513; the GAN entropy
-loss waits for the GAN step). All computed from logits with masked means so
-padded rows are inert.
+get_cause_mul_loss / get_pair_mul_loss, flagship :461-513, and the GAN
+variant's entropy loss, ec_gan :486-495). All computed from logits with
+masked means so padded rows are inert.
 """
 
 from __future__ import annotations
@@ -68,3 +68,13 @@ def pair_bce_pos_weighted(
     loss = masked_mean(per, mask)
     return torch.where(p > 0, loss, torch.zeros_like(loss))
 
+
+
+def entropy_loss(logits: torch.Tensor, epsilon: float = 1e-8,
+                 mask=None) -> torch.Tensor:
+    """Negative entropy of sigmoid predictions, mean(sum(p * log(p + eps)))
+    (ec_gan :486-495): minimizing it drives the adversary toward
+    uncertainty."""
+    p = torch.sigmoid(logits.float())
+    per = torch.sum(p * torch.log(p + epsilon), dim=-1)
+    return masked_mean(per, mask)

@@ -3,14 +3,15 @@ carel_tpu/models/drl.py (the reference's DrlClassifier, flagship :149-343).
 
 One module covers the variants; the regularizer-specific sub-networks (GAN
 discriminators, CLUB net) are always present, so every checkpoint has one
-shape, but they run only for the regularizer that reads them: the
-discriminators under gan, the CLUB net under vi, both when the caller asks
-for ``aux_outputs=True``. (Under ``jax.jit`` the JAX package computes them
-on every forward and XLA drops the unread outputs; run eagerly, they would
-be launched on every step and every served batch.) Outputs are raw tensors
-under the JAX package's keys; the losses live in carel_tpu_torch.losses. The
-stop-gradient inputs of the discriminator and CLUB outputs (``*_sg``) are
-``.detach()``-ed latents.
+shape, but the forward never runs them: the gan train step adds the
+discriminator outputs (``gan_outputs``) and the vi step the CLUB outputs
+(``club_approx_outputs``, then ``club_bound_outputs`` after its club
+update), and evaluation and serving run neither. (Under
+``jax.jit`` the JAX package computes them on every forward and XLA drops the
+unread outputs; run eagerly, they would be launched on every step and every
+served batch.) Outputs are raw tensors under the JAX package's keys; the
+losses live in carel_tpu_torch.losses. The stop-gradient inputs of the
+discriminator and CLUB outputs (``*_sg``) are ``.detach()``-ed latents.
 """
 
 from __future__ import annotations
@@ -20,22 +21,20 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from carel_tpu_torch.config import AdapterKind, ModelConfig, Regularizer
+from carel_tpu_torch.config import AdapterKind, ModelConfig
 from carel_tpu_torch.models.discriminators import ClubNet, LinearDiscriminator
 from carel_tpu_torch.models.encoder import TransformerEncoder
 from carel_tpu_torch.models.heads import VaeHeads, sample_prior
 
 
 class DrlModel(nn.Module):
-    def __init__(self, cfg: ModelConfig,
-                 regularizer: Regularizer = Regularizer.MMD):
+    def __init__(self, cfg: ModelConfig):
         super().__init__()
         if cfg.adapter != AdapterKind.NONE:
             raise NotImplementedError(
                 f"adapter {cfg.adapter.value!r} is not ported yet (ROADMAP "
                 "Queue 1: adapters); carel_tpu_torch runs adapter=none")
         self.cfg = cfg
-        self.regularizer = Regularizer(regularizer)
         self.encoder = TransformerEncoder(cfg.encoder)
         self.heads = VaeHeads(cfg)
         # GAN cross adversaries (ec_gan :168-169) and the CLUB net
@@ -54,14 +53,11 @@ class DrlModel(nn.Module):
         compute_recon: bool = True,
         eps: Optional[Sequence[torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
-        aux_outputs: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """``eps`` = (eps_emotion, eps_cause) fixes the sampling noise;
         otherwise it is drawn from ``generator``. compute_recon=False skips
         the decoder product: the fused BoW loss consumes generative_emb and
-        the decoder weights directly. The ``*_disc_*`` outputs come under
-        the gan regularizer, the ``club_*`` ones under vi, and both with
-        aux_outputs=True."""
+        the decoder weights directly."""
         cfg = self.cfg
         _, pooled = self.encoder(input_ids, attention_mask, token_type_ids,
                                  deterministic=deterministic)
@@ -93,22 +89,34 @@ class DrlModel(nn.Module):
         }
         if compute_recon:
             out["recon_logits"] = heads.decode(pair_emb)
-
-        if aux_outputs or self.regularizer == Regularizer.GAN:
-            # GAN adversaries: the discriminator loss sees detached latents;
-            # the encoder's entropy loss sees the live latents
-            out["ec_disc_logits_sg"] = self.ec_disc(z_c.detach(),
-                                                    deterministic)
-            out["ce_disc_logits_sg"] = self.ce_disc(z_e.detach(),
-                                                    deterministic)
-            out["ec_disc_logits"] = self.ec_disc(z_c, deterministic)
-            out["ce_disc_logits"] = self.ce_disc(z_e, deterministic)
-        if aux_outputs or self.regularizer == Regularizer.VI:
-            # CLUB net on the detached cause latent (trains only the club)
-            # and on the live latent (the upper bound)
-            out["club_mu_sg"], out["club_lv_sg"] = self.club(z_c.detach())
-            out["club_mu"], out["club_lv"] = self.club(z_c)
         return out
+
+    def gan_outputs(self, out: Dict[str, torch.Tensor],
+                    deterministic: bool = True) -> Dict[str, torch.Tensor]:
+        """The GAN adversaries on the forward's latents: the discriminator
+        loss sees detached latents (ec_gan :430-456), the encoder's entropy
+        loss the live ones."""
+        z_e, z_c = out["z_emotion"], out["z_cause"]
+        return {
+            "ec_disc_logits_sg": self.ec_disc(z_c.detach(), deterministic),
+            "ce_disc_logits_sg": self.ce_disc(z_e.detach(), deterministic),
+            "ec_disc_logits": self.ec_disc(z_c, deterministic),
+            "ce_disc_logits": self.ce_disc(z_e, deterministic),
+        }
+
+    def club_approx_outputs(self, z_c: torch.Tensor
+                            ) -> Dict[str, torch.Tensor]:
+        """The CLUB net on the detached cause latent, for the approximation
+        loss that trains only the club (vi_final :421-426)."""
+        mu, lv = self.club(z_c.detach())
+        return {"club_mu_sg": mu, "club_lv_sg": lv}
+
+    def club_bound_outputs(self, z_c: torch.Tensor
+                           ) -> Dict[str, torch.Tensor]:
+        """The CLUB net on the live cause latent, for the upper bound that
+        the encoder minimises (vi_final :428-439)."""
+        mu, lv = self.club(z_c)
+        return {"club_mu": mu, "club_lv": lv}
 
     def pair_probabilities(self, input_ids, attention_mask, token_type_ids,
                            sample: bool = True,

@@ -4,9 +4,9 @@ state. Port of carel_tpu/pipeline.py.
 Resolves corpus paths exactly like the reference entry points
 (drl_classifier_ec_mmd_final_mul.py:939-948 for the old split,
 newsplit :1205-1227 for the new split + predicted-emotion test files), builds
-the tokenizer/BoW/arrays, and sizes the model config to them. Ported for zh;
-en ingest, self-chain pair construction and pretrained encoders wait for
-later slices and raise.
+the tokenizer/BoW/arrays, and sizes the model config to them. Ported for zh,
+with the self-chain pair construction; en ingest and pretrained encoders
+wait for later slices and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from carel_tpu_torch.data.batching import PairArrays, encode_pairs
 from carel_tpu_torch.data.bow import BowVocab, build_bow_vocab_zh
 from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
 from carel_tpu_torch.data.pairs import PairSet, build_pairs
+from carel_tpu_torch.data.self_chain import build_pairs_self_chain
 from carel_tpu_torch.data.tokenizer import BaseTokenizer, build_tokenizer
 from carel_tpu_torch.device import resolve_device
 from carel_tpu_torch.models.drl import DrlModel
@@ -116,10 +117,6 @@ def build_pipeline(
         raise NotImplementedError(
             f"language {cfg.data.language!r} is not ported to carel_tpu_torch "
             "yet: only zh runs")
-    if cfg.data.self_chain:
-        raise NotImplementedError(
-            "self-chain pair construction is not ported to carel_tpu_torch "
-            "yet")
     if cfg.model.pretrained_encoder:
         raise NotImplementedError(
             "loading a pretrained encoder is not ported to carel_tpu_torch "
@@ -134,8 +131,10 @@ def build_pipeline(
         test_docs = test_docs[:max_test_docs]
 
     rng = random.Random(cfg.data.seed)
-    train_pairs = build_pairs(train_docs, test=False, rng=rng)
-    test_pairs = build_pairs(test_docs, test=True, rng=rng)
+    make_pairs = (build_pairs_self_chain if cfg.data.self_chain
+                  else build_pairs)
+    train_pairs = make_pairs(train_docs, test=False, rng=rng)
+    test_pairs = make_pairs(test_docs, test=True, rng=rng)
 
     bow = build_bow_vocab_zh(bow_path)
 
@@ -187,7 +186,7 @@ def init_state(cfg: CarelConfig, device="cuda",
     device = resolve_device(device)
     seed = cfg.train.seed
     torch.manual_seed(seed)
-    model = DrlModel(cfg.model, cfg.loss.regularizer)
+    model = DrlModel(cfg.model)
     init_flax_(model, torch.Generator().manual_seed(seed))
     model.to(device)
     sample_gen = torch.Generator(device=device).manual_seed(seed + 1)

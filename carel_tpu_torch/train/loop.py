@@ -84,7 +84,9 @@ def train_epochs(
     best_f1_so_far: float = 0.0,
     best_cache: Optional[dict] = None,
 ) -> Tuple[TrainState, Tuple[float, float, float]]:
-    """Epoch loop with per-epoch eval and best-F1 checkpointing.
+    """Epoch loop with per-epoch eval and best-F1 checkpointing. Every step
+    of epoch ``epoch`` gets vi_beta = min((epoch - 1) * vi_beta_step, 1)
+    (vi_final :772-777), which only the vi step reads.
 
     Returns the state with the BEST params reloaded (the reference reloads
     the best checkpoint after training, flagship :916-917).
@@ -108,11 +110,12 @@ def train_epochs(
     for epoch in range(1, epochs + 1):
         t_epoch = time.time()
         pending = []  # device scalars; fetched every 10 steps
+        vi_beta = min((epoch - 1) * cfg.loss.vi_beta_step, 1.0)
         for it, host_batch in enumerate(iter_batches(
                 train_arrays, cfg.train.batch_size, shuffle=True,
                 rng=data_rng)):
             batch = batch_to_device(host_batch.as_dict(), device)
-            metrics = train_step(state, batch, it)
+            metrics = train_step(state, batch, it, vi_beta)
             pending.append(metrics["loss"])
             examples_seen += int(host_batch.example_mask.sum())
             if it % 10 == 9:

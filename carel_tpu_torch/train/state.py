@@ -3,21 +3,30 @@ carel_tpu/train/state.py.
 
 Groups, by module path (``param_labels``): ``disc`` (ec_disc/ce_disc),
 ``club``, ``frozen`` (the four latent projections) and ``main`` (the rest).
-The main group trains with Adam(vae_lr, betas (0.9, 0.999), eps 1e-8 outside
-the sqrt), which is optax.adam's update.
+Each updated group has its own optimizer, as in the reference (SURVEY.md
+§2.2; ec_gan :906-909, vi_final :878-879):
+
+- main: Adam(vae_lr, betas (0.9, 0.999), eps 1e-8 outside the sqrt), which
+  is optax.adam's update;
+- disc: RMSprop(adv_lr, decay 0.99, eps 1e-8 INSIDE the sqrt), which is
+  optax.rmsprop's default (``DiscRMSprop``; torch.optim.RMSprop puts eps
+  outside the sqrt and is another optimizer);
+- club: Adam(aprx_lr, betas (0.9, 0.999), eps 1e-8).
+
+The gan step updates main and disc, the vi step club then main; the none,
+mmd and hsic steps update main only, as in JAX.
 
 Parity quirk: the reference's main optimizer NEVER includes the four latent
 projection layers (emotion/cause mu/log_var are absent from get_params,
 flagship :284-297), so they stay at their random init for the whole run.
 With compat_frozen_latent_heads (default) they get ``requires_grad_(False)``;
-gradient still flows through them to the encoder. The disc and club groups
-exist and are not updated: that is what the none/mmd steps do in JAX.
+gradient still flows through them to the encoder.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 import torch
 from torch import nn
@@ -46,13 +55,49 @@ def param_labels(model: nn.Module,
     return {name: label_for(name) for name, _ in model.named_parameters()}
 
 
+class DiscRMSprop(torch.optim.Optimizer):
+    """optax.rmsprop(lr, decay, eps) with its defaults (eps_in_sqrt=True,
+    initial scale 0, no momentum, not centered):
+    nu = decay * nu + (1 - decay) * g^2;  p -= lr * g / sqrt(nu + eps).
+    The state of a parameter is ``nu``."""
+
+    def __init__(self, params, lr: float, decay: float = 0.99,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("DiscRMSprop.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            nus: List[torch.Tensor] = []
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nus.append(state["nu"])
+            torch._foreach_mul_(nus, group["decay"])
+            torch._foreach_addcmul_(nus, grads, grads, 1.0 - group["decay"])
+            scale = torch._foreach_add(nus, group["eps"])
+            torch._foreach_rsqrt_(scale)
+            torch._foreach_mul_(scale, grads)
+            torch._foreach_add_(params, scale, alpha=-group["lr"])
+
+
 @dataclass
 class TrainState:
-    """The model, its main-group optimizer, the sampling-noise generator and
-    the count of optimizer steps."""
+    """The model, its three optimizers (main Adam, disc RMSprop, club
+    Adam), the sampling-noise generator and the count of main-optimizer
+    steps."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    disc_optimizer: torch.optim.Optimizer
+    club_optimizer: torch.optim.Optimizer
     generator: torch.Generator
     labels: Dict[str, str]
     step: int = 0
@@ -62,13 +107,19 @@ def create_train_state(cfg: CarelConfig, model: nn.Module,
                        generator: torch.Generator,
                        compat_frozen_latent_heads: bool = True) -> TrainState:
     labels = param_labels(model, compat_frozen_latent_heads)
-    main = []
+    groups: Dict[str, list] = {MAIN: [], DISC: [], CLUB: []}
     for name, p in model.named_parameters():
         if labels[name] == FROZEN:
             p.requires_grad_(False)
-        elif labels[name] == MAIN:
-            main.append(p)
-    optimizer = torch.optim.Adam(main, lr=cfg.train.vae_lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model=model, optimizer=optimizer, generator=generator,
-                      labels=labels)
+        else:
+            groups[labels[name]].append(p)
+    tc = cfg.train
+    return TrainState(
+        model=model,
+        optimizer=torch.optim.Adam(groups[MAIN], lr=tc.vae_lr,
+                                   betas=(0.9, 0.999), eps=1e-8),
+        disc_optimizer=DiscRMSprop(groups[DISC], lr=tc.adv_lr, decay=0.99,
+                                   eps=1e-8),
+        club_optimizer=torch.optim.Adam(groups[CLUB], lr=tc.aprx_lr,
+                                        betas=(0.9, 0.999), eps=1e-8),
+        generator=generator, labels=labels)

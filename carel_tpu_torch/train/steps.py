@@ -1,11 +1,24 @@
 """Train and eval steps, port of carel_tpu/train/steps.py.
 
-Ported so far: the single-gradient step of the none, mmd and hsic
-regularizers (flagship forward :184-263, train :820-845). The BoW
-reconstruction term is always the fused loss (kernels K3/K4 on CUDA, the
-plain version on the CPU), so the model never computes the [B, V] decoder
-logits in training; the MMD term goes through kernels K1/K2 and the HSIC term
-through K5/K6 on CUDA.
+One train step per regularizer, as in JAX:
+
+- none/mmd/hsic: one gradient of the weighted multi-task loss, the main
+  Adam steps (flagship forward :184-263, train :820-845);
+- gan: one gradient of vae_loss + ec_disc_bce + ce_disc_bce; the disc BCEs
+  see detached latents and the entropy term's gradient reaches the
+  discriminators through the live ones, so the main Adam and the disc
+  RMSprop step from the same gradients (ec_gan :775-804);
+- vi: phase 1 steps the CLUB net's Adam from the approximation NLL on
+  detached latents; phase 2 adds vi_beta * upper bound, computed with the
+  UPDATED club params, to the main loss and steps the main Adam only; its
+  club gradients are dropped (vi_final :760-781). JAX runs the encoder
+  forward twice with one rng, hence the same noise and params; one forward
+  feeding both phases computes the same function.
+
+The BoW reconstruction term is always the fused loss (kernels K3/K4 on
+CUDA, the plain version on the CPU), so the model never computes the
+[B, V] decoder logits in training; the MMD term goes through kernels K1/K2
+and the HSIC term through K5/K6 on CUDA.
 """
 
 from __future__ import annotations
@@ -22,7 +35,11 @@ from carel_tpu_torch.losses.classify import (
     emotion_ce_loss,
     pair_bce_pos_weighted,
 )
-from carel_tpu_torch.losses.registry import regularizer_loss
+from carel_tpu_torch.losses.registry import (
+    club_aprx_loss,
+    gan_disc_losses,
+    regularizer_loss,
+)
 from carel_tpu_torch.losses.vae import annealed_kl_weight, kl_loss
 from carel_tpu_torch.ops.cuda_bow import fused_bow_loss
 from carel_tpu_torch.train.state import TrainState
@@ -41,10 +58,12 @@ def vae_and_classifier_loss(
     batch: Dict[str, torch.Tensor],
     iteration: int,
     decoder: torch.nn.Linear,
+    vi_beta: Optional[float] = None,
+    perm: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The weighted multi-task loss (flagship :208-261) for none/mmd/hsic;
-    the reconstruction term is the fused BoW loss from the generative
-    embedding and the decoder's weights."""
+    """The weighted multi-task loss (flagship :208-261); the reconstruction
+    term is the fused BoW loss from the generative embedding and the
+    decoder's weights. ``vi_beta`` and ``perm`` feed the vi term."""
     lc = cfg.loss
     mask = batch["example_mask"]
     pair_labels = batch["pair_labels"]
@@ -68,10 +87,12 @@ def vae_and_classifier_loss(
     recon = fused_bow_loss(out["generative_emb"], decoder.weight,
                            decoder.bias, batch["bow_indices"],
                            batch["bow_weights"], lc.label_smoothing, mask)
-    reg = regularizer_loss(out, lc, mask)
+    reg = regularizer_loss(out, lc, mask, vi_beta=vi_beta, perm=perm)
 
-    # hsic: the cause term takes the EMOTION weight (ec_hsic :249-253)
-    cau_weight = (lc.emo_mul_loss_weight if lc.regularizer == Regularizer.HSIC
+    # gan and hsic: the cause term takes the EMOTION weight (ec_gan
+    # :275-279, ec_hsic :249-253)
+    cau_weight = (lc.emo_mul_loss_weight
+                  if lc.regularizer in (Regularizer.GAN, Regularizer.HSIC)
                   else lc.cau_mul_loss_weight)
     total = (reg
              + lc.emo_mul_loss_weight * emo
@@ -93,28 +114,57 @@ def vae_and_classifier_loss(
 
 def make_train_step(cfg: CarelConfig) -> Callable:
     """The train step for this config's regularizer:
-    ``step(state, batch, iteration, eps=None) -> metrics`` (0-d tensors,
-    not synchronized). ``eps`` = (eps_emotion, eps_cause) fixes the sampling
-    noise; otherwise it comes from ``state.generator``."""
+    ``step(state, batch, iteration, vi_beta=0.0, eps=None, perm=None) ->
+    metrics`` (0-d tensors, not synchronized). ``eps`` = (eps_emotion,
+    eps_cause) fixes the sampling noise; otherwise it comes from
+    ``state.generator``. ``vi_beta`` weighs the vi upper bound and ``perm``
+    (a permutation of the B rows) fixes its negatives, otherwise drawn from
+    ``state.generator``; the other regularizers ignore both. Every
+    parameter's ``.grad`` is cleared first, and the club's is cleared after
+    the vi step, so no group carries a stale gradient to the next step."""
     reg = cfg.loss.regularizer
-    if reg not in (Regularizer.NONE, Regularizer.MMD, Regularizer.HSIC):
-        raise NotImplementedError(
-            f"the {reg.value!r} train step is not ported to carel_tpu_torch "
-            "yet (ROADMAP Queue 1: gan/vi steps)")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             iteration: int,
-             eps: Optional[Sequence[torch.Tensor]] = None) -> Dict:
+             iteration: int, vi_beta: float = 0.0,
+             eps: Optional[Sequence[torch.Tensor]] = None,
+             perm: Optional[torch.Tensor] = None) -> Dict:
         model = state.model
+        model.zero_grad(set_to_none=True)
         out = model(batch["input_ids"], batch["attention_mask"],
                     batch["token_type_ids"], deterministic=False,
                     sample=True, compute_recon=False, eps=eps,
                     generator=state.generator)
+        mask = batch["example_mask"]
+        if reg == Regularizer.VI:
+            # phase 1: the club's Adam from the approximation NLL, whose
+            # inputs are detached, so only the club gets gradient
+            out.update(model.club_approx_outputs(out["z_cause"]))
+            club_aprx_loss(out, mask).backward()
+            state.club_optimizer.step()
+            # phase 2 reads the club only after its update
+            out.update(model.club_bound_outputs(out["z_cause"]))
+            if perm is None:
+                perm = torch.randperm(mask.shape[0], device=mask.device,
+                                      generator=state.generator)
+        elif reg == Regularizer.GAN:
+            out.update(model.gan_outputs(out, deterministic=False))
         total, metrics = vae_and_classifier_loss(
-            cfg, out, batch, iteration, model.heads.decoder)
-        state.optimizer.zero_grad(set_to_none=True)
+            cfg, out, batch, iteration, model.heads.decoder,
+            vi_beta=vi_beta, perm=perm)
+        if reg == Regularizer.GAN:
+            # metrics["loss"] stays the main loss, as in JAX
+            ec, ce = gan_disc_losses(out, cfg.loss,
+                                     torch.ones_like(batch["pair_labels"]),
+                                     batch["pair_labels"], mask)
+            metrics["ec_disc_loss"] = ec
+            metrics["ce_disc_loss"] = ce
+            total = total + ec + ce
         total.backward()
         state.optimizer.step()
+        if reg == Regularizer.GAN:
+            state.disc_optimizer.step()
+        elif reg == Regularizer.VI:
+            state.club_optimizer.zero_grad(set_to_none=True)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 

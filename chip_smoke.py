@@ -33,9 +33,10 @@ an error:
    K7-K9, the library call by CUDA events and by the profiler's device time
    per call, and the host's cost of one launch;
 4. reference: a tiny model takes one training step on the card (kernels) and
-   on the CPU (plain versions) from the same weights and batch, under the
-   flagship's MMD (with the default and the flash attention) and under
-   ec_hsic; loss and updated weights must agree;
+   on the CPU (plain versions) from the same weights, batch and noise, under
+   the flagship's MMD (with the default and the flash attention), ec_hsic,
+   ec_gan and ec_vi_final (with the same batch permutation and vi_beta);
+   loss, gradients and updated weights of every group must agree;
 5. main paths, each at full width (12L/768H encoder, vocab 21,128, ec_dim
    24, BoW vocab 23,808, max_len 96, batch 64) on random weights from a
    seed, on a synthetic target domain (documents of 3-12 clauses with all
@@ -49,6 +50,11 @@ an error:
      temporal_order_modification;
    - ec_hsic (binary emotion, HSIC: K3-K6), two self-training iterations of
      one epoch each with the random strategy;
+   - ec_gan (binary emotion, the discriminators and their RMSprop: K3-K4)
+     and ec_vi_final (the CLUB net, its Adam and the two-phase step: K3-K4),
+     one self-training iteration each with the random strategy; the disc
+     params must move under ec_gan only, the club params under ec_vi_final
+     only, the frozen latent heads on no path;
    - the flagship preset with attention_impl="flash" (K1-K4 and K7-K9),
      train then serve: one base epoch, evaluation and the best checkpoint
      saved; the checkpoint loaded into a fresh model; run_pair_inference
@@ -57,7 +63,11 @@ an error:
      extract_document on synthetic zh strings. K7 must launch once per layer
      on every training step and every evaluation, inference and scoring
      batch, K8 and K9 once per layer on every training step, and no flash
-     kernel on the two paths above.
+     kernel on the four paths above.
+
+Then one line a path compares its step with the flagship's: device ms/step,
+kernels/step, wall ms/step with the device's busy share, peak memory, and
+the K3/K4 launches a step.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` is the sum over the main paths, ``launches_by_path`` splits
@@ -119,28 +129,40 @@ def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
+# windows that device_profile profiled, and those without a device event
+PROFILE_WINDOWS = {"profiled": 0, "empty": 0}
+
+
 def device_profile(fn, iters: int = 30, warmup: int = 5):
     """(device ms, device kernels) of one call of fn: the summed duration
     and the number of the device kernels (and device copies) that
     torch.profiler records over iters calls, divided by iters. Unlike an
     event pair around a Python call the time holds nothing of the host's
-    work between launches."""
+    work between launches. The profiler now and then records no device
+    event at all over a window; such a window is profiled again, up to
+    three windows in all, and counted in PROFILE_WINDOWS, which main
+    prints, so that a rising rate shows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
-    if not spans or sum(spans) == 0:
-        fail("device_profile: the profiler recorded no device time")
-    return sum(spans) / 1e3 / iters, len(spans) / iters
+    for window in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        PROFILE_WINDOWS["profiled"] += 1
+        if spans and sum(spans) > 0:
+            return sum(spans) / 1e3 / iters, len(spans) / iters
+        PROFILE_WINDOWS["empty"] += 1
+        print(f"device_profile: the profiler recorded no device time in "
+              f"window {window} of 3", flush=True)
+    fail("device_profile: the profiler recorded no device time")
 
 
 def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
@@ -942,10 +964,12 @@ def tiny_config(preset: str, attention_impl: str = "xla"):
 
 def phase_reference(preset: str, attention_impl: str = "xla") -> None:
     """A tiny fp32 model takes one training step on the card (kernels) and on
-    the CPU (plain versions) from the same weights, batch and (zero) noise."""
+    the CPU (plain versions) from the same weights, batch, (zero) noise and,
+    under vi, batch permutation and vi_beta."""
+    from carel_tpu_torch.config import Regularizer
     from carel_tpu_torch.data.batching import cut_batch
     from carel_tpu_torch.pipeline import init_state
-    from carel_tpu_torch.train.state import MAIN
+    from carel_tpu_torch.train.state import CLUB, DISC, MAIN
     from carel_tpu_torch.train.steps import batch_to_device, make_train_step
 
     cfg = tiny_config(preset, attention_impl)
@@ -953,38 +977,53 @@ def phase_reference(preset: str, attention_impl: str = "xla") -> None:
     arrays = synth_pair_arrays(np.random.default_rng(3), 16, 32, 256, 3000,
                                min_len=8)
     host = cut_batch(arrays, np.arange(14), 16).as_dict()  # 2 padded rows
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(16))
     step = make_train_step(cfg)
     results = {}
     for dev in ("cpu", "cuda"):
         state = init_state(cfg, dev)
         zeros = torch.zeros(24, device=dev)
         metrics = step(state, batch_to_device(host, torch.device(dev)), 0,
-                       eps=(zeros, zeros))
+                       vi_beta=0.3, eps=(zeros, zeros), perm=perm.to(dev))
+        # the gradients the main loss left (main; disc under gan); the vi
+        # step clears the club's .grad, so its phase-1 gradient is read
+        # from the club Adam's first moment, (1 - beta1) g after one step
+        club = state.club_optimizer.state
+        grads = {n: (club[p]["exp_avg"] / 0.1 if p in club else p.grad).cpu()
+                 for n, p in state.model.named_parameters()
+                 if p.grad is not None or p in club}
         results[dev] = (
             {k: float(v) for k, v in metrics.items()},
             {n: p.detach().cpu() for n, p in state.model.named_parameters()},
-            {n: p.grad.cpu() for n, p in state.model.named_parameters()
-             if state.labels[n] == MAIN})
+            grads)
+    labels = state.labels
     (m_c, p_c, g_c), (m_g, p_g, g_g) = results["cpu"], results["cuda"]
+    if g_c.keys() != g_g.keys() or not any(labels[n] == MAIN for n in g_c) \
+            or (cfg.loss.regularizer == Regularizer.VI) != any(
+                labels[n] == CLUB for n in g_c):
+        fail(f"card and CPU leave gradients on other parameters ({preset})")
     worst_m = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30) for k in m_c)
     worst_g = max(relnorm(g_g[n], g_c[n]) for n in g_c)
-    worst_p = max(float((p_g[n] - p_c[n]).abs().max()) for n in p_c)
+    # each group's params within Adam's sign-flip bound 2 * its lr
+    lrs = {MAIN: cfg.train.vae_lr, DISC: cfg.train.adv_lr,
+           CLUB: cfg.train.aprx_lr}
+    worst_p = max(float((p_g[n] - p_c[n]).abs().max())
+                  / lrs.get(labels[n], cfg.train.vae_lr) for n in p_c)
     # where |g| > 1e-3 max|g| of its tensor Adam's first step cannot flip
-    # sign, so there the card's Adam must match the CPU's tightly
+    # sign, so there the card's step must match the CPU's tightly
     safe = {n: g_c[n].abs() > 1e-3 * g_c[n].abs().max() for n in g_c}
     worst_safe = max(float((p_g[n] - p_c[n])[safe[n]].abs().max())
-                     for n in g_c)
+                     / lrs[labels[n]] for n in g_c)
     print(f"reference step {preset} (tiny fp32, card vs CPU): loss "
           f"{m_g['loss']:.6f} "
           f"vs {m_c['loss']:.6f}; worst metric rel {worst_m:.2e}, grad "
-          f"normwise rel {worst_g:.2e}, param abs {worst_p:.2e} "
-          f"({worst_safe:.2e} where |g| > 1e-3 max|g|)", flush=True)
+          f"normwise rel {worst_g:.2e}, param abs {worst_p:.2e} lr "
+          f"({worst_safe:.2e} lr where |g| > 1e-3 max|g|)", flush=True)
     # fp32 on both sides, sums in another order: metrics to 1e-4, grads to
-    # 1e-3 normwise, params within Adam's sign-flip bound 2 * lr, and to
-    # 1e-3 * lr where the sign is safe
-    lr = cfg.train.vae_lr
-    if not (worst_m <= 1e-4 and worst_g <= 1e-3 and worst_p <= 2 * lr
-            and worst_safe <= 1e-3 * lr):
+    # 1e-3 normwise, params within 2 * lr, and to 1e-3 * lr where the sign
+    # is safe
+    if not (worst_m <= 1e-4 and worst_g <= 1e-3 and worst_p <= 2
+            and worst_safe <= 1e-3):
         fail(f"card and CPU disagree on the {preset} reference step")
 
 
@@ -1066,6 +1105,8 @@ FLAGSHIP = "ec_mmd_final_mul_newsplit_emnlp"
 PATH_KERNELS = {
     FLAGSHIP: ("mmd_fwd", "mmd_bwd", "bow_fwd", "bow_bwd"),
     "ec_hsic": ("hsic_fwd", "hsic_bwd", "bow_fwd", "bow_bwd"),
+    "ec_gan": ("bow_fwd", "bow_bwd"),
+    "ec_vi_final": ("bow_fwd", "bow_bwd"),
 }
 
 
@@ -1095,15 +1136,18 @@ def probabilities(p: np.ndarray, n: int) -> bool:
 
 
 def phase_path(records: dict, preset: str, iterations: int,
-               strategy: str):
+               strategy: str) -> dict:
     """The preset at full width: one base epoch, then ``iterations``
-    self-training iterations of one epoch with ``strategy``. Returns the
-    profiled device ms/step and the run's peak memory in GiB."""
+    self-training iterations of one epoch with ``strategy``. The disc params
+    must move under gan only, the club params under vi only, the frozen
+    latent heads under neither. Returns the step's times (``time_steps``)
+    and the run's peak memory in GiB."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.config import SelfStrategy
     from carel_tpu_torch.pipeline import init_state
     from carel_tpu_torch.selftrain import self_train
     from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.state import CLUB, DISC, FROZEN
     from carel_tpu_torch.train.loop import evaluate, train_epochs
     from carel_tpu_torch.train.steps import make_eval_step, make_train_step
 
@@ -1126,12 +1170,14 @@ def phase_path(records: dict, preset: str, iterations: int,
           f"{n_params} params; {len(test_pairs)} test pairs in "
           f"{len(test_pairs.docs_pair_size)} documents", flush=True)
     train_step, eval_step = make_train_step(cfg), make_eval_step()
+    aux = {n: p.detach().clone() for n, p in state.model.named_parameters()
+           if state.labels[n] in (DISC, CLUB, FROZEN)}
 
     # the run's own record of its steps, evaluations and pseudo sets
     losses, prob_ranges, pseudo_sizes = [], [], []
 
-    def counted_step(state, batch, iteration):
-        metrics = train_step(state, batch, iteration)
+    def counted_step(state, batch, iteration, vi_beta):
+        metrics = train_step(state, batch, iteration, vi_beta)
         losses.append(metrics["loss"])
         return metrics
 
@@ -1218,13 +1264,23 @@ def phase_path(records: dict, preset: str, iterations: int,
             records[name]["launches_by_path"].values())
     if not any(r["event"] == "best" for r in logger.records):
         fail(f"{tag}: no best checkpoint was saved")
+    moved = {DISC: False, CLUB: False, FROZEN: False}
+    for n, p in state.model.named_parameters():
+        if n in aux:
+            moved[state.labels[n]] |= not torch.equal(p.detach(), aux[n])
+    want_moved = {DISC: preset == "ec_gan", CLUB: preset == "ec_vi_final",
+                  FROZEN: False}
+    print(f"{tag}: params moved by group {moved}", flush=True)
+    if moved != want_moved:
+        fail(f"{tag}: the disc, club and frozen params moved as {moved} "
+             f"(want {want_moved})")
     saved = ckpt.load_best(cfg.train.checkpoint_dir, preset,
                            torch.device("cuda"))
     if not (same_state(saved, best_cache["state_dict"])
             and same_state(state.model.state_dict(), saved)):
         fail(f"{tag}: the reloaded best differs from the saved checkpoint")
 
-    device_ms = time_steps(tag, train_step, state, train, B, L)
+    times = time_steps(tag, train_step, state, train, B, L)
 
     # the timed steps moved the params; a train_epochs call of no epochs and
     # no in-memory cache reloads the best from disk
@@ -1236,12 +1292,15 @@ def phase_path(records: dict, preset: str, iterations: int,
         fail(f"{tag}: the reload from disk differs from the checkpoint")
     print(f"{tag}: best checkpoint saved, reloaded from memory and from "
           "disk, equal to the saved state_dict", flush=True)
-    return device_ms, peak_gib
+    return dict(times, peak_gib=peak_gib,
+                bow_per_step=counts["bow_fwd"] / steps)
 
 
-def time_steps(tag: str, train_step, state, train, B: int, L: int) -> float:
+def time_steps(tag: str, train_step, state, train, B: int, L: int) -> dict:
     """Steady-state step time after warm-up (host clock around synchronize),
-    then the profile; returns the device ms/step."""
+    then the profile; returns the wall ms/step (``wall_ms``) and the
+    profile's device ms/step (``device_ms``) and kernels/step
+    (``kernels``)."""
     from carel_tpu_torch.data.batching import cut_batch
     from carel_tpu_torch.train.steps import batch_to_device
 
@@ -1261,7 +1320,8 @@ def time_steps(tag: str, train_step, state, train, B: int, L: int) -> float:
         fail(f"{tag}: timed steps gave a non-finite loss")
     print(f"{tag} step b{B}xs{L}: {ms:.2f} ms/step, "
           f"{B / ms * 1e3:.1f} pairs/s", flush=True)
-    return profile_steps(train_step, state, batches, ms)
+    device_ms, kernels = profile_steps(train_step, state, batches, ms)
+    return {"wall_ms": ms, "device_ms": device_ms, "kernels": kernels}
 
 
 # synthetic zh clauses for the raw-text scorer (document 1: clause 3 holds
@@ -1299,8 +1359,8 @@ def phase_serve(records: dict):
     train_step, eval_step = make_train_step(cfg), make_eval_step()
     losses, forwards = [], []
 
-    def counted_step(state, batch, iteration):
-        metrics = train_step(state, batch, iteration)
+    def counted_step(state, batch, iteration, vi_beta):
+        metrics = train_step(state, batch, iteration, vi_beta)
         losses.append(metrics["loss"])
         return metrics
 
@@ -1395,8 +1455,8 @@ def phase_serve(records: dict):
         records[name].setdefault("launches_by_path", {})["flash"] = n
         records[name]["launches"] = sum(
             records[name]["launches_by_path"].values())
-    device_ms = time_steps(tag, train_step, state, train, B, L)
-    return device_ms, peak_gib
+    return dict(time_steps(tag, train_step, state, train, B, L),
+                peak_gib=peak_gib)
 
 
 def same_state(a: dict, b: dict) -> bool:
@@ -1408,7 +1468,8 @@ def profile_steps(train_step, state, batches, step_ms: float,
                   n: int = 5) -> float:
     """Device time per step by kernel, from torch.profiler over n steps, and
     the device busy share against the unprofiled step time; returns the
-    device ms/step (0.0 when the profiler saw no device time)."""
+    device ms/step and the kernels/step (0.0 and 0 when the profiler saw no
+    device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1426,21 +1487,21 @@ def profile_steps(train_step, state, batches, step_ms: float,
             us, calls = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
     device_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / n
+    kernels = sum(c for _, c in per_kernel.values()) // n
     if device_ms == 0.0:
         print("profile: the profiler recorded no device time (not measured)",
               flush=True)
-        return 0.0
+        return 0.0, 0
     print(f"profile ({n} steps): device kernels {device_ms:.2f} ms/step of "
           f"{step_ms:.2f} ms/step unprofiled, device busy "
-          f"{device_ms / step_ms:.3f}, {sum(c for _, c in per_kernel.values()) // n} "
-          "kernels/step", flush=True)
+          f"{device_ms / step_ms:.3f}, {kernels} kernels/step", flush=True)
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     # the twelve largest, and the flash kernels wherever they rank
     for rank, (name, (us, calls)) in enumerate(top):
         if rank < 12 or "flash_" in name:
             print(f"  {us / 1e3 / n:8.3f} ms/step {calls // n:5d} calls/step  "
                   f"{name[:90]}", flush=True)
-    return device_ms
+    return device_ms, kernels
 
 
 def main() -> int:
@@ -1456,14 +1517,28 @@ def main() -> int:
     for preset in PATH_KERNELS:
         phase_reference(preset)
     phase_reference(FLAGSHIP, "flash")
-    default = phase_path(records, FLAGSHIP, 1, "temporal_order_modification")
-    torch.cuda.empty_cache()
-    phase_path(records, "ec_hsic", 2, "random")
-    torch.cuda.empty_cache()
-    flash = phase_serve(records)
-    print("flagship step b64xs96, flash vs default attention: device "
-          f"{flash[0]:.2f} vs {default[0]:.2f} ms/step, peak memory of the "
-          f"path {flash[1]:.2f} vs {default[1]:.2f} GiB", flush=True)
+    paths = {}
+    for preset, iterations, strategy in (
+            (FLAGSHIP, 1, "temporal_order_modification"),
+            ("ec_hsic", 2, "random"), ("ec_gan", 1, "random"),
+            ("ec_vi_final", 1, "random")):
+        paths[preset] = phase_path(records, preset, iterations, strategy)
+        torch.cuda.empty_cache()
+    paths["flash"] = phase_serve(records)
+    flag = paths[FLAGSHIP]
+    for name, p in paths.items():
+        busy = p["device_ms"] / p["wall_ms"]
+        print(f"step b64xs96, {name}: device {p['device_ms']:.2f} ms/step "
+              f"({p['device_ms'] - flag['device_ms']:+.2f} against the "
+              f"flagship), {p['kernels']} kernels/step "
+              f"({p['kernels'] - flag['kernels']:+d}), wall "
+              f"{p['wall_ms']:.2f} ms/step (device busy {busy:.3f}), peak "
+              f"memory {p['peak_gib']:.2f} GiB"
+              + (f", K3/K4 {p['bow_per_step']:.0f} a step"
+                 if "bow_per_step" in p else ""), flush=True)
+    print(f"device_profile: {PROFILE_WINDOWS['empty']} of "
+          f"{PROFILE_WINDOWS['profiled']} windows recorded no device event",
+          flush=True)
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -88,15 +88,20 @@ def write_newsplit_corpus(root: str, seed: int = 0, n_train: int = 24,
 def write_oldsplit_corpus(root: str, seed: int = 0, n_train: int = 24,
                           n_test: int = 16) -> None:
     """The zh old-split layout that pipeline.resolve_paths expects for the
-    ec_hsic preset (society_num -> education)."""
+    old-split presets: ec_hsic, ec_none, ec_final_mul, ec_mmd_final_mul and
+    ec_vi_final (society_num -> education), ec_gan (society -> education)
+    and ec_mmd_self_chain (society -> entertainment, both sides from
+    THUCTC_multiple with gold emotions)."""
+    train = synth_docs(seed, n_train)
     paths = {
-        "domains/THUCTC_multiple/society_num.txt": synth_docs(seed, n_train),
+        "domains/THUCTC_multiple/society_num.txt": train,
+        "domains/THUCTC_multiple/society.txt": train,
+        "domains/THUCTC_multiple/entertainment.txt":
+            synth_docs(seed + 3, n_test),
         "pair_data/emotion/education.txt":
             synth_docs(seed + 1, n_test, predicted=True),
+        "data/all_data_pair_zh.txt": train + synth_docs(seed + 2, n_train),
     }
-    paths["data/all_data_pair_zh.txt"] = (
-        paths["domains/THUCTC_multiple/society_num.txt"]
-        + synth_docs(seed + 2, n_train))
     for rel, docs in paths.items():
         path = os.path.join(root, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)

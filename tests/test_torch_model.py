@@ -17,12 +17,17 @@ from carel_tpu.models.drl import DrlModel as JDrlModel
 from carel_tpu.models.encoder import TransformerEncoder as JEncoder
 from carel_tpu.models.encoder import tiny_encoder_config as j_tiny
 
+from carel_tpu_torch.config import CarelConfig, DataConfig, LossConfig
 from carel_tpu_torch.config import ModelConfig, Regularizer
 from carel_tpu_torch.convert import jax_params_to_state_dict
 from carel_tpu_torch.models.drl import DrlModel
 from carel_tpu_torch.models.encoder import TransformerEncoder, init_flax_
 from carel_tpu_torch.models.encoder import tiny_encoder_config
+from carel_tpu_torch.data.batching import PairArrays, cut_batch
 from carel_tpu_torch.models.heads import sample_prior
+from carel_tpu_torch.pipeline import init_state
+from carel_tpu_torch.train.loop import evaluate
+from carel_tpu_torch.train.steps import make_eval_step, make_train_step
 
 VOCAB, BOW, EC = 128, 64, 8
 
@@ -158,7 +163,11 @@ def test_drl_model_matches_jax_on_every_key(arch):
                        strict=True)
     with torch.no_grad():
         t_out = tm(torch.tensor(ids), torch.tensor(mask), torch.tensor(types),
-                   deterministic=True, sample=False, aux_outputs=True)
+                   deterministic=True, sample=False)
+        # the aux outputs that the gan and vi train steps add
+        t_out.update(tm.gan_outputs(t_out, deterministic=True))
+        t_out.update(tm.club_approx_outputs(t_out["z_cause"]))
+        t_out.update(tm.club_bound_outputs(t_out["z_cause"]))
     assert set(t_out) == set(j_out)
     for key in j_out:
         np.testing.assert_allclose(t_out[key].numpy(), np.asarray(j_out[key]),
@@ -170,34 +179,78 @@ AUX_KEYS = {"disc": {"ec_disc_logits_sg", "ce_disc_logits_sg",
             "club": {"club_mu_sg", "club_lv_sg", "club_mu", "club_lv"}}
 
 
-@pytest.mark.parametrize("reg,aux_outputs,runs", [
-    ("none", False, ()), ("mmd", False, ()), ("hsic", False, ()),
-    ("gan", False, ("disc",)), ("vi", False, ("club",)),
-    ("mmd", True, ("disc", "club"))])
-def test_aux_networks_run_only_for_the_regularizer_that_reads_them(
-        reg, aux_outputs, runs):
-    """The discriminators run under gan, the CLUB net under vi, both with
-    aux_outputs=True; otherwise neither is called (a forward hook counts the
-    calls) and their keys are absent. In training mode, so that the
-    discriminators' dropout would draw too."""
-    _, tc = _configs("bert")
-    tm = DrlModel(tc, Regularizer(reg))
+def _aux_calls(model):
+    """Forward-hook counters of the discriminators' and the CLUB net's
+    calls."""
     calls = {"disc": 0, "club": 0}
-    for name, mod in (("disc", tm.ec_disc), ("disc", tm.ce_disc),
-                      ("club", tm.club)):
+    for name, mod in (("disc", model.ec_disc), ("disc", model.ce_disc),
+                      ("club", model.club)):
         mod.register_forward_hook(
             lambda *_, name=name: calls.__setitem__(name, calls[name] + 1))
+    return calls
+
+
+def _regularizer_model(reg):
+    """The tiny model as init_state builds it for a run of ``reg``."""
+    _, tc = _configs("bert")
+    cfg = CarelConfig(model=tc, loss=LossConfig(regularizer=Regularizer(reg)),
+                      data=DataConfig(max_len=16))
+    return cfg, init_state(cfg, "cpu")
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("reg", ["none", "mmd", "hsic", "gan", "vi"])
+def test_aux_networks_run_only_for_the_regularizer_that_reads_them(
+        reg, deterministic):
+    """The forward never runs the discriminators or the CLUB net, under any
+    regularizer, in eval or training mode (where their dropout would draw
+    too): the gan and vi train steps add their own aux outputs
+    (test_aux_networks_run_in_the_train_step_only). A forward hook counts
+    the calls, and the aux keys are absent."""
+    _, state = _regularizer_model(reg)
+    tm = state.model
+    calls = _aux_calls(tm)
     ids, mask, types = _inputs(seed=2)
     out = tm(torch.tensor(ids), torch.tensor(mask), torch.tensor(types),
-             deterministic=False, sample=True,
-             generator=torch.Generator().manual_seed(0),
-             aux_outputs=aux_outputs)
-    assert calls == {"disc": 4 if "disc" in runs else 0,
-                     "club": 2 if "club" in runs else 0}
-    for group, keys in AUX_KEYS.items():
-        assert (keys <= set(out)) == (group in runs)
-        assert not (keys & set(out)) or group in runs
+             deterministic=deterministic, sample=True,
+             generator=torch.Generator().manual_seed(0))
+    assert calls == {"disc": 0, "club": 0}
+    assert not set().union(*AUX_KEYS.values()) & set(out)
     assert "pair_logits" in out
+
+
+@pytest.mark.parametrize("reg,step_runs", [
+    ("gan", {"disc": 4, "club": 0}), ("vi", {"disc": 0, "club": 2})])
+def test_aux_networks_run_in_the_train_step_only(reg, step_runs):
+    """Under gan and vi, evaluate and pair_probabilities call neither the
+    discriminators nor the CLUB net; the train step calls its own: the
+    discriminators twice each (detached and live latents), the CLUB net
+    twice (phase 1 on the detached latent, phase 2 on the live one)."""
+    cfg, state = _regularizer_model(reg)
+    model = state.model
+    calls = _aux_calls(model)
+    ids, mask, types = _inputs(seed=2)
+    rng = np.random.default_rng(0)
+    n = 6
+    arrays = PairArrays(
+        input_ids=np.resize(ids, (n, ids.shape[1])),
+        attention_mask=np.resize(mask, (n, mask.shape[1])),
+        token_type_ids=np.resize(types, (n, types.shape[1])),
+        pair_labels=(np.arange(n) % 2).astype(np.float32),
+        emotion_labels=rng.integers(0, 6, n).astype(np.int32),
+        temporal_order=np.zeros(n, bool),
+        bow_indices=rng.integers(0, BOW, (n, 4)).astype(np.int32),
+        bow_weights=np.full((n, 4), 0.25, np.float32))
+    gen = torch.Generator().manual_seed(0)
+    res = evaluate(make_eval_step(), model, arrays, 0, gen, batch_size=4)
+    assert res.probs.shape == (n,)
+    model.pair_probabilities(torch.tensor(ids), torch.tensor(mask),
+                             torch.tensor(types), generator=gen)
+    assert calls == {"disc": 0, "club": 0}
+    batch = {k: torch.from_numpy(v) for k, v in
+             cut_batch(arrays, np.arange(4), 4).as_dict().items()}
+    make_train_step(cfg)(state, batch, 0)
+    assert calls == step_runs
 
 
 @pytest.mark.parametrize("compat", [True, False])
