@@ -10,7 +10,12 @@
 
 ``train`` runs the base epochs with per-epoch evaluation and best
 checkpointing, then ``--self_iteration`` self-training iterations (the
-presets' default is 50; 0 skips them). ``infer`` loads the best checkpoint
+presets' default is 50; 0 skips them). Each epoch trains through one
+captured CUDA-graph step replayed over the stacked epoch (the counterpart
+of the JAX package's whole-epoch scan) unless ``--no_scan_epoch`` or
+``--debug_nans`` asks for the per-step loop; ``--save_state_every`` and
+``--resume`` save and restore the full train state, ``--profile_dir``
+traces the base training. ``infer`` loads the best checkpoint
 of ``--model_id`` (random weights without it), scores every pair of the test
 file in fixed-size batches and, with ``--output_dir``, writes the true/pred
 pickles. Both run on the GPU unless ``--device cpu`` is given, and raise
@@ -85,6 +90,17 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
         tkw["round_up"] = False
     elif args.round_up:
         tkw["round_up"] = True
+    # the train verb's flags; infer has none of them
+    if getattr(args, "save_state_every", 0):
+        tkw["save_state_every"] = args.save_state_every
+    if getattr(args, "profile_dir", ""):
+        tkw["profile_dir"] = args.profile_dir
+    if getattr(args, "debug_nans", False):
+        tkw["debug_nans"] = True
+    if getattr(args, "scan_epoch", False):
+        tkw["scan_epoch"] = True
+    if getattr(args, "no_scan_epoch", False):
+        tkw["scan_epoch"] = False
     train = dataclasses.replace(train, **tkw)
     return dataclasses.replace(cfg, data=data, loss=loss, train=train)
 
@@ -176,28 +192,63 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max_test_docs", type=int, default=0)
 
 
+def _add_train_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--scan_epoch", action="store_true",
+                   help="train each epoch through one captured CUDA-graph "
+                        "step replayed over the stacked epoch (the default)")
+    p.add_argument("--no_scan_epoch", action="store_true",
+                   help="per-step training loop (step-level debugging)")
+    p.add_argument("--save_state_every", type=int, default=0,
+                   help="full resumable-state snapshot cadence (epochs)")
+    p.add_argument("--resume", default="",
+                   help="model_id whose state snapshot to resume from")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the base training "
+                        "here")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="torch.autograd.set_detect_anomaly (the reference's "
+                        "anomaly detection); it reads values back to the "
+                        "host and cannot be captured, so the per-step loop "
+                        "runs")
+
+
 def cmd_train(args) -> int:
     from carel_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = _apply_overrides(PRESETS[args.preset], args)
 
+    import torch
+
+    with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
+        return _train(args, cfg, device)
+
+
+def _train(args, cfg: CarelConfig, device) -> int:
     from carel_tpu_torch.pipeline import build_pipeline, init_state
     from carel_tpu_torch.selftrain import self_train
+    from carel_tpu_torch.train import checkpoint as ckpt
     from carel_tpu_torch.train.logging import JsonlLogger
     from carel_tpu_torch.train.loop import train_epochs
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step
+    from carel_tpu_torch.train.state import set_lr
     from carel_tpu_torch.train.steps import make_eval_step, make_train_step
+    from carel_tpu_torch.utils.profiling import trace
 
     enc = _encoder_preset(args.encoder, cfg.data.language)
-    train_step = make_train_step(cfg)
     pipe = build_pipeline(cfg, cache_dir=args.cache_dir, encoder_cfg=enc,
                           max_train_docs=args.max_train_docs,
                           max_test_docs=args.max_test_docs)
     cfg = pipe.cfg
+    # anomaly mode reads values back to the host, which a captured step
+    # cannot do: under --debug_nans the per-step loop runs
+    epoch_step = cfg.train.scan_epoch and not cfg.train.debug_nans
+    train_step = make_epoch_step(cfg) if epoch_step else make_train_step(cfg)
     logger = JsonlLogger(cfg.train.log_dir,
                          f"{args.preset}_{pipe.model_id[:8]}")
     logger.log({"event": "config", "preset": args.preset,
                 "model_id": pipe.model_id, "device": str(device),
+                "epoch_step": epoch_step,
                 "train_pairs": len(pipe.train_arrays),
                 "test_pairs": len(pipe.test_arrays),
                 "num_unpred": pipe.num_unpred_pairs,
@@ -205,12 +256,17 @@ def cmd_train(args) -> int:
                 "vocab": cfg.model.encoder.vocab_size})
 
     state = init_state(cfg, device)
+    if args.resume:
+        state = ckpt.load_state(cfg.train.checkpoint_dir, args.resume, state)
+        logger.log({"event": "resumed", "from": args.resume,
+                    "step": state.step})
     eval_step = make_eval_step()
     best_cache: dict = {}
-    state, best = train_epochs(
-        cfg, state, train_step, eval_step, pipe.train_arrays,
-        pipe.test_arrays, pipe.num_unpred_pairs, pipe.model_id,
-        logger=logger, best_cache=best_cache)
+    with trace(cfg.train.profile_dir):
+        state, best = train_epochs(
+            cfg, state, train_step, eval_step, pipe.train_arrays,
+            pipe.test_arrays, pipe.num_unpred_pairs, pipe.model_id,
+            logger=logger, best_cache=best_cache)
     logger.log({"event": "base_done", "p": best[0], "r": best[1],
                 "f1": best[2]})
 
@@ -221,9 +277,13 @@ def cmd_train(args) -> int:
             # depend on lr); the disc and club optimizers keep adv_lr and
             # aprx_lr, as JAX's self_cfg replaces only vae_lr. The JAX CLI
             # rebuilds only the step, so there the new lr never reaches its
-            # optimizer; the port applies it, as JAX's comment says it does
-            for group in state.optimizer.param_groups:
-                group["lr"] = cfg.train.self_lr
+            # optimizer; the port applies it, as JAX's comment says it does.
+            # set_lr writes the lr in place, so the captured step replays
+            # with it
+            set_lr(state.optimizer, cfg.train.self_lr)
+        # the same step serves every fine-tune: its capture holds for a
+        # pseudo set of any size (the JAX CLI's switch to the per-step loop
+        # when the size varies spares a compile per size; the port has none)
         state, sbest = self_train(
             cfg, state, train_step, eval_step, pipe.test_pairs,
             pipe.test_arrays, pipe.num_unpred_pairs, pipe.encode,
@@ -297,6 +357,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     p_train = sub.add_parser("train", help="stage-2 DRL pair classifier")
     _add_common_args(p_train)
+    _add_train_args(p_train)
     p_train.set_defaults(fn=cmd_train)
     p_inf = sub.add_parser("infer", help="batched pair inference")
     _add_common_args(p_inf)

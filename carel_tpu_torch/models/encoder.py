@@ -185,8 +185,11 @@ class TransformerEncoder(nn.Module):
         dtype = torch.bfloat16 if bf16 else torch.float32
         B, L = input_ids.shape
         input_ids = input_ids.long()
+        # no cast cache: each weight is cast once a forward anyway, and a
+        # cached cast would outlive a CUDA-graph capture of the step
         with torch.autocast(device_type=input_ids.device.type,
-                            dtype=torch.bfloat16, enabled=bf16):
+                            dtype=torch.bfloat16, enabled=bf16,
+                            cache_enabled=False):
             if cfg.arch == "roberta":
                 # HF RoBERTa position ids: pads get pad_token_id; real tokens
                 # count from pad_token_id + 1

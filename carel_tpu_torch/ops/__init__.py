@@ -26,3 +26,13 @@ def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for name in counts:
             counts[name] = 0
+
+
+def add_launches(launched: dict, times: int = 1) -> None:
+    """Count ``times`` more of each launch in ``launched`` ({name: n}). A
+    replay of a captured CUDA graph launches every kernel captured in it
+    without running the wrappers; train/scan_epoch.py counts its replays
+    here."""
+    for counts in _COUNTS:
+        for name in counts:
+            counts[name] += launched.get(name, 0) * times

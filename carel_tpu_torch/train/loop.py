@@ -1,10 +1,13 @@
-"""Training and evaluation loops, port of carel_tpu/train/loop.py (the
-per-step path; the JAX whole-epoch scan has no counterpart yet).
+"""Training and evaluation loops, port of carel_tpu/train/loop.py.
 
 Host-side orchestration around the steps: epoch/batch iteration with fixed
-shapes, per-epoch eval with forced-miss padding, best-F1 checkpointing and
-the unconditional reload of the best at the end (train(), flagship
-:802-922).
+shapes, per-epoch eval with forced-miss padding, best-F1 checkpointing,
+full-state snapshots every ``save_state_every`` epochs and the unconditional
+reload of the best at the end (train(), flagship :802-922). ``train_epochs``
+takes either kind of step, as the JAX loop does: the whole-epoch step of
+train/scan_epoch.py (the default, a captured CUDA-graph step replayed over
+the stacked epoch on the card) or the per-step one of train/steps.py, fed
+by data/prefetch.py.
 
 Parity note on KL annealing: the reference's annealing counter is the
 *within-epoch* batch index (`enumerate(train_loader)`, flagship :822), so
@@ -24,9 +27,11 @@ import torch
 
 from carel_tpu_torch.config import CarelConfig
 from carel_tpu_torch.data.batching import PairArrays, cut_batch, iter_batches
+from carel_tpu_torch.data.prefetch import prefetch_to_device
 from carel_tpu_torch.train import checkpoint as ckpt
 from carel_tpu_torch.train.logging import JsonlLogger
 from carel_tpu_torch.train.metrics import prf_with_forced_misses
+from carel_tpu_torch.train.scan_epoch import stack_epoch
 from carel_tpu_torch.train.state import TrainState
 from carel_tpu_torch.train.steps import batch_to_device
 
@@ -86,7 +91,11 @@ def train_epochs(
 ) -> Tuple[TrainState, Tuple[float, float, float]]:
     """Epoch loop with per-epoch eval and best-F1 checkpointing. Every step
     of epoch ``epoch`` gets vi_beta = min((epoch - 1) * vi_beta_step, 1)
-    (vi_final :772-777), which only the vi step reads.
+    (vi_final :772-777), which only the vi step reads. ``train_step`` is an
+    epoch step (``is_epoch_step``: the losses of one epoch fetched once,
+    one train record an epoch) or a per-step one (prefetched batches, a
+    train record every 10 steps). With ``save_state_every`` the full state
+    is saved every that many epochs.
 
     Returns the state with the BEST params reloaded (the reference reloads
     the best checkpoint after training, flagship :916-917).
@@ -109,20 +118,29 @@ def train_epochs(
 
     for epoch in range(1, epochs + 1):
         t_epoch = time.time()
-        pending = []  # device scalars; fetched every 10 steps
         vi_beta = min((epoch - 1) * cfg.loss.vi_beta_step, 1.0)
-        for it, host_batch in enumerate(iter_batches(
-                train_arrays, cfg.train.batch_size, shuffle=True,
-                rng=data_rng)):
-            batch = batch_to_device(host_batch.as_dict(), device)
-            metrics = train_step(state, batch, it, vi_beta)
-            pending.append(metrics["loss"])
-            examples_seen += int(host_batch.example_mask.sum())
-            if it % 10 == 9:
-                running = float(torch.stack(pending).sum())
-                logger.log({"event": "train", "epoch": epoch, "it": it + 1,
-                            "loss": running / len(pending)})
-                pending = []
+        if getattr(train_step, "is_epoch_step", False):
+            stacked = stack_epoch(train_arrays, cfg.train.batch_size,
+                                  rng=data_rng)
+            losses = train_step(state, stacked, vi_beta).cpu().numpy()
+            logger.log({"event": "train", "epoch": epoch,
+                        "it": len(losses), "loss": float(losses.mean())})
+        else:
+            pending = []  # device scalars; fetched every 10 steps
+            batches = prefetch_to_device(
+                iter_batches(train_arrays, cfg.train.batch_size,
+                             shuffle=True, rng=data_rng),
+                size=2, transform=lambda b: b.as_dict(), device=device)
+            for it, batch in enumerate(batches):
+                metrics = train_step(state, batch, it, vi_beta)
+                pending.append(metrics["loss"])
+                if it % 10 == 9:
+                    running = float(torch.stack(pending).sum())
+                    logger.log({"event": "train", "epoch": epoch,
+                                "it": it + 1,
+                                "loss": running / len(pending)})
+                    pending = []
+        examples_seen += len(train_arrays)
 
         res = evaluate(eval_step, model, test_arrays, num_unpred_pairs,
                        eval_gen, cfg.train.eval_batch_size)
@@ -144,6 +162,12 @@ def train_epochs(
                     k: v.detach().clone() for k, v in
                     model.state_dict().items()}
             logger.log({"event": "best", "epoch": epoch, "f1": res.f1})
+
+        if (cfg.train.save_state_every
+                and epoch % cfg.train.save_state_every == 0):
+            ckpt.save_state(cfg.train.checkpoint_dir, model_id, state)
+            logger.log({"event": "state_snapshot", "epoch": epoch,
+                        "step": state.step})
 
     # The reference reloads the best checkpoint UNCONDITIONALLY at the end of
     # every train() call (flagship :916-917), also when this call saved

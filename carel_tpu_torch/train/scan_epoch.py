@@ -1,0 +1,288 @@
+"""Whole-epoch training, the counterpart of carel_tpu/train/scan_epoch.py.
+
+The JAX package stacks an epoch's batches into device-resident
+``[nb, B, ...]`` arrays and ``lax.scan``s its train step over them: one
+dispatch per epoch. Here the epoch goes to the card in one host-to-device
+copy, and one train step (``train/steps.py: make_step_body``), captured once
+in a CUDA graph, is replayed once per batch: a replay launches the ~1,500
+kernels of a step without the host's cost per kernel.
+
+Semantics are those of the per-step loop: the same body runs per batch;
+``iteration`` is the within-epoch batch index, whose KL-annealing weight the
+host computes in double and packs beside the batch; the tail batch stays
+masked; the noise, the dropout masks and the vi permutation come from the
+same generators in the same order. On the CPU the epoch step runs the body
+eagerly over the batches.
+
+Capture (CUDA), at first use and again whenever the state no longer matches
+the capture (``capture_key``): the step is warmed up on a side stream, which
+creates the optimizers' state, then captured on static input buffers, with
+the sampling generator registered with the graph (the default generator,
+which dropout draws from, always is). Warm-up and capture must not change
+the run, so the params, every optimizer state tensor, the step count and both
+generators are copied first and restored in place after the capture; the
+captured epoch then consumes the state and the random streams the eager
+epoch would. Per batch the host copies the batch's row of the epoch into the
+static buffers, replays and copies the loss out: three operations a step.
+There is no fallback: if the capture fails on the card, it raises.
+
+The batch shape is fixed by ``cut_batch``, so one capture serves the base
+epochs and every self-training fine-tune: a pseudo set of another size is
+only another number of replays. (The JAX CLI falls back to its per-step
+loop when the pseudo-set size varies, to spare a compile per size; the port
+has no such cost.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from carel_tpu_torch import ops
+from carel_tpu_torch.config import CarelConfig
+from carel_tpu_torch.data.batching import PairArrays, cut_batch
+from carel_tpu_torch.losses.vae import annealed_kl_weight
+from carel_tpu_torch.train.state import TrainState, dropout_generator
+from carel_tpu_torch.train.steps import make_step_body
+
+# byte alignment of each array in a packed batch row
+_ALIGN = 256
+# eager steps before a capture: the first creates the optimizers' state,
+# the second runs the step as every later one will
+WARMUP_STEPS = 2
+
+
+def stack_epoch(
+    arrays: PairArrays,
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+) -> Dict[str, np.ndarray]:
+    """Shuffle and stack the dataset into [nb, B, ...] numpy arrays (the
+    shuffle of ``iter_batches`` for the same ``rng``)."""
+    n = len(arrays)
+    order = np.arange(n)
+    if rng is not None:
+        rng.shuffle(order)
+    nb = -(-n // batch_size)
+    batches = [cut_batch(arrays, order[i * batch_size:(i + 1) * batch_size],
+                         batch_size).as_dict() for i in range(nb)]
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowLayout:
+    """Where each array of one batch lies in a packed row of bytes:
+    (key, byte offset, dtype, shape) per array, and the row's length."""
+
+    fields: tuple
+    nbytes: int
+
+
+def pack_epoch(stacked: Dict[str, np.ndarray], kl_weights: Sequence[float],
+               vi_beta: float, pin: bool = False):
+    """(layout, rows): batch i of ``stacked``, its KL weight and ``vi_beta``
+    (both rounded to float32) packed into row i of a uint8 tensor [nb,
+    nbytes], in pinned memory when ``pin``, so that the epoch goes to the
+    card in one copy and a batch into the captured step's buffers in
+    another."""
+    arrays = dict(stacked)
+    nb = len(kl_weights)
+    arrays["kl_weight"] = np.asarray(kl_weights, np.float32)
+    arrays["vi_beta"] = np.full(nb, vi_beta, np.float32)
+    fields, offset = [], 0
+    for key, a in arrays.items():
+        if a.shape[0] != nb:
+            raise ValueError(f"{key}: {a.shape[0]} batches, expected {nb}")
+        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        fields.append((key, offset, dtype, tuple(a.shape[1:])))
+        offset += -(-a[0].nbytes // _ALIGN) * _ALIGN
+    rows = torch.zeros((nb, offset), dtype=torch.uint8, pin_memory=pin)
+    host = rows.numpy()
+    for key, start, _, _ in fields:
+        flat = np.ascontiguousarray(arrays[key]).reshape(nb, -1)
+        flat = flat.view(np.uint8)
+        host[:, start:start + flat.shape[1]] = flat
+    return RowLayout(tuple(fields), offset), rows
+
+
+def unpack_row(row: torch.Tensor, layout: RowLayout):
+    """(batch, kl_weight, vi_beta): views of one packed row, the weights as
+    0-d float32 tensors."""
+    views = {}
+    for key, start, dtype, shape in layout.fields:
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        views[key] = row[start:start + n].view(dtype).view(shape)
+    return views, views.pop("kl_weight"), views.pop("vi_beta")
+
+
+def _addr(value):
+    return ("tensor", value.data_ptr()) if isinstance(value, torch.Tensor) \
+        else value
+
+
+def _optimizers(state: TrainState):
+    return (state.optimizer, state.disc_optimizer, state.club_optimizer)
+
+
+def capture_key(state: TrainState, layout: RowLayout) -> tuple:
+    """What a captured step holds fixed: the batch layout, the sampling
+    generator, the params' addresses and requires_grad, every optimizer's
+    hyper-parameters (a tensor lr by its address, since a replay reads its
+    value) and the addresses of its state tensors. A capture whose key no
+    longer matches the state is stale. ``model.load_state_dict`` copies in
+    place and keeps the key; ``checkpoint.load_state`` replaces the
+    optimizers' state tensors and changes it."""
+    key = [layout, id(state.generator)]
+    key += [(p.data_ptr(), p.requires_grad)
+            for p in state.model.parameters()]
+    for opt in _optimizers(state):
+        for group in opt.param_groups:
+            key.append(tuple((k, _addr(v)) for k, v in sorted(group.items())
+                             if k != "params"))
+            key += [tuple((k, _addr(v)) for k, v in
+                          sorted(opt.state.get(p, {}).items()))
+                    for p in group["params"]]
+    return tuple(key)
+
+
+class _Snapshot:
+    """Copies of what a warm-up and a capture change: the params, every
+    optimizer state tensor, the step count and the sampling and dropout
+    generators' states. ``restore`` writes them back in place and zeroes
+    the state tensors created since, which is the state a first optimizer
+    step creates (Adam's step and moments, RMSprop's nu)."""
+
+    def __init__(self, state: TrainState):
+        device = next(state.model.parameters()).device
+        self.params = [(p, p.detach().clone())
+                       for p in state.model.parameters()]
+        self.opt = {id(t): (t, t.clone()) for t in self._tensors(state)}
+        self.step = state.step
+        self.gens = [(g, g.get_state()) for g in
+                     (state.generator, dropout_generator(device))]
+
+    @staticmethod
+    def _tensors(state: TrainState):
+        for opt in _optimizers(state):
+            for entry in opt.state.values():
+                for value in entry.values():
+                    if isinstance(value, torch.Tensor):
+                        yield value
+
+    @torch.no_grad()
+    def restore(self, state: TrainState) -> None:
+        for p, saved in self.params:
+            p.copy_(saved)
+        for t in self._tensors(state):
+            if id(t) in self.opt:
+                t.copy_(self.opt[id(t)][1])
+            else:
+                t.zero_()
+        state.step = self.step
+        for gen, saved in self.gens:
+            gen.set_state(saved)
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+class EpochStep:
+    """``step(state, stacked, vi_beta) -> losses[nb]``: one epoch of train
+    steps over ``stacked`` (``stack_epoch``'s arrays), the main loss of each
+    batch as a device tensor (not synchronized). ``eps`` and ``perm`` fix
+    the noise and the vi permutation of every batch, on the CPU only.
+
+    Counters: ``captures`` made, ``replays`` run, and the kernel launches
+    of the captured step (``captured_launches``) and of the last capture's
+    warm-up (``warmup_launches``), {name: n}. The wrappers count a captured
+    launch once, at capture; the launch counts of ``ops`` leave out the
+    warm-up and the capture and add the captured launches once a replay."""
+
+    is_epoch_step = True
+
+    def __init__(self, cfg: CarelConfig):
+        self.cfg = cfg
+        self.body = make_step_body(cfg)
+        self.captures = 0
+        self.replays = 0
+        self.captured_launches: dict = {}
+        self.warmup_launches: dict = {}
+        self._graph = None
+        self._key = None
+        self._row = None
+        self._loss = None
+
+    def __call__(self, state: TrainState, stacked: Dict[str, np.ndarray],
+                 vi_beta: float,
+                 eps: Optional[Sequence[torch.Tensor]] = None,
+                 perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        lc = self.cfg.loss
+        nb = stacked["input_ids"].shape[0]
+        weights = [annealed_kl_weight(i, lc.kl_ann_iterations,
+                                      lc.ec_kl_lambda) for i in range(nb)]
+        device = next(state.model.parameters()).device
+        cuda = device.type == "cuda"
+        layout, rows = pack_epoch(stacked, weights, vi_beta, pin=cuda)
+        if not cuda:
+            return torch.stack([
+                self.body(state, *unpack_row(rows[i], layout), eps,
+                          perm)["loss"] for i in range(nb)])
+        if eps is not None or perm is not None:
+            raise ValueError("the captured epoch step draws its noise and "
+                             "permutation from the generators; eps and perm "
+                             "fix them on the CPU only")
+        rows = rows.to(device, non_blocking=True)
+        if self._key != capture_key(state, layout):
+            self._capture(state, layout, rows[0])
+        losses = torch.empty(nb, dtype=torch.float32, device=device)
+        for i in range(nb):
+            self._row.copy_(rows[i])
+            self._graph.replay()
+            losses[i].copy_(self._loss)
+        state.step += nb
+        self.replays += nb
+        ops.add_launches(self.captured_launches, nb)
+        return losses
+
+    def _capture(self, state: TrainState, layout: RowLayout,
+                 first_row: torch.Tensor) -> None:
+        # drop the last capture and the gradients it left in its pool
+        self._graph = self._row = self._loss = self._key = None
+        state.model.zero_grad(set_to_none=True)
+        device = first_row.device
+        snapshot = _Snapshot(state)
+        counts = ops.launch_counts()
+        row = first_row.clone()
+        batch, kl_weight, vi_beta = unpack_row(row, layout)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self.body(state, batch, kl_weight, vi_beta)
+            torch.cuda.current_stream(device).wait_stream(side)
+            warm = ops.launch_counts()
+            graph.register_generator_state(state.generator)
+            with torch.cuda.graph(graph, stream=side):
+                metrics = self.body(state, batch, kl_weight, vi_beta)
+            captured = ops.launch_counts()
+        finally:
+            snapshot.restore(state)
+            ops.reset_launch_counts()
+            ops.add_launches(counts)
+        self.warmup_launches = _diff(warm, counts)
+        self.captured_launches = _diff(captured, warm)
+        self._graph, self._row, self._loss = graph, row, metrics["loss"]
+        self._key = capture_key(state, layout)
+        self.captures += 1
+
+
+def make_epoch_step(cfg: CarelConfig) -> Callable:
+    """The whole-epoch train step for this config (see ``EpochStep``)."""
+    return EpochStep(cfg)

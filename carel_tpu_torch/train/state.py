@@ -16,6 +16,13 @@ Each updated group has its own optimizer, as in the reference (SURVEY.md
 The gan step updates main and disc, the vi step club then main; the none,
 mmd and hsic steps update main only, as in JAX.
 
+On CUDA the two Adams are built fused and with ``capturable=True`` and hold
+their lr as a 0-d device tensor, so that a step captured in a CUDA graph
+(train/scan_epoch.py) reads the lr that ``set_lr`` writes in place; on the
+CPU, where capturable Adam does not run, they take a float lr. The eager
+step uses the same optimizers, so eager and captured steps run the same
+update.
+
 Parity quirk: the reference's main optimizer NEVER includes the four latent
 projection layers (emotion/cause mu/log_var are absent from get_params,
 flagship :284-297), so they stay at their random init for the whole run.
@@ -59,7 +66,9 @@ class DiscRMSprop(torch.optim.Optimizer):
     """optax.rmsprop(lr, decay, eps) with its defaults (eps_in_sqrt=True,
     initial scale 0, no momentum, not centered):
     nu = decay * nu + (1 - decay) * g^2;  p -= lr * g / sqrt(nu + eps).
-    The state of a parameter is ``nu``."""
+    The state of a parameter is ``nu``. The update is ``torch._foreach_*``
+    on device tensors with no value read back, so it captures in a CUDA
+    graph as it is (its float lr is then a constant of the graph)."""
 
     def __init__(self, params, lr: float, decay: float = 0.99,
                  eps: float = 1e-8):
@@ -88,6 +97,27 @@ class DiscRMSprop(torch.optim.Optimizer):
             torch._foreach_add_(params, scale, alpha=-group["lr"])
 
 
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set the lr of every group: a 0-d tensor lr is written in place, so a
+    captured step replays with the new value; a float lr is replaced (the
+    epoch step then sees a changed hyper-parameter and captures again)."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def dropout_generator(device: torch.device) -> torch.Generator:
+    """The generator dropout draws from on ``device``: the default one."""
+    if device.type == "cuda":
+        index = device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        return torch.cuda.default_generators[index]
+    return torch.default_generator
+
+
 @dataclass
 class TrainState:
     """The model, its three optimizers (main Adam, disc RMSprop, club
@@ -114,12 +144,24 @@ def create_train_state(cfg: CarelConfig, model: nn.Module,
         else:
             groups[labels[name]].append(p)
     tc = cfg.train
+    device = next(model.parameters()).device
+    cuda = device.type == "cuda"
+
+    def adam(params, lr: float) -> torch.optim.Adam:
+        if cuda:
+            # fused: the whole update in a few multi-tensor launches; the
+            # capturable foreach update forms its bias corrections with a
+            # launch per parameter (+340 launches a step at full width)
+            return torch.optim.Adam(
+                params, lr=torch.tensor(lr, dtype=torch.float32,
+                                        device=device),
+                betas=(0.9, 0.999), eps=1e-8, capturable=True, fused=True)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
     return TrainState(
         model=model,
-        optimizer=torch.optim.Adam(groups[MAIN], lr=tc.vae_lr,
-                                   betas=(0.9, 0.999), eps=1e-8),
+        optimizer=adam(groups[MAIN], tc.vae_lr),
         disc_optimizer=DiscRMSprop(groups[DISC], lr=tc.adv_lr, decay=0.99,
                                    eps=1e-8),
-        club_optimizer=torch.optim.Adam(groups[CLUB], lr=tc.aprx_lr,
-                                        betas=(0.9, 0.999), eps=1e-8),
+        club_optimizer=adam(groups[CLUB], tc.aprx_lr),
         generator=generator, labels=labels)

@@ -15,6 +15,12 @@ One train step per regularizer, as in JAX:
   forward twice with one rng, hence the same noise and params; one forward
   feeding both phases computes the same function.
 
+One body serves the eager step (``make_train_step``) and the step that
+train/scan_epoch.py captures in a CUDA graph: it takes the KL-annealing
+weight and vi_beta as 0-d device tensors, draws its noise and the vi
+permutation from ``state.generator`` and reads no value back to the host.
+The eager step computes the weight on the host in double and hands both in.
+
 The BoW reconstruction term is always the fused loss (kernels K3/K4 on
 CUDA, the plain version on the CPU), so the model never computes the
 [B, V] decoder logits in training; the MMD term goes through kernels K1/K2
@@ -56,14 +62,16 @@ def vae_and_classifier_loss(
     cfg: CarelConfig,
     out: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],
-    iteration: int,
+    kl_weight,
     decoder: torch.nn.Linear,
-    vi_beta: Optional[float] = None,
+    vi_beta=None,
     perm: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The weighted multi-task loss (flagship :208-261); the reconstruction
     term is the fused BoW loss from the generative embedding and the
-    decoder's weights. ``vi_beta`` and ``perm`` feed the vi term."""
+    decoder's weights. ``kl_weight`` is the annealing weight of this batch
+    (``annealed_kl_weight`` of its within-epoch index), a float or a 0-d
+    tensor; ``vi_beta`` (likewise) and ``perm`` feed the vi term."""
     lc = cfg.loss
     mask = batch["example_mask"]
     pair_labels = batch["pair_labels"]
@@ -80,9 +88,9 @@ def vae_and_classifier_loss(
     pair = pair_bce_pos_weighted(out["pair_logits"], pair_labels,
                                  lc.label_smoothing, mask)
 
-    ann = annealed_kl_weight(iteration, lc.kl_ann_iterations, lc.ec_kl_lambda)
-    kl_e = ann * kl_loss(out["emotion_mu"], out["emotion_log_var"], mask)
-    kl_c = ann * kl_loss(out["cause_mu"], out["cause_log_var"], mask)
+    kl_e = kl_weight * kl_loss(out["emotion_mu"], out["emotion_log_var"],
+                               mask)
+    kl_c = kl_weight * kl_loss(out["cause_mu"], out["cause_log_var"], mask)
 
     recon = fused_bow_loss(out["generative_emb"], decoder.weight,
                            decoder.bias, batch["bow_indices"],
@@ -112,20 +120,22 @@ def vae_and_classifier_loss(
     return total, metrics
 
 
-def make_train_step(cfg: CarelConfig) -> Callable:
-    """The train step for this config's regularizer:
-    ``step(state, batch, iteration, vi_beta=0.0, eps=None, perm=None) ->
-    metrics`` (0-d tensors, not synchronized). ``eps`` = (eps_emotion,
-    eps_cause) fixes the sampling noise; otherwise it comes from
-    ``state.generator``. ``vi_beta`` weighs the vi upper bound and ``perm``
-    (a permutation of the B rows) fixes its negatives, otherwise drawn from
-    ``state.generator``; the other regularizers ignore both. Every
-    parameter's ``.grad`` is cleared first, and the club's is cleared after
-    the vi step, so no group carries a stale gradient to the next step."""
+def make_step_body(cfg: CarelConfig) -> Callable:
+    """The train step body for this config's regularizer:
+    ``body(state, batch, kl_weight, vi_beta, eps=None, perm=None) ->
+    metrics`` (0-d tensors, not synchronized). ``kl_weight`` and ``vi_beta``
+    are 0-d float32 tensors on the batch's device; ``vi_beta`` weighs the vi
+    upper bound, which the other regularizers ignore. ``eps`` =
+    (eps_emotion, eps_cause) fixes the sampling noise and ``perm`` (a
+    permutation of the B rows) the vi negatives; otherwise both come from
+    ``state.generator``. Every parameter's ``.grad`` is cleared first, and
+    the club's is cleared after the vi step, so no group carries a stale
+    gradient to the next step. Nothing here reads a value back to the host,
+    so the body captures in a CUDA graph."""
     reg = cfg.loss.regularizer
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             iteration: int, vi_beta: float = 0.0,
+    def body(state: TrainState, batch: Dict[str, torch.Tensor],
+             kl_weight: torch.Tensor, vi_beta: torch.Tensor,
              eps: Optional[Sequence[torch.Tensor]] = None,
              perm: Optional[torch.Tensor] = None) -> Dict:
         model = state.model
@@ -149,7 +159,7 @@ def make_train_step(cfg: CarelConfig) -> Callable:
         elif reg == Regularizer.GAN:
             out.update(model.gan_outputs(out, deterministic=False))
         total, metrics = vae_and_classifier_loss(
-            cfg, out, batch, iteration, model.heads.decoder,
+            cfg, out, batch, kl_weight, model.heads.decoder,
             vi_beta=vi_beta, perm=perm)
         if reg == Regularizer.GAN:
             # metrics["loss"] stays the main loss, as in JAX
@@ -167,6 +177,34 @@ def make_train_step(cfg: CarelConfig) -> Callable:
             state.club_optimizer.zero_grad(set_to_none=True)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    return body
+
+
+def scalar(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` rounded to float32, as a 0-d tensor on ``device`` (a fill,
+    no host-to-device copy)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def make_train_step(cfg: CarelConfig) -> Callable:
+    """The eager train step:
+    ``step(state, batch, iteration, vi_beta=0.0, eps=None, perm=None) ->
+    metrics``. ``iteration`` is the within-epoch batch index, whose
+    annealing weight is computed here in double; see ``make_step_body`` for
+    the rest."""
+    body = make_step_body(cfg)
+    lc = cfg.loss
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             iteration: int, vi_beta: float = 0.0,
+             eps: Optional[Sequence[torch.Tensor]] = None,
+             perm: Optional[torch.Tensor] = None) -> Dict:
+        device = batch["example_mask"].device
+        weight = annealed_kl_weight(iteration, lc.kl_ann_iterations,
+                                    lc.ec_kl_lambda)
+        return body(state, batch, scalar(weight, device),
+                    scalar(vi_beta, device), eps, perm)
 
     return step
 

@@ -41,11 +41,15 @@ an error:
    24, BoW vocab 23,808, max_len 96, batch 64) on random weights from a
    seed, on a synthetic target domain (documents of 3-12 clauses with all
    their candidate pairs): init_state, one base epoch of train_epochs (the
-   best checkpoint saved and reloaded), then self_train; every kernel launch
-   of that run is counted, with the counts set to 0 just before it, and the
-   path's kernels must launch on every training step, base and
-   self-training alike; then steps are timed and profiled after warm-up and
-   the best is reloaded from disk:
+   best checkpoint saved and reloaded), then self_train, all through the
+   default epoch step (train/scan_epoch.py: one step captured in a CUDA
+   graph, replayed once a batch); one capture must serve the whole run and
+   every step must be a replay; every kernel launch of that run is
+   counted, with the counts set to 0 just before it (a replay counts the
+   captured step's launches; the capture's warm-up, rolled back, does not),
+   and the path's kernels must launch on every training step, base and
+   self-training alike; then one more epoch moves the params and the best
+   is reloaded from disk:
    - the flagship preset (MMD: K1-K4), one self-training iteration with
      temporal_order_modification;
    - ec_hsic (binary emotion, HSIC: K3-K6), two self-training iterations of
@@ -58,16 +62,32 @@ an error:
    - the flagship preset with attention_impl="flash" (K1-K4 and K7-K9),
      train then serve: one base epoch, evaluation and the best checkpoint
      saved; the checkpoint loaded into a fresh model; run_pair_inference
-     over the test pairs at batch 512, whose probabilities and P/R/F1 must
-     equal evaluate's on the same model and seed; PairScorer.score_texts and
-     extract_document on synthetic zh strings. K7 must launch once per layer
-     on every training step and every evaluation, inference and scoring
-     batch, K8 and K9 once per layer on every training step, and no flash
-     kernel on the four paths above.
+     over a larger synthetic target domain of 21 batches of 512 (p50 and
+     p95 over the 20 after the first), whose probabilities and P/R/F1 must
+     equal evaluate's on the same model and seed; PairScorer.score_texts
+     (timed, a document's six pairs and a full batch) and extract_document
+     on synthetic zh strings. K7 must launch once per layer on every
+     training step and every evaluation, inference and scoring batch, K8
+     and K9 once per layer on every training step, and no flash kernel on
+     the four paths above;
+6. capture: each of the five step variants at full width, from one initial
+   state, one epoch of the eager per-step loop (prefetched, as
+   --no_scan_epoch runs it) and one through the captured epoch step, both
+   with torch's deterministic algorithms (the BoW backward's index_add_
+   otherwise adds in the order its atomics land, and bf16 carries that
+   on): per-batch losses within rel 1e-5, params within 2 x their lr, the
+   generators alike, the disc, club and frozen groups moving as on the
+   paths; then, as the paths run (no deterministic algorithms), three more
+   epochs of each timed (the median's wall ms/step) and one profiled
+   (device ms/step, busy share, kernels/step; each path kernel once a
+   step, K7-K9 once a layer), with each run's peak memory; and the
+   sensitivity case: the tiny flagship and vi with kl_ann_iterations 4,
+   vi_beta 0 then 0.5 and the lr halved between two epochs, captured
+   against eager as above.
 
-Then one line a path compares its step with the flagship's: device ms/step,
-kernels/step, wall ms/step with the device's busy share, peak memory, and
-the K3/K4 launches a step.
+Then one line a variant and kind compares its step with the captured
+flagship's: device ms/step, kernels/step, wall ms/step with the device's
+busy share, peak memory.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` is the sum over the main paths, ``launches_by_path`` splits
@@ -76,6 +96,7 @@ it); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1099,6 +1120,45 @@ class _Records:
         self.records.append(record)
 
 
+class CountedEpochStep:
+    """The default epoch step (train/scan_epoch.py) of a config, keeping the
+    losses of every epoch it trains (fetched once, at the end)."""
+
+    is_epoch_step = True
+
+    def __init__(self, cfg):
+        from carel_tpu_torch.train.scan_epoch import make_epoch_step
+
+        self.step = make_epoch_step(cfg)
+        self.losses = []
+
+    def __call__(self, state, stacked, vi_beta):
+        losses = self.step(state, stacked, vi_beta)
+        self.losses.append(losses)
+        return losses
+
+    @property
+    def steps(self) -> int:
+        return sum(len(losses) for losses in self.losses)
+
+    def all_losses(self) -> list:
+        return torch.cat(self.losses).tolist()
+
+    def describe(self) -> str:
+        s = self.step
+        return (f"{s.captures} capture(s), {s.replays} replays of a step "
+                f"that launches {s.captured_launches}; the capture's "
+                f"warm-up launched {s.warmup_launches} (rolled back, not "
+                f"counted)")
+
+    def check(self, tag: str, steps: int) -> None:
+        """One capture served every epoch, and every step was a replay."""
+        if self.step.captures != 1 or self.step.replays != steps:
+            fail(f"{tag}: {self.step.captures} captures and "
+                 f"{self.step.replays} replays for {steps} steps (want one "
+                 "capture, a replay a step)")
+
+
 FLAGSHIP = "ec_mmd_final_mul_newsplit_emnlp"
 
 # the kernels each main path must launch on every training step
@@ -1138,18 +1198,21 @@ def probabilities(p: np.ndarray, n: int) -> bool:
 def phase_path(records: dict, preset: str, iterations: int,
                strategy: str) -> dict:
     """The preset at full width: one base epoch, then ``iterations``
-    self-training iterations of one epoch with ``strategy``. The disc params
-    must move under gan only, the club params under vi only, the frozen
-    latent heads under neither. Returns the step's times (``time_steps``)
-    and the run's peak memory in GiB."""
+    self-training iterations of one epoch with ``strategy``, all through the
+    default, captured epoch step: one capture must serve them all, and every
+    path kernel must launch on every step (a replay launches the captured
+    step's kernels). The disc params must move under gan only, the club
+    params under vi only, the frozen latent heads under neither. Returns the
+    run's peak memory in GiB and the K3 launches a step."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.config import SelfStrategy
     from carel_tpu_torch.pipeline import init_state
     from carel_tpu_torch.selftrain import self_train
     from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.scan_epoch import stack_epoch
     from carel_tpu_torch.train.state import CLUB, DISC, FROZEN
     from carel_tpu_torch.train.loop import evaluate, train_epochs
-    from carel_tpu_torch.train.steps import make_eval_step, make_train_step
+    from carel_tpu_torch.train.steps import make_eval_step
 
     n_train, n_test, unpred = 1024, 512, 10
     cfg = full_width_config(preset, preset, self_iteration=iterations,
@@ -1169,17 +1232,12 @@ def phase_path(records: dict, preset: str, iterations: int,
     print(f"{tag}: init_state {time.perf_counter() - t0:.1f} s, "
           f"{n_params} params; {len(test_pairs)} test pairs in "
           f"{len(test_pairs.docs_pair_size)} documents", flush=True)
-    train_step, eval_step = make_train_step(cfg), make_eval_step()
+    counted_step, eval_step = CountedEpochStep(cfg), make_eval_step()
     aux = {n: p.detach().clone() for n, p in state.model.named_parameters()
            if state.labels[n] in (DISC, CLUB, FROZEN)}
 
-    # the run's own record of its steps, evaluations and pseudo sets
-    losses, prob_ranges, pseudo_sizes = [], [], []
-
-    def counted_step(state, batch, iteration, vi_beta):
-        metrics = train_step(state, batch, iteration, vi_beta)
-        losses.append(metrics["loss"])
-        return metrics
+    # the run's own record of its evaluations and pseudo sets
+    prob_ranges, pseudo_sizes = [], []
 
     def checked_eval(model, batch, generator):
         probs = eval_step(model, batch, generator)
@@ -1204,7 +1262,7 @@ def phase_path(records: dict, preset: str, iterations: int,
                                best_f1_so_far=-1.0, best_cache=best_cache)
     torch.cuda.synchronize()
     t_base = time.perf_counter() - t0
-    base_steps = len(losses)
+    base_steps = counted_step.steps
     state, sbest = self_train(cfg, state, counted_step, checked_eval,
                               test_pairs, test, unpred, checked_encode,
                               preset, logger=logger, best_cache=best_cache,
@@ -1216,8 +1274,8 @@ def phase_path(records: dict, preset: str, iterations: int,
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    steps = len(losses)
-    losses = torch.stack(losses).tolist()
+    steps = counted_step.steps
+    losses = counted_step.all_losses()
     ranges = torch.stack(prob_ranges).cpu().numpy()
 
     ev = {k: [r for r in logger.records if r["event"] == k]
@@ -1234,8 +1292,9 @@ def phase_path(records: dict, preset: str, iterations: int,
           f"evaluations) {split['train_seconds']:.4f} s; pseudo pairs "
           f"{[r['pseudo_pairs'] for r in ev['selftrain_iter']]}; best "
           f"{best}, self best {sbest}; evaluate P/R/F1 {res.precision:.4f} "
-          f"{res.recall:.4f} {res.f1:.4f}; launches {counts}; peak memory "
-          f"{peak_gib:.2f} GiB", flush=True)
+          f"{res.recall:.4f} {res.f1:.4f}; launches {counts}; "
+          f"{counted_step.describe()}; peak memory {peak_gib:.2f} GiB",
+          flush=True)
     print(f"{tag}: losses (every step) {[round(x, 4) for x in losses]}",
           flush=True)
     if not losses or not all(math.isfinite(x) for x in losses):
@@ -1254,6 +1313,7 @@ def phase_path(records: dict, preset: str, iterations: int,
         fail(f"{tag}: pseudo sets are not 2 pairs per document")
     if steps <= base_steps:
         fail(f"{tag}: self-training took no training step")
+    counted_step.check(tag, steps)
     for name, n in counts.items():
         want = steps if name in PATH_KERNELS[preset] else 0
         if n != want:
@@ -1280,48 +1340,18 @@ def phase_path(records: dict, preset: str, iterations: int,
             and same_state(state.model.state_dict(), saved)):
         fail(f"{tag}: the reloaded best differs from the saved checkpoint")
 
-    times = time_steps(tag, train_step, state, train, B, L)
-
-    # the timed steps moved the params; a train_epochs call of no epochs and
+    # one more epoch moves the params; a train_epochs call of no epochs and
     # no in-memory cache reloads the best from disk
+    counted_step(state, stack_epoch(train, B, np.random.default_rng(1)), 0.0)
     if same_state(state.model.state_dict(), saved):
-        fail(f"{tag}: the timed steps left the params unchanged")
-    state, _ = train_epochs(cfg, state, train_step, eval_step, train, test,
+        fail(f"{tag}: the last epoch left the params unchanged")
+    state, _ = train_epochs(cfg, state, counted_step, eval_step, train, test,
                             unpred, preset, epochs=0, logger=logger)
     if not same_state(state.model.state_dict(), saved):
         fail(f"{tag}: the reload from disk differs from the checkpoint")
     print(f"{tag}: best checkpoint saved, reloaded from memory and from "
           "disk, equal to the saved state_dict", flush=True)
-    return dict(times, peak_gib=peak_gib,
-                bow_per_step=counts["bow_fwd"] / steps)
-
-
-def time_steps(tag: str, train_step, state, train, B: int, L: int) -> dict:
-    """Steady-state step time after warm-up (host clock around synchronize),
-    then the profile; returns the wall ms/step (``wall_ms``) and the
-    profile's device ms/step (``device_ms``) and kernels/step
-    (``kernels``)."""
-    from carel_tpu_torch.data.batching import cut_batch
-    from carel_tpu_torch.train.steps import batch_to_device
-
-    batches = [batch_to_device(cut_batch(train, np.arange(i * B, (i + 1) * B),
-                                         B).as_dict(), torch.device("cuda"))
-               for i in range(4)]
-    for i in range(3):
-        train_step(state, batches[i % 4], i)
-    torch.cuda.synchronize()
-    n = 20
-    t0 = time.perf_counter()
-    for i in range(n):
-        metrics = train_step(state, batches[i % 4], i)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / n * 1e3
-    if not math.isfinite(float(metrics["loss"])):
-        fail(f"{tag}: timed steps gave a non-finite loss")
-    print(f"{tag} step b{B}xs{L}: {ms:.2f} ms/step, "
-          f"{B / ms * 1e3:.1f} pairs/s", flush=True)
-    device_ms, kernels = profile_steps(train_step, state, batches, ms)
-    return {"wall_ms": ms, "device_ms": device_ms, "kernels": kernels}
+    return dict(peak_gib=peak_gib, bow_per_step=counts["bow_fwd"] / steps)
 
 
 # synthetic zh clauses for the raw-text scorer (document 1: clause 3 holds
@@ -1330,19 +1360,26 @@ ZH_CLAUSES = ["昨天下午下了很大的雨", "他没有带伞就出门了", "
               "因为新买的书全都湿了", "妈妈安慰他说没关系", "明天再去买一本新的"]
 
 
+# batches of 512 served (the first is not timed) and scorer calls timed
+SERVE_BATCHES = 21
+SCORER_CALLS = 5
+
+
 def phase_serve(records: dict):
     """Train, then serve, at full width with attention_impl="flash": the
-    flagship takes one base epoch with its evaluation and saves the best;
-    a fresh model loads that checkpoint and serves it through
-    run_pair_inference and PairScorer. Returns the profiled device ms/step
-    and the run's peak memory in GiB."""
+    flagship takes one base epoch (the captured epoch step) with its
+    evaluation and saves the best; a fresh model loads that checkpoint and
+    serves a larger synthetic target domain of SERVE_BATCHES batches of 512
+    through run_pair_inference (p50/p95 over the batches after the first)
+    and raw zh pairs through PairScorer (timed: a document's six pairs and a
+    full batch). Returns the run's peak memory in GiB."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
     from carel_tpu_torch.infer import PairScorer, run_pair_inference
     from carel_tpu_torch.pipeline import init_state
     from carel_tpu_torch.train import checkpoint as ckpt
     from carel_tpu_torch.train.loop import evaluate, train_epochs
-    from carel_tpu_torch.train.steps import make_eval_step, make_train_step
+    from carel_tpu_torch.train.steps import make_eval_step
 
     n_train, n_test, unpred = 1024, 512, 10
     tag, model_id = "flash path", "flash"
@@ -1354,15 +1391,15 @@ def phase_serve(records: dict):
     train = synth_pair_arrays(rng, n_train, L, enc.vocab_size, V)
     test_pairs, test, _ = synth_target_domain(rng, n_test, L, enc.vocab_size,
                                               V)
-    test_pairs.num_unpred_emotions = unpred  # emotions stage 1 missed
+    # serving only: a larger target domain, so that p50 and p95 come from
+    # SERVE_BATCHES - 1 timed batches
+    serve_pairs, serve, _ = synth_target_domain(
+        np.random.default_rng(5), SERVE_BATCHES * cfg.train.eval_batch_size,
+        L, enc.vocab_size, V)
+    serve_pairs.num_unpred_emotions = unpred  # emotions stage 1 missed
     state = init_state(cfg, "cuda")
-    train_step, eval_step = make_train_step(cfg), make_eval_step()
-    losses, forwards = [], []
-
-    def counted_step(state, batch, iteration, vi_beta):
-        metrics = train_step(state, batch, iteration, vi_beta)
-        losses.append(metrics["loss"])
-        return metrics
+    counted_step, eval_step = CountedEpochStep(cfg), make_eval_step()
+    forwards = []
 
     def counted_eval(model, batch, generator):
         forwards.append(1)
@@ -1379,7 +1416,7 @@ def phase_serve(records: dict):
                                best_f1_so_far=-1.0)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    steps = len(losses)
+    steps = counted_step.steps
 
     # serve: a fresh model takes the checkpoint
     served = init_state(dataclasses.replace(
@@ -1394,10 +1431,10 @@ def phase_serve(records: dict):
             and same_state(state.model.state_dict(), saved)):
         fail(f"{tag}: the reloaded best differs from the saved checkpoint")
     res = run_pair_inference(
-        counted_eval, served, test_pairs, test,
+        counted_eval, served, serve_pairs, serve,
         torch.Generator(device="cuda").manual_seed(0),
         cfg.train.eval_batch_size)
-    ev = evaluate(counted_eval, served, test, unpred,
+    ev = evaluate(counted_eval, served, serve, unpred,
                   torch.Generator(device="cuda").manual_seed(0),
                   cfg.train.eval_batch_size)
 
@@ -1407,26 +1444,48 @@ def phase_serve(records: dict):
     raw = [(ZH_CLAUSES[2], c) for c in ZH_CLAUSES]
     probs = scorer.score_texts(raw)
     hits = scorer.extract_document(ZH_CLAUSES, [3], threshold=0.0)
-    scored_batches = 2
+    # every (emotion, cause) clause pair, repeated to one full batch
+    full = [(e, c) for e in ZH_CLAUSES for c in ZH_CLAUSES]
+    full = (full * -(-cfg.train.eval_batch_size // len(full)))[
+        :cfg.train.eval_batch_size]
+    scorer_ms = {}
+    for name, pairs in (("document", raw), ("batch", full)):
+        times = []
+        for _ in range(SCORER_CALLS):
+            t1 = time.perf_counter()
+            scorer.score_texts(pairs)  # numpy out: the fetch is inside
+            times.append(time.perf_counter() - t1)
+        scorer_ms[name] = float(np.median(times)) * 1e3
+    scored_batches = 2 + 2 * SCORER_CALLS
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    losses = torch.stack(losses).tolist()
+    losses = counted_step.all_losses()
 
+    n_batches = -(-len(serve) // cfg.train.eval_batch_size)
     print(f"{tag}: {steps} base steps + eval + best save and reload in "
-          f"{t_train:.3f} s; best {best}; inference over {len(test)} pairs "
-          f"at batch {cfg.train.eval_batch_size}: P/R/F1 {res.precision:.4f} "
-          f"{res.recall:.4f} {res.f1:.4f}, p50 {res.p50_batch_ms:.2f} ms, "
-          f"p95 {res.p95_batch_ms:.2f} ms per batch, "
+          f"{t_train:.3f} s; best {best}; inference over {len(serve)} pairs "
+          f"in {n_batches} batches of {cfg.train.eval_batch_size}: P/R/F1 "
+          f"{res.precision:.4f} {res.recall:.4f} {res.f1:.4f}, p50 "
+          f"{res.p50_batch_ms:.2f} ms, p95 {res.p95_batch_ms:.2f} ms per "
+          f"batch over {n_batches - 1} timed batches, "
           f"{res.pairs_per_sec:.1f} pairs/s (first batch excluded); scorer "
           f"probabilities {[round(float(p), 4) for p in probs]}, "
-          f"{len(hits)} candidate pairs; launches {counts}; peak memory "
+          f"{len(hits)} candidate pairs; PairScorer.score_texts median of "
+          f"{SCORER_CALLS}: {scorer_ms['document']:.2f} ms for "
+          f"{len(raw)} pairs, {scorer_ms['batch']:.2f} ms for {len(full)} "
+          f"pairs ({len(full) / scorer_ms['batch'] * 1e3:.1f} pairs/s); "
+          f"launches {counts}; {counted_step.describe()}; peak memory "
           f"{peak_gib:.2f} GiB", flush=True)
     print(f"{tag}: losses (every step) {[round(x, 4) for x in losses]}",
           flush=True)
     if steps != n_train // B or not all(math.isfinite(x) for x in losses):
         fail(f"{tag}: {steps} steps, or a loss not finite")
-    if not probabilities(res.probs, len(test)):
+    counted_step.check(tag, steps)
+    if n_batches < SERVE_BATCHES:
+        fail(f"{tag}: served {n_batches} batches, fewer than "
+             f"{SERVE_BATCHES}")
+    if not probabilities(res.probs, len(serve)):
         fail(f"{tag}: inference probabilities are not finite values in "
              "[0, 1]")
     if not (np.array_equal(res.probs, ev.probs)
@@ -1455,8 +1514,7 @@ def phase_serve(records: dict):
         records[name].setdefault("launches_by_path", {})["flash"] = n
         records[name]["launches"] = sum(
             records[name]["launches_by_path"].values())
-    return dict(time_steps(tag, train_step, state, train, B, L),
-                peak_gib=peak_gib)
+    return dict(peak_gib=peak_gib)
 
 
 def same_state(a: dict, b: dict) -> bool:
@@ -1464,44 +1522,315 @@ def same_state(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
-def profile_steps(train_step, state, batches, step_ms: float,
-                  n: int = 5) -> float:
-    """Device time per step by kernel, from torch.profiler over n steps, and
-    the device busy share against the unprofiled step time; returns the
-    device ms/step and the kernels/step (0.0 and 0 when the profiler saw no
-    device time)."""
+def profile_epoch(run, nb: int):
+    """Device time per step by kernel, from torch.profiler over one epoch of
+    nb steps (``run()``, ended by a synchronize): returns the device ms/step,
+    the kernels/step and {name: calls} of every device kernel. A window
+    without a device event is profiled again, as in device_profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            train_step(state, batches[i % len(batches)], i)
+    for window in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        per_kernel: dict = {}
+        for e in prof.events():
+            # user annotations are mirrored on the device timeline and span
+            # other kernels: count kernels only
+            if (e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                us, calls = per_kernel.get(e.name, (0.0, 0))
+                per_kernel[e.name] = (us + e.time_range.elapsed_us(),
+                                      calls + 1)
+        PROFILE_WINDOWS["profiled"] += 1
+        device_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / nb
+        if device_ms > 0.0:
+            kernels = sum(c for _, c in per_kernel.values()) / nb
+            return device_ms, kernels, per_kernel
+        PROFILE_WINDOWS["empty"] += 1
+        print(f"profile_epoch: the profiler recorded no device time in "
+              f"window {window} of 3", flush=True)
+    fail("profile_epoch: the profiler recorded no device time")
+
+
+def path_kernel_calls(preset: str, attention_impl: str) -> dict:
+    """The kernels one training step of this variant launches: {wrapper
+    name: launches}; the profiler names each device kernel after its
+    wrapper (mmd_fwd_kernel, flash_fwd_mma_kernel, ...)."""
+    want = {name: 1 for name in PATH_KERNELS[preset]}
+    if attention_impl == "flash":
+        layers = 12
+        want.update(flash_fwd=layers, flash_bwd_dkv=layers,
+                    flash_bwd_dq=layers)
+    return want
+
+
+def kernel_calls_by_wrapper(per_kernel: dict, nb: int) -> dict:
+    """{wrapper name: device launches a step} of the profiled kernels whose
+    names carry a wrapper's name (``flash_bwd_dq`` is not a prefix of
+    ``flash_bwd_dkv``)."""
+    from carel_tpu_torch import ops
+
+    return {name: sum(c for k, (_, c) in per_kernel.items() if name in k) / nb
+            for name in ops.launch_counts()}
+
+
+def eager_epoch(step, state, arrays, B: int, seed: int, vi_beta: float):
+    """One epoch of the per-step loop as train_epochs runs it under
+    --no_scan_epoch (batches prefetched to the card two ahead): the losses
+    of its batches, on the card."""
+    from carel_tpu_torch.data.batching import iter_batches
+    from carel_tpu_torch.data.prefetch import prefetch_to_device
+
+    batches = prefetch_to_device(
+        iter_batches(arrays, B, shuffle=True, rng=np.random.default_rng(seed)),
+        size=2, transform=lambda b: b.as_dict(), device="cuda")
+    return torch.stack([step(state, batch, it, vi_beta)["loss"]
+                        for it, batch in enumerate(batches)])
+
+
+def captured_epoch(step, state, arrays, B: int, seed: int, vi_beta: float):
+    """One epoch of the default epoch step over the same batches."""
+    from carel_tpu_torch.train.scan_epoch import stack_epoch
+
+    return step(state, stack_epoch(arrays, B, np.random.default_rng(seed)),
+                vi_beta)
+
+
+def param_gaps(cfg, labels: dict, got: dict, want: dict) -> dict:
+    """How far two runs' params lie apart, each group by its own lr: the
+    worst entry (and its tensor), the entries past 2 lr, and the largest
+    99th percentile over the tensors."""
+    from carel_tpu_torch.train.state import CLUB, DISC
+
+    lrs = {DISC: cfg.train.adv_lr, CLUB: cfg.train.aprx_lr}
+    gaps = dict(worst=0.0, where="", past=0, bulk=0.0)
+    for name, p in want.items():
+        err = ((got[name] - p).abs().flatten()
+               / lrs.get(labels[name], cfg.train.vae_lr)).double()
+        if float(err.max()) > gaps["worst"]:
+            gaps.update(worst=float(err.max()), where=name)
+        gaps["past"] += int((err > 2.0).sum())
+        gaps["bulk"] = max(gaps["bulk"], float(torch.quantile(err, 0.99)))
+    return gaps
+
+
+def describe_gaps(gaps: dict) -> str:
+    return (f"worst {gaps['worst']:.3e} lr ({gaps['where']}), {gaps['past']} "
+            f"entries past 2 lr, 99th percentile of every tensor <= "
+            f"{gaps['bulk']:.3e} lr")
+
+
+def loss_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest relative difference of two runs' per-batch losses."""
+    return float(((got - want).abs() / want.abs()).max())
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the enclosed work: the BoW
+    backward's index_add_ then adds in a fixed order instead of the order
+    its atomics land, so that two runs of one code keep the same bits
+    (warn_only: an op without a deterministic version warns)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def hold_captured(tag: str, cfg, labels: dict, eager: dict, cap: dict,
+                  steps: int) -> None:
+    """Hold a captured run against an eager one of the same steps from the
+    same state, both under deterministic(): per-batch losses within rel
+    1e-5 and every group's params within 2 x its lr."""
+    gap = (loss_gap(cap["losses"], eager["losses"]),
+           param_gaps(cfg, labels, cap["params"], eager["params"]))
+    print(f"{tag}: {steps} steps from one state, deterministic algorithms; "
+          f"captured against eager: losses rel {gap[0]:.3e} (batch 0 "
+          f"equal: {bool(cap['losses'][0] == eager['losses'][0])}), params "
+          f"{describe_gaps(gap[1])}", flush=True)
+    if gap[0] > 1e-5:
+        fail(f"{tag}: eager and captured losses differ by rel {gap[0]:.3e}")
+    if gap[1]["worst"] > 2.0:
+        fail(f"{tag}: eager and captured params differ by "
+             f"{gap[1]['worst']:.3e} lr")
+
+
+CAPTURE_VARIANTS = ((FLAGSHIP, "xla"), ("ec_hsic", "xla"),
+                    ("ec_gan", "xla"), ("ec_vi_final", "xla"),
+                    (FLAGSHIP, "flash"))
+
+
+def phase_capture(preset: str, attention_impl: str) -> dict:
+    """One step variant at full width (b64 x s96, the paths' 1,024 random
+    train pairs), from one initial state (init_state of one seed, which
+    also seeds the dropout generator):
+    - correctness: one epoch of the eager per-step loop and one through the
+      captured epoch step, both under deterministic(), held by
+      hold_captured; the generators must end alike, and the disc, club and
+      frozen groups move as on the paths;
+    - time: the same two runs as the paths run them (no deterministic
+      algorithms): one epoch, then three timed and one profiled
+      (time_epochs), each run alone on the card so that its peak memory is
+      its own. Their losses drift apart after the first update (index_add_
+      and bf16), which is printed, beside the spread of a second eager
+      run."""
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step
+    from carel_tpu_torch.train.state import (CLUB, DISC, FROZEN,
+                                             dropout_generator)
+    from carel_tpu_torch.train.steps import make_train_step
+
+    name = preset if attention_impl == "xla" else "flash"
+    tag = f"capture {name}"
+    cfg = full_width_config(preset, f"capture_{name}",
+                            attention_impl=attention_impl)
+    enc, B, L = cfg.model.encoder, cfg.train.batch_size, cfg.data.max_len
+    train = synth_pair_arrays(np.random.default_rng(0), 1024, L,
+                              enc.vocab_size, cfg.model.bow_dim)
+    nb = -(-len(train) // B)
+    want_calls = path_kernel_calls(preset, attention_impl)
+    want_moved = {DISC: preset == "ec_gan", CLUB: preset == "ec_vi_final",
+                  FROZEN: False}
+    dropout = dropout_generator(torch.device("cuda"))
+    runs = {}
+    for kind, mode in (("eager", "check"), ("captured", "check"),
+                       ("eager", "time"), ("eager again", "spread"),
+                       ("captured", "time")):
+        if (kind, mode) == ("eager", "time"):
+            # held now, so that the checked params leave the card before
+            # the timed runs measure their peak memory
+            hold_captured(tag, cfg, labels, runs["eager", "check"],
+                          runs["captured", "check"], nb)
+            for r in runs.values():
+                del r["params"]
+        make, run = ((make_train_step, eager_epoch) if kind != "captured"
+                     else (make_epoch_step, captured_epoch))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(cfg, "cuda")
+        step = make(cfg)
+        if mode == "check":
+            first = {n: p.detach().clone() for n, p in
+                     state.model.named_parameters()
+                     if state.labels[n] in want_moved}
+        with deterministic() if mode == "check" else contextlib.nullcontext():
+            losses = run(step, state, train, B, 1, 0.0).cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"{tag} ({kind}): a loss is not finite")
+        r = runs[kind, mode] = dict(
+            losses=losses,
+            gens=(state.generator.get_state(), dropout.get_state()),
+            captures=getattr(step, "captures", None))
+        if mode == "check":
+            r["params"] = {n: p.detach().clone() for n, p in
+                           state.model.named_parameters()}
+            moved = {DISC: False, CLUB: False, FROZEN: False}
+            for n, p in first.items():
+                moved[state.labels[n]] |= not torch.equal(r["params"][n], p)
+            if moved != want_moved:
+                fail(f"{tag} ({kind}): the disc, club and frozen params "
+                     f"moved as {moved} (want {want_moved})")
+        if mode == "time":
+            r.update(time_epochs(tag, kind, run, step, state, train, B, nb,
+                                 want_calls))
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        labels = state.labels
+        del state, step
+    for mode in ("check", "time"):
+        if not all(torch.equal(a, b) for a, b in zip(
+                runs["captured", mode]["gens"], runs["eager", mode]["gens"])):
+            fail(f"{tag}: the generators end in other states ({mode})")
+    if runs["captured", "time"]["captures"] != 1:
+        fail(f"{tag}: {runs['captured', 'time']['captures']} captures for "
+             "its epochs (want one)")
+    eager, cap = runs["eager", "time"], runs["captured", "time"]
+    again = runs["eager again", "spread"]
+    print(f"{tag}: without deterministic algorithms, one epoch from one "
+          f"state: captured against eager losses rel "
+          f"{loss_gap(cap['losses'], eager['losses']):.3e}, eager against "
+          f"eager {loss_gap(again['losses'], eager['losses']):.3e}",
+          flush=True)
+    for kind, r in (("eager", eager), ("captured", cap)):
+        print(f"{tag} ({kind}) b{B}xs{L}: wall {r['wall_ms']:.2f} ms/step "
+              f"(median of {[round(w, 2) for w in r['walls']]}; "
+              f"{B / r['wall_ms'] * 1e3:.1f} pairs/s), device "
+              f"{r['device_ms']:.2f} ms/step (busy "
+              f"{r['device_ms'] / r['wall_ms']:.3f}), {r['kernels']:.1f} "
+              f"kernels/step, path kernels a step "
+              f"{ {k: n for k, n in r['calls'].items() if n} }, peak memory "
+              f"{r['peak_gib']:.2f} GiB", flush=True)
+    return {kind: {k: r[k] for k in
+                   ("wall_ms", "device_ms", "kernels", "peak_gib")}
+            for kind, r in (("eager", eager), ("captured", cap))}
+
+
+def time_epochs(tag: str, kind: str, run, step, state, train, B: int,
+                nb: int, want_calls: dict, epochs: int = 3) -> dict:
+    """``epochs`` more epochs, each timed (host clock around a value fetch
+    after all its steps), and one profiled, in which each path kernel must
+    launch as often a step as ``want_calls`` says: the median epoch's wall
+    ms/step (and the range), device ms/step, kernels/step and the path
+    kernels a step."""
+    walls = []
+    for epoch in range(epochs):
         torch.cuda.synchronize()
-    per_kernel: dict = {}
-    for e in prof.events():
-        # user annotations (e.g. the optimizer step's range) are mirrored on
-        # the device timeline and span other kernels: count kernels only
-        if (e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            us, calls = per_kernel.get(e.name, (0.0, 0))
-            per_kernel[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
-    device_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / n
-    kernels = sum(c for _, c in per_kernel.values()) // n
-    if device_ms == 0.0:
-        print("profile: the profiler recorded no device time (not measured)",
-              flush=True)
-        return 0.0, 0
-    print(f"profile ({n} steps): device kernels {device_ms:.2f} ms/step of "
-          f"{step_ms:.2f} ms/step unprofiled, device busy "
-          f"{device_ms / step_ms:.3f}, {kernels} kernels/step", flush=True)
-    top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
-    # the twelve largest, and the flash kernels wherever they rank
-    for rank, (name, (us, calls)) in enumerate(top):
-        if rank < 12 or "flash_" in name:
-            print(f"  {us / 1e3 / n:8.3f} ms/step {calls // n:5d} calls/step  "
-                  f"{name[:90]}", flush=True)
-    return device_ms, kernels
+        t0 = time.perf_counter()
+        losses = run(step, state, train, B, 2 + epoch, 0.0).cpu()
+        walls.append((time.perf_counter() - t0) / nb * 1e3)
+        if not torch.isfinite(losses).all():
+            fail(f"{tag} ({kind}): a timed loss is not finite")
+    device_ms, kernels, per_kernel = profile_epoch(
+        lambda: run(step, state, train, B, 2 + epochs, 0.0), nb)
+    calls = kernel_calls_by_wrapper(per_kernel, nb)
+    for k, n in calls.items():
+        if n != want_calls.get(k, 0):
+            fail(f"{tag} ({kind}): the profile shows {k} {n:g} times a step "
+                 f"(want {want_calls.get(k, 0)})")
+    return dict(wall_ms=float(np.median(walls)), walls=walls,
+                device_ms=device_ms, kernels=kernels, calls=calls)
+
+
+def phase_sensitivity(preset: str) -> None:
+    """A constant baked into the graph would show here: the tiny fp32
+    model with dropout, kl_ann_iterations 4 (the KL weight ramps over the
+    first four batches of each epoch) and vi_beta_step 0.5 (vi_beta 0, then
+    0.5), two epochs of six batches with the main lr halved between them,
+    eager and captured from one state, held as hold_captured says."""
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step
+    from carel_tpu_torch.train.state import set_lr
+    from carel_tpu_torch.train.steps import make_train_step
+
+    tag = f"sensitivity {preset}"
+    base = tiny_config(preset)
+    cfg = dataclasses.replace(
+        base,
+        model=dataclasses.replace(base.model, dropout=0.1, encoder=(
+            dataclasses.replace(base.model.encoder, dropout=0.1))),
+        loss=dataclasses.replace(base.loss, kl_ann_iterations=4,
+                                 vi_beta_step=0.5))
+    train = synth_pair_arrays(np.random.default_rng(6), 90, 32, 256, 3000,
+                              min_len=8)
+    B = cfg.train.batch_size
+    runs = {}
+    for kind, make, run in (("eager", make_train_step, eager_epoch),
+                            ("captured", make_epoch_step, captured_epoch)):
+        state = init_state(cfg, "cuda")
+        step = make(cfg)
+        losses = []
+        with deterministic():
+            for epoch in range(2):
+                losses.append(run(step, state, train, B, epoch,
+                                  epoch * cfg.loss.vi_beta_step))
+                set_lr(state.optimizer, cfg.train.vae_lr / 2)
+        runs[kind] = dict(losses=torch.cat(losses).cpu(), params={
+            n: p.detach().clone() for n, p in state.model.named_parameters()})
+        labels = state.labels
+    hold_captured(f"{tag} (tiny, 2 epochs)", cfg, labels, runs["eager"],
+                  runs["captured"], len(runs["eager"]["losses"]))
 
 
 def main() -> int:
@@ -1525,17 +1854,29 @@ def main() -> int:
         paths[preset] = phase_path(records, preset, iterations, strategy)
         torch.cuda.empty_cache()
     paths["flash"] = phase_serve(records)
-    flag = paths[FLAGSHIP]
-    for name, p in paths.items():
-        busy = p["device_ms"] / p["wall_ms"]
-        print(f"step b64xs96, {name}: device {p['device_ms']:.2f} ms/step "
-              f"({p['device_ms'] - flag['device_ms']:+.2f} against the "
-              f"flagship), {p['kernels']} kernels/step "
-              f"({p['kernels'] - flag['kernels']:+d}), wall "
-              f"{p['wall_ms']:.2f} ms/step (device busy {busy:.3f}), peak "
-              f"memory {p['peak_gib']:.2f} GiB"
-              + (f", K3/K4 {p['bow_per_step']:.0f} a step"
-                 if "bow_per_step" in p else ""), flush=True)
+    torch.cuda.empty_cache()
+    steps = {}
+    for preset, impl in CAPTURE_VARIANTS:
+        steps[preset if impl == "xla" else "flash"] = phase_capture(preset,
+                                                                    impl)
+    for preset in (FLAGSHIP, "ec_vi_final"):
+        phase_sensitivity(preset)
+    flag = steps[FLAGSHIP]["captured"]
+    for name, by_kind in steps.items():
+        for kind in ("eager", "captured"):
+            p = by_kind[kind]
+            print(f"step b64xs96, {name} ({kind}): device "
+                  f"{p['device_ms']:.2f} ms/step "
+                  f"({p['device_ms'] - flag['device_ms']:+.2f} against the "
+                  f"captured flagship), {p['kernels']:.1f} kernels/step, "
+                  f"wall {p['wall_ms']:.2f} ms/step (device busy "
+                  f"{p['device_ms'] / p['wall_ms']:.3f}), peak memory "
+                  f"{p['peak_gib']:.2f} GiB", flush=True)
+        path = paths[name]
+        print(f"path {name} (captured: train, evaluate, self-train): peak "
+              f"memory {path['peak_gib']:.2f} GiB"
+              + (f", K3/K4 {path['bow_per_step']:.0f} a step"
+                 if "bow_per_step" in path else ""), flush=True)
     print(f"device_profile: {PROFILE_WINDOWS['empty']} of "
           f"{PROFILE_WINDOWS['profiled']} windows recorded no device event",
           flush=True)

@@ -27,7 +27,12 @@ by shuffles) is held against the float64 plain version at ragged B up to
 4,096 with g != 1, and with K5 at d of 1, 8, 13, 17 and 32 (every instance
 of K6) at both input scales; K5 (one cooperative launch) and K6 launch one device
 kernel each, replay bit-equal from one CUDA graph, and the wrappers refuse
-d = 33, B = 1 and sigmas that are not positive.
+d = 33, B = 1 and sigmas that are not positive. K7, K8 and K9 replay
+bit-equal from one CUDA graph. The captured epoch step (train/scan_epoch.py)
+at tiny widths equals the eager per-step loop from equal seeds (losses rel
+1e-5; params within 2 lr a step, the 99th percentile of every tensor within
+0.05 lr, as the CPU tests hold it against JAX) under every step variant,
+and a capture made stale by load_state is made again.
 """
 
 import numpy as np
@@ -811,3 +816,167 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="residual"):
         cuda_pairwise.hsic_backward_kernel(x, y, mask, 1.0, 1.0, res.float(),
                                            torch.ones((), device=cuda))
+
+
+def test_flash_kernels_replay_from_a_cuda_graph(cuda):
+    """K7, K8 and K9 (bf16, at the training step's head shape), through the
+    autograd function as the encoder calls them, captured in one CUDA graph:
+    each replay writes the bits of the eager call."""
+    q, k, v, g, mask = _flash_problem(cuda, 8, 12, 96, 64, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def step():
+        out = cuda_attention.flash_attention(*leaves, mask, 0.125)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+    ops.reset_launch_counts()
+    _assert_replays_bit_equal(step)
+    counts = ops.launch_counts()  # the eager call and the capture
+    assert (counts["flash_fwd"], counts["flash_bwd_dkv"],
+            counts["flash_bwd_dq"]) == (2, 2, 2)
+
+
+def _tiny_cfg(reg, attention_impl="xla", kl_ann_iterations=4):
+    from carel_tpu_torch.config import (CarelConfig, DataConfig, LossConfig,
+                                        ModelConfig, Regularizer,
+                                        TrainConfig)
+    from carel_tpu_torch.models.encoder import tiny_encoder_config
+
+    return CarelConfig(
+        model=ModelConfig(encoder=tiny_encoder_config(
+            vocab_size=128, dropout=0.1, attention_impl=attention_impl),
+            ec_dim=8, bow_dim=300, dropout=0.1,
+            binary_emotion=reg in ("hsic", "gan")),
+        loss=LossConfig(regularizer=Regularizer(reg),
+                        kl_ann_iterations=kl_ann_iterations,
+                        vi_beta_step=0.5),
+        data=DataConfig(max_len=16),
+        train=TrainConfig(batch_size=8, vae_lr=1e-3, adv_lr=2e-3,
+                          aprx_lr=5e-2, seed=11))
+
+
+def _tiny_arrays(n=45, L=16, vocab=128, bow=300, seed=0):
+    from carel_tpu_torch.data.batching import PairArrays
+
+    rng = np.random.default_rng(seed)
+    mask = np.ones((n, L), np.int32)
+    mask[::3, L // 2:] = 0
+    idx = rng.integers(0, bow, (n, 6)).astype(np.int32)
+    idx[:, -2:] = -1
+    return PairArrays(
+        input_ids=(rng.integers(2, vocab, (n, L)) * mask).astype(np.int32),
+        attention_mask=mask, token_type_ids=np.zeros((n, L), np.int32),
+        pair_labels=(rng.random(n) < 0.4).astype(np.float32),
+        emotion_labels=rng.integers(0, 6, n).astype(np.int32),
+        temporal_order=np.zeros(n, bool), bow_indices=idx,
+        bow_weights=np.where(idx >= 0, 0.25, 0.0).astype(np.float32))
+
+
+def _eager_epoch(cfg, state, stacked, vi_beta):
+    from carel_tpu_torch.train.steps import make_train_step
+
+    step = make_train_step(cfg)
+    nb = stacked["input_ids"].shape[0]
+    return torch.stack([step(state, {k: torch.from_numpy(v[i]).to(cuda_dev(
+        state)) for k, v in stacked.items()}, i, vi_beta)["loss"]
+        for i in range(nb)])
+
+
+def cuda_dev(state):
+    return next(state.model.parameters()).device
+
+
+def _assert_states_agree(a, b, cfg, steps):
+    """Params within 2 lr a step everywhere (Adam moves an entry whose
+    gradient is rounding noise by ~lr a step, each run its own way) and
+    the 99th percentile of each tensor within 0.05 lr."""
+    from carel_tpu_torch.train.state import CLUB, DISC
+
+    lrs = {DISC: cfg.train.adv_lr, CLUB: cfg.train.aprx_lr}
+    pa = dict(a.model.named_parameters())
+    for name, p in b.model.named_parameters():
+        lr = lrs.get(b.labels[name], cfg.train.vae_lr)
+        err = ((pa[name] - p).detach().abs().flatten() / lr).double()
+        assert float(err.max()) <= 2.0 * steps, name
+        if name.endswith("attention.qkv.bias"):  # zero gradient: key bias
+            hidden = err.numel() // 3
+            err = torch.cat([err[:hidden], err[2 * hidden:]])
+        assert float(torch.quantile(err, 0.99)) <= 0.05, name
+
+
+@pytest.mark.parametrize("reg,impl", [("mmd", "xla"), ("hsic", "xla"),
+                                      ("gan", "xla"), ("vi", "xla"),
+                                      ("mmd", "flash")])
+def test_captured_epoch_equals_the_eager_one(cuda, reg, impl):
+    """Two epochs of six batches (the KL weight ramps over iterations 0-3,
+    vi_beta 0 then 0.5, the main lr halved between the epochs) through the
+    captured epoch step and through the eager per-step loop, from equal
+    seeds and dropout generator states on the card: losses rel 1e-5,
+    params as _assert_states_agree, the sampling generators and the dropout
+    generator advanced alike.
+    One capture serves both epochs, and the launch counts hold the
+    captured step's launches once a replay."""
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step, stack_epoch
+    from carel_tpu_torch.train.state import dropout_generator, set_lr
+
+    cfg = _tiny_cfg(reg, impl)
+    arrays = _tiny_arrays()
+    epochs = [stack_epoch(arrays, 8, np.random.default_rng(e))
+              for e in range(2)]
+    captured, eager = init_state(cfg, cuda), init_state(cfg, cuda)
+    step = make_epoch_step(cfg)
+    ops.reset_launch_counts()
+    got, want = [], []
+    # both runs draw dropout from the one default generator: each epoch
+    # starts both from its state, and both must leave it in the same one
+    dropout = dropout_generator(cuda)
+    for e, stacked in enumerate(epochs):
+        start = dropout.get_state()
+        got.append(step(captured, stacked, 0.5 * e))
+        end = dropout.get_state()
+        dropout.set_state(start)
+        want.append(_eager_epoch(cfg, eager, stacked, 0.5 * e))
+        assert torch.equal(dropout.get_state(), end)
+        set_lr(captured.optimizer, 5e-4)
+        set_lr(eager.optimizer, 5e-4)
+    torch.testing.assert_close(torch.cat(got), torch.cat(want), rtol=1e-5,
+                               atol=0)
+    assert step.captures == 1 and step.replays == 12
+    assert captured.step == eager.step == 12
+    assert torch.equal(captured.generator.get_state(),
+                       eager.generator.get_state())
+    _assert_states_agree(captured, eager, cfg, 12)
+    assert step.captured_launches["bow_fwd"] == 1
+    counts = ops.launch_counts()  # eager steps count through the wrappers
+    for name, n in step.captured_launches.items():
+        assert counts[name] == 2 * 12 * n, name
+
+
+def test_stale_capture_is_captured_again(cuda, tmp_path):
+    """The best reload (load_state_dict, in place) keeps the capture; a
+    load_state replaces the optimizers' state tensors, and the next epoch
+    captures again and then equals an eager epoch from the same snapshot."""
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step, stack_epoch
+
+    cfg = _tiny_cfg("mmd")
+    arrays = _tiny_arrays()
+    epoch = [stack_epoch(arrays, 8, np.random.default_rng(e))
+             for e in range(3)]
+    state, step = init_state(cfg, cuda), make_epoch_step(cfg)
+    step(state, epoch[0], 0.0)
+    ckpt.save_state(str(tmp_path), "m", state)
+    best = {k: v.clone() for k, v in state.model.state_dict().items()}
+    step(state, epoch[1], 0.0)
+    state.model.load_state_dict(best)
+    step(state, epoch[1], 0.0)
+    assert step.captures == 1
+    ckpt.load_state(str(tmp_path), "m", state)
+    got = step(state, epoch[2], 0.0)
+    assert step.captures == 2
+    eager = ckpt.load_state(str(tmp_path), "m", init_state(cfg, cuda))
+    want = _eager_epoch(cfg, eager, epoch[2], 0.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    _assert_states_agree(state, eager, cfg, 6)

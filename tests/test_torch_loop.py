@@ -1,8 +1,10 @@
 """The port's host loop and CLI: metrics against the JAX package, CPU runs
 of ``python -m carel_tpu_torch.cli train`` on synthetic zh corpora (the
 flagship in the newsplit layout, ec_hsic in the old-split layout), through
-base training, evaluation and self-training, and the entry points' refusal
-to fall back to the CPU."""
+base training, evaluation and self-training with the default epoch step,
+--no_scan_epoch and --debug_nans, train_epochs giving the same bits with
+either kind of step, and the entry points' refusal to fall back to the
+CPU."""
 
 import json
 import os
@@ -24,7 +26,7 @@ from carel_tpu_torch.models.encoder import tiny_encoder_config
 from carel_tpu_torch.pipeline import init_state
 from carel_tpu_torch.train.loop import train_epochs
 from carel_tpu_torch.train.metrics import prf_with_forced_misses
-from carel_tpu_torch.train.steps import make_train_step
+from carel_tpu_torch.train.steps import make_eval_step, make_train_step
 from tests.test_torch_data import write_newsplit_corpus, write_oldsplit_corpus
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -183,3 +185,72 @@ def test_train_epochs_reloads_the_best_params(tmp_path, use_cache):
         assert torch.equal(final[k], v), k
     assert any(not torch.equal(seen[2][k], v) for k, v in seen[1].items())
     assert (tmp_path / "ckpt" / "m_best.pt").exists()
+
+
+@pytest.mark.parametrize("flag", ["", "--no_scan_epoch", "--debug_nans"])
+def test_cli_trains_with_either_step(tmp_path, capsys, flag):
+    """ec_hsic trains and self-trains through the epoch step by default and
+    through the per-step loop under --no_scan_epoch or --debug_nans: the
+    epoch step logs one train record an epoch, of all its batches."""
+    _, events = _self_train_run(tmp_path, capsys, "ec_hsic",
+                                write_oldsplit_corpus, 2,
+                                (flag,) if flag else ())
+    assert events[0]["epoch_step"] == (flag == "")
+    train = [e for e in events if e["event"] == "train"]
+    if flag == "":
+        pairs = [events[0]["train_pairs"]] + [
+            e["pseudo_pairs"] for e in events
+            if e["event"] == "selftrain_iter"]
+        assert [e["it"] for e in train] == [-(-n // 16) for n in pairs]
+    else:
+        assert all(e["it"] % 10 == 0 for e in train)
+
+
+@pytest.mark.parametrize("reg", ["mmd", "vi"])
+def test_train_epochs_takes_either_step(tmp_path, reg):
+    """Two epochs of train_epochs (vi_beta ramps between them, the KL
+    weight within them) through the epoch step and through the prefetched
+    per-step loop give the same bits and the same evaluations."""
+    from carel_tpu_torch.config import LossConfig, Regularizer
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step
+
+    cfg = CarelConfig(
+        model=ModelConfig(encoder=tiny_encoder_config(vocab_size=64),
+                          ec_dim=8, bow_dim=40),
+        loss=LossConfig(regularizer=Regularizer(reg), kl_ann_iterations=4,
+                        vi_beta_step=0.25),
+        data=DataConfig(max_len=12),
+        train=TrainConfig(batch_size=8, epochs=2, vae_lr=1e-3,
+                          checkpoint_dir=str(tmp_path / "ckpt")))
+    rng = np.random.default_rng(0)
+    train, test = _pair_arrays(rng, 45), _pair_arrays(rng, 10)
+    runs = []
+    for step in (make_epoch_step(cfg), make_train_step(cfg)):
+        records = []
+
+        class Logger:
+            def log(self, record):
+                records.append(record)
+
+        state = init_state(cfg, "cpu")
+        evals = []
+
+        def eval_step(model, batch, generator):
+            probs = make_eval_step()(model, batch, generator)
+            evals.append(probs)
+            return probs
+
+        state, best = train_epochs(cfg, state, step, eval_step, train, test,
+                                   0, f"m{len(runs)}", logger=Logger())
+        runs.append((state, best, evals, records))
+    (a, best_a, evals_a, rec_a), (b, best_b, evals_b, rec_b) = runs
+    assert best_a == best_b and a.step == b.step == 12
+    assert all(torch.equal(x, y) for x, y in zip(evals_a, evals_b))
+    for k, v in b.model.state_dict().items():
+        assert torch.equal(a.model.state_dict()[k], v), k
+    assert [(r["epoch"], r["it"]) for r in rec_a if r["event"] == "train"] \
+        == [(1, 6), (2, 6)]
+    assert [r["it"] for r in rec_b if r["event"] == "train"] == []
+    for r_a, r_b in zip([r for r in rec_a if r["event"] == "eval"],
+                        [r for r in rec_b if r["event"] == "eval"]):
+        assert (r_a["f1"], r_a["precision"]) == (r_b["f1"], r_b["precision"])

@@ -149,13 +149,17 @@ def _moments(opt_state, params, state_type, fields):
         for f in fields)
 
 
-def _jax_step(jcfg, jm, params, jb, reg):
+def _jax_step(jcfg, jm, params, jb, reg, state=None, iteration=0):
     """carel_tpu/train/steps.py's step for ``reg`` at sample=False and
-    dropout 0. Returns the metrics, the main loss's gradients, the vi
-    phase-1 gradients (None otherwise), the state after the step, the vi
-    permutation (None otherwise) and the vi loss at the club params from
-    before the club update (None otherwise)."""
+    dropout 0, from ``state`` (a new state of ``params`` when None) at
+    within-epoch batch index ``iteration``. Returns the metrics, the main
+    loss's gradients, the vi phase-1 gradients (None otherwise), the state
+    after the step, the vi permutation (None otherwise) and the vi loss at
+    the club params from before the club update (None otherwise)."""
     mask = jb["example_mask"]
+    if state is None:
+        state = j_create_state(jcfg, params, jax.random.key(2))
+    params = state.params
 
     def forward(p):
         return jm.apply({"params": p}, jb["input_ids"], jb["attention_mask"],
@@ -164,7 +168,7 @@ def _jax_step(jcfg, jm, params, jb, reg):
 
     def loss_fn(p, reg_rng=None):
         out = forward(p)
-        total, metrics = j_loss(jcfg, out, jb, 0, reg_rng=reg_rng,
+        total, metrics = j_loss(jcfg, out, jb, iteration, reg_rng=reg_rng,
                                 vi_beta=VI_BETA, ops_impl="pallas",
                                 decoder_params=p["heads"]["decoder"])
         if reg == "gan":
@@ -176,7 +180,6 @@ def _jax_step(jcfg, jm, params, jb, reg):
             total = total + ec + ce
         return total, metrics
 
-    state = j_create_state(jcfg, params, jax.random.key(2))
     aprx_grads = perm = stale_loss = None
     reg_rng = jax.random.key(5)
     if reg == "vi":
