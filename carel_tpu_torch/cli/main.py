@@ -1,11 +1,14 @@
-"""Command-line entry points of the port: ``train``, ``infer`` and
-``presets``.
+"""Command-line entry points of the port: ``train``, ``infer``, ``stage1``,
+``dann`` and ``presets``.
 
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
         --data_root /path/to/corpora [--device cuda]
     python -m carel_tpu_torch.cli train --preset ec_hsic --data_root ...
     python -m carel_tpu_torch.cli infer --preset ... --data_root ... \\
         --model_id <id printed by train> [--output_dir pair_data/ec_pair]
+    python -m carel_tpu_torch.cli stage1 --data_root ... [--clause_mixer
+        transformer] [--carried_adam] [--save_dir DIR]
+    python -m carel_tpu_torch.cli dann --data_root ... [--no_domain_loss]
     python -m carel_tpu_torch.cli presets
 
 ``train`` runs the base epochs with per-epoch evaluation and best
@@ -18,9 +21,12 @@ of the JAX package's whole-epoch scan) unless ``--no_scan_epoch`` or
 traces the base training. ``infer`` loads the best checkpoint
 of ``--model_id`` (random weights without it), scores every pair of the test
 file in fixed-size batches and, with ``--output_dir``, writes the true/pred
-pickles. Both run on the GPU unless ``--device cpu`` is given, and raise
-when no GPU is there. The last line of each is the JSON summary the JAX CLI
-prints.
+pickles. ``stage1`` trains the document-level emotion model on the source
+domain, self-trains on the target and writes the stage-1 pair file that the
+``predicted_emotion`` presets test on; ``dann`` runs the clause-level DANN
+emotion classifier with its self-training. All of them run on the GPU
+unless ``--device cpu`` is given, and raise when no GPU is there. The last
+line of each is the JSON summary the JAX CLI prints.
 """
 
 from __future__ import annotations
@@ -344,6 +350,118 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def _stage1_scope(language: str, hf_encoder: str) -> None:
+    """What the stage1 and dann verbs do not run yet raises."""
+    if language != "zh":
+        raise NotImplementedError(
+            f"language {language!r} is not ported to carel_tpu_torch yet "
+            "(ROADMAP Queue 1 item 2: the en tokenizer): only zh runs")
+    if hf_encoder:
+        raise NotImplementedError(
+            "--hf_encoder is not ported to carel_tpu_torch yet (ROADMAP "
+            "Queue 1 item 2: models/hf_port.py)")
+
+
+def cmd_stage1(args) -> int:
+    import os
+
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.data.tokenizer import build_tokenizer
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.stage1 import build_doc_arrays
+    from carel_tpu_torch.stage1.trainer import Stage1Config, train_stage1
+    from carel_tpu_torch.train.logging import JsonlLogger
+
+    device = resolve_device(args.device)
+    language = args.language or "zh"
+    _stage1_scope(language, args.hf_encoder)
+    s1 = Stage1Config(
+        language=language,
+        source_domain=args.source_domain or "home",
+        target_domain=args.target_domain or "education",
+        training_epoch=args.epochs if args.epochs is not None else 10,
+        batch_size=args.batch_size or 4,
+        clause_mixer=args.clause_mixer,
+        fresh_adam=not args.carried_adam,
+        save_dir=args.save_dir,
+    )
+    d = os.path.join(args.data_root, args.doc_dir or "data/ECPE_new_dataset")
+    train_docs = parse_ecpe_file(os.path.join(d, f"{s1.source_domain}.txt"))
+    test_docs = parse_ecpe_file(os.path.join(d, f"{s1.target_domain}.txt"))
+    if args.max_train_docs:
+        train_docs = train_docs[: args.max_train_docs]
+    if args.max_test_docs:
+        test_docs = test_docs[: args.max_test_docs]
+
+    corpus = [c.text for doc in train_docs + test_docs for c in doc.clauses]
+    os.makedirs(args.cache_dir, exist_ok=True)
+    tokenizer = build_tokenizer(
+        language, corpus,
+        os.path.join(args.cache_dir, f"tokenizer_{language}.json"))
+    train_arr = build_doc_arrays(train_docs, tokenizer, s1.max_doc_len,
+                                 s1.max_sen_len, True)
+    test_arr = build_doc_arrays(test_docs, tokenizer, s1.max_doc_len,
+                                s1.max_sen_len, True)
+
+    enc = dataclasses.replace(_encoder_preset(args.encoder, language),
+                              vocab_size=tokenizer.vocab_size)
+    logger = JsonlLogger(args.log_dir or "emotion_logs", "stage1")
+    _, best, pair_file = train_stage1(s1, enc, train_arr, test_arr,
+                                      tokenizer, logger, device=device)
+    logger.close()
+    print(json.dumps({"best_f1": best[2], "pair_file": pair_file}))
+    return 0
+
+
+def cmd_dann(args) -> int:
+    """Clause-level DANN emotion classifier (emotion_classifier.py:448-553):
+    imbalanced-sampled source training + full-set pseudo-label
+    self-training, with the gradient-reversal domain loss on by default
+    (--no_domain_loss reproduces the reference's shipped recipe)."""
+    import os
+
+    from carel_tpu_torch.data.tokenizer import build_tokenizer
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.stage1.dann_driver import (DannConfig,
+                                                    read_clause_data,
+                                                    run_dann)
+    from carel_tpu_torch.train.logging import JsonlLogger
+
+    device = resolve_device(args.device)
+    language = args.language or "zh"
+    _stage1_scope(language, args.hf_encoder)
+    cfg = DannConfig(
+        source_domain=args.source_domain or "society",
+        target_domain=args.target_domain or "finance",
+        doc_dir=args.doc_dir or "domains/THUCTC_multiple",
+        epochs=args.epochs if args.epochs is not None else 20,
+        self_iteration=(args.self_iteration
+                        if args.self_iteration is not None else 5),
+        self_epochs=(args.self_epochs
+                     if args.self_epochs is not None else 10),
+        batch_size=args.batch_size or 32,
+        learning_rate=args.vae_lr if args.vae_lr is not None else 1e-5,
+        domain_weight=args.domain_weight,
+        max_len=args.max_len or 128,
+        use_domain_loss=not args.no_domain_loss,
+    )
+    src, tgt = (os.path.join(args.data_root, cfg.doc_dir, f"{dom}.txt")
+                for dom in (cfg.source_domain, cfg.target_domain))
+    corpus = read_clause_data(src)[0] + read_clause_data(tgt)[0]
+    os.makedirs(args.cache_dir, exist_ok=True)
+    tokenizer = build_tokenizer(
+        language, corpus,
+        os.path.join(args.cache_dir, f"tokenizer_{language}.json"))
+    enc = dataclasses.replace(_encoder_preset(args.encoder, language),
+                              vocab_size=tokenizer.vocab_size)
+    logger = JsonlLogger(args.log_dir or "emotion_logs", "dann")
+    res = run_dann(cfg, enc, tokenizer, args.data_root, logger,
+                   device=device, max_clauses=args.max_test_docs)
+    logger.close()
+    print(json.dumps({"base": res["base"], "best": res["best"]}))
+    return 0
+
+
 def cmd_presets(_args) -> int:
     for name, cfg in sorted(PRESETS.items()):
         print(f"{name}: regularizer={cfg.loss.regularizer.value}, "
@@ -364,6 +482,39 @@ def build_parser() -> argparse.ArgumentParser:
     p_inf.add_argument("--model_id", default="")
     p_inf.add_argument("--output_dir", default="")
     p_inf.set_defaults(fn=cmd_infer)
+    p_s1 = sub.add_parser("stage1", help="doc-level emotion + pair files")
+    _add_common_args(p_s1)
+    p_s1.add_argument("--clause_mixer", default="bilstm",
+                      choices=["bilstm", "transformer"])
+    p_s1.add_argument("--carried_adam", action="store_true",
+                      help="use a standard carried Adam instead of the "
+                           "reference's fresh-Adam-per-step quirk")
+    p_s1.add_argument("--save_dir", default="",
+                      help="pair-file directory (default pair_data/"
+                           "predicted_emotion/source_<source_domain>)")
+    p_s1.add_argument("--doc_dir", default="",
+                      help="override the doc-file directory (e.g. "
+                           "domains/THUCTC_multiple for the zh old split)")
+    p_s1.add_argument("--hf_encoder", default="",
+                      help="a local HF encoder checkpoint (not ported yet: "
+                           "raises)")
+    p_s1.set_defaults(fn=cmd_stage1)
+    p_dann = sub.add_parser(
+        "dann", help="clause-level DANN emotion classifier "
+                     "(emotion_classifier.py)")
+    _add_common_args(p_dann)
+    p_dann.add_argument("--doc_dir", default="",
+                        help="domain-file dir under data_root "
+                             "(default domains/THUCTC_multiple)")
+    p_dann.add_argument("--domain_weight", type=float, default=3.0,
+                        help="GRL lambda (reference default 3)")
+    p_dann.add_argument("--no_domain_loss", action="store_true",
+                        help="drop the adversarial domain term, exactly "
+                             "like the reference's shipped train loop")
+    p_dann.add_argument("--hf_encoder", default="",
+                        help="a local HF encoder checkpoint (not ported "
+                             "yet: raises)")
+    p_dann.set_defaults(fn=cmd_dann)
     p_pre = sub.add_parser("presets", help="list presets")
     p_pre.set_defaults(fn=cmd_presets)
     return parser

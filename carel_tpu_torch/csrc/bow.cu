@@ -11,8 +11,9 @@
 // (sweep 2). The TPU kernel sums Q = sum 1/(1-p) = V + Qp instead; at
 // V ~ 24k an fp32 Q keeps only ~2e-3 of its O(1) part, and the backward's
 // A = V - (1-c) Q + ... cancels down to that part, so the port carries Qp.
-// The sparse part (z at the <= T bag-of-words indices) and the scatter
-// corrections of the backward stay in plain torch.
+// The sparse part of the forward (z at the <= T bag-of-words indices) stays
+// in plain torch; K4 adds the backward's corrections at those indices to G
+// itself, in a fixed order (below).
 //
 // What bounds it on this card: operations. At the training shape (B = 64,
 // D = 48, V = 23,808) one evaluation of z is 2*B*D*V ~ 146 MFLOP of fp32
@@ -52,6 +53,18 @@
 //       Operations bound the function: 3 * 2*B*D*V ~ 440 MFLOP of fp32 FMAs,
 //       ~6.6 us on the CUDA cores, one product ~2.3 us at an SM's 128 FMAs a
 //       cycle; the loads of W, the barrier and the merge come on top.
+//       The corrections at the bag-of-words indices, corr[r, t] at
+//       column idx[r, t] of G (B*T of them: the TPU adds their products
+//       with XLA's scatter-add; float atomics would add them in the order
+//       they land, and two runs would differ in their last bits, which bf16
+//       carries on through training), are added to the block's piece of G
+//       in shared memory before the products: a warp a row, 32 entries a
+//       load, and the entries of the row that fall in the chunk (about one
+//       in 130) added one at a time in ascending t, so a column that holds
+//       an index twice adds in that order; a correction of 0 (an empty
+//       slot) is passed over. dW, db and dh then carry them
+//       with the dense part, and no atomics, no sort and no second launch
+//       are needed.
 // No float atomics anywhere, so every output repeats bit for bit.
 
 #include <cooperative_groups.h>
@@ -452,6 +465,10 @@ struct BwdArgs {
   float* db;    // [V]
   float* dh;    // [B][D]
   float* part;  // [gridDim.x][B][D]: each block's partial dh
+  const long long* idx;  // [B][T]: the BoW indices (any column outside V
+                         // adds nothing)
+  const float* corr;     // [B][T]: the corrections to G at them (0: none)
+  int T;
 };
 
 // K4, launched cooperatively like K3: the barrier before the merge of dh
@@ -531,6 +548,36 @@ __global__ void __launch_bounds__(kFwdThreads) bow_bwd_kernel(BwdArgs a) {
       // G of the rows < rows; the rows past them are not read
       chunk_logits(hs, Ws, d4, ksplit, ld, cols_pad, rows, Gs, ldz,
                    GradOfLogit{bs, rp, ncols});
+      __syncthreads();
+      // the corrections of these rows that fall in the chunk: a warp a
+      // row, and in a row one entry at a time, t ascending. A warp asks
+      // for four loads of 32 entries before it looks at them. An entry
+      // whose correction is 0 (an empty slot, index 0) adds nothing and
+      // is passed over: otherwise the block of column 0 would take every
+      // empty slot of every row, one at a time.
+      for (int r = warp; r < rows; r += kFwdWarps) {
+        const long long* ir = a.idx + (size_t)(r0 + r) * a.T;
+        const float* cr = a.corr + (size_t)(r0 + r) * a.T;
+        for (int t0 = 0; t0 < a.T; t0 += 4 * 32) {
+          long long c[4];
+          float x[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int t = t0 + 32 * q + lane;
+            c[q] = t < a.T ? ir[t] - v0 : -1;
+            x[q] = t < a.T ? cr[t] : 0.f;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const bool in = c[q] >= 0 && c[q] < ncols && x[q] != 0.f;
+            for (unsigned m = __ballot_sync(0xffffffffu, in); m;
+                 m &= m - 1) {
+              if (lane == __ffs(m) - 1) Gs[r * ldz + (int)c[q]] += x[q];
+              __syncwarp();
+            }
+          }
+        }
+      }
       __syncthreads();
 
       // dW[c, k] of these rows = sum_r G[r, c] h[r, k], r ascending. A
@@ -809,9 +856,11 @@ long long carel_bow_bwd_scratch(int B, int D, int V, int grid) {
 // carel_bow_bwd_scratch(B, D, V, grid) floats.
 int carel_bow_bwd_planned(const float* h, const float* W, const float* b,
                           int B, int D, int V, int cols, int grid,
-                          const float* rowp, float* dW, float* db, float* dh,
-                          float* scratch, void* stream) {
-  if (bad_shape(B, D, V) || cols < 1 || cols > kFwdMaxCols || grid < 1)
+                          const float* rowp, const long long* idx,
+                          const float* corr, int T, float* dW, float* db,
+                          float* dh, float* scratch, void* stream) {
+  if (bad_shape(B, D, V) || cols < 1 || cols > kFwdMaxCols || grid < 1 ||
+      T < 1 || idx == nullptr || corr == nullptr)
     return (int)cudaErrorInvalidValue;
   const int chunks = (V + cols - 1) / cols;
   if (grid > chunks) return (int)cudaErrorInvalidValue;
@@ -828,25 +877,28 @@ int carel_bow_bwd_planned(const float* h, const float* W, const float* b,
   if (err != cudaSuccess) return (int)err;
   if ((long long)resident * c.sms < grid)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  BwdArgs a = {h, W, b, rowp, B, D, V, cols, chunks, dW, db, dh, scratch};
+  BwdArgs a = {h,  W,  b,  rowp,    B,   D,    V, cols, chunks,
+               dW, db, dh, scratch, idx, corr, T};
   void* args[] = {&a};
   return (int)cudaLaunchCooperativeKernel((const void*)bow_bwd_kernel,
                                           dim3(grid), dim3(kFwdThreads), args,
                                           smem, (cudaStream_t)stream);
 }
 
-// K4: dW [V, D], db [V], dh [B, D] of the dense part of the loss, in K3's
-// cut of V. scratch: carel_bow_bwd_scratch(B, D, V, 0) floats.
+// K4: dW [V, D], db [V], dh [B, D] of the loss, in K3's cut of V: the
+// dense part, and the corrections corr [B, T] at the BoW indices idx
+// [B, T]. scratch: carel_bow_bwd_scratch(B, D, V, 0) floats.
 int carel_bow_bwd(const float* h, const float* W, const float* b, int B, int D,
-                  int V, const float* rowp, float* dW, float* db, float* dh,
+                  int V, const float* rowp, const long long* idx,
+                  const float* corr, int T, float* dW, float* db, float* dh,
                   float* scratch, void* stream) {
   if (bad_shape(B, D, V)) return (int)cudaErrorInvalidValue;
   Card c;
   const cudaError_t err = card(&c);
   if (err != cudaSuccess) return (int)err;
   const FwdPlan p = fwd_plan(B, D, V, c);
-  return carel_bow_bwd_planned(h, W, b, B, D, V, p.cols, p.grid, rowp, dW, db,
-                               dh, scratch, stream);
+  return carel_bow_bwd_planned(h, W, b, B, D, V, p.cols, p.grid, rowp, idx,
+                               corr, T, dW, db, dh, scratch, stream);
 }
 
 }  // extern "C"

@@ -130,6 +130,23 @@ class ZhCharTokenizer(BaseTokenizer):
         unk = self.unk_id
         return [get(ch, unk) for ch in text if not ch.isspace()]
 
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        """The tokens of ``ids`` joined by single spaces, as the reference's
+        tokenizer.decode writes a clause into the stage-1 pair files; the
+        specials are skipped when asked and the reserved [unused...] slots
+        always."""
+        toks = []
+        for i in ids:
+            i = int(i)
+            if skip_special_tokens and i < len(self.SPECIALS):
+                continue
+            if 0 <= i < self.vocab_size:
+                t = self.vocab[i]
+                if not t.startswith("[unused"):
+                    toks.append(t)
+        return " ".join(toks)
+
 
 def build_tokenizer(
     language: str,

@@ -6,6 +6,8 @@ LinearDiscriminator and ClubNet of carel_tpu/models/discriminators.py.
 - ClubNet: the VI variant's conditional approximation network p(e|c)
   (drl_classifier_ec_vi_final.py:153-161): linear-relu-linear for mu and
   linear-relu-linear-tanh for log_var.
+- grad_reverse: the gradient-reversal layer of the clause-level DANN
+  (models/dann.py).
 """
 
 from __future__ import annotations
@@ -41,3 +43,20 @@ class ClubNet(nn.Module):
         mu = self.mu_out(F.relu(self.mu_in(cause_emb)))
         log_var = torch.tanh(self.lv_out(F.relu(self.lv_in(cause_emb))))
         return mu, log_var
+
+
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lambda_):
+        ctx.lambda_ = lambda_
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.lambda_ * g, None
+
+
+def grad_reverse(x: torch.Tensor, lambda_: float = 1.0) -> torch.Tensor:
+    """Gradient reversal (DANN): the identity forward, -lambda * g
+    backward, as carel_tpu's custom_vjp ``grad_reverse``."""
+    return _GradReverse.apply(x, float(lambda_))

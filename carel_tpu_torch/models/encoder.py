@@ -4,6 +4,9 @@ Kept from the JAX encoder:
 
 - BERT positions, and RoBERTa positions ``cumsum(mask) * mask + pad_id``;
 - token-type embeddings, the embeddings LayerNorm (eps 1e-12);
+- the word, position and token-type lookups as gathers whose backward adds
+  in a fixed order, kernel K10 on CUDA (``ops/cuda_embedding.py``), so that
+  training repeats its bits on the card;
 - the -1e9 additive mask bias, in fp32;
 - a fused qkv projection whose output is laid out (3, heads, head_dim);
 - attention as plain ops (``attention_impl="xla"``, the default): scores
@@ -36,6 +39,7 @@ from torch import nn
 from carel_tpu_torch.config import EncoderConfig
 from carel_tpu_torch.ops.cuda_attention import (flash_attention_packed,
                                                 segment_ids)
+from carel_tpu_torch.ops.cuda_embedding import embedding
 
 ATTENTION_IMPLS = ("xla", "flash")
 
@@ -196,13 +200,15 @@ class TransformerEncoder(nn.Module):
                 mask = attention_mask.long()
                 positions = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
             else:
-                positions = torch.arange(L, device=input_ids.device)[None, :]
-            x = self.word_embeddings(input_ids) + \
-                self.position_embeddings(positions)
+                positions = torch.arange(
+                    L, device=input_ids.device)[None, :].expand(B, L)
+            x = embedding(input_ids, self.word_embeddings.weight) + \
+                embedding(positions, self.position_embeddings.weight)
             if self.token_type_embeddings is not None:
                 if token_type_ids is None:
                     token_type_ids = torch.zeros_like(input_ids)
-                x = x + self.token_type_embeddings(token_type_ids.long())
+                x = x + embedding(token_type_ids.long(),
+                                  self.token_type_embeddings.weight)
             x = self.embeddings_ln(x).to(dtype)
             x = F.dropout(x, cfg.dropout, training=not deterministic)
 

@@ -9,12 +9,16 @@ kernels that replace the JAX package's Pallas kernels.
   (backward);
 - ``cuda_attention``: flash attention with a segment mask, kernels K7
   (forward), K8 (dK, dV) and K9 (dQ), behind ``attention_impl="flash"``;
+- ``cuda_embedding``: the encoder's embedding lookups with a backward that
+  adds in a fixed order, kernel K10;
 - ``native``: builds ``csrc/*.cu`` with nvcc at first use and loads it.
 """
 
-from carel_tpu_torch.ops import cuda_attention, cuda_bow, cuda_pairwise
+from carel_tpu_torch.ops import (cuda_attention, cuda_bow, cuda_embedding,
+                                 cuda_pairwise)
 
-_COUNTS = (cuda_pairwise.launches, cuda_bow.launches, cuda_attention.launches)
+_COUNTS = (cuda_pairwise.launches, cuda_bow.launches, cuda_attention.launches,
+           cuda_embedding.launches)
 
 
 def launch_counts() -> dict:

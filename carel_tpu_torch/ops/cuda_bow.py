@@ -19,12 +19,15 @@ in device memory. The nnz part (z at the <= T bag-of-words indices) runs
 here in plain torch, as it ran in XLA. The backward, with per-row
 A = c*V - (1-c)*Qp + s*Qw (Qw = sum_nnz w/(1-p_g)), is
 
-    dR/dz_v = -c + A*p_v + (1-c)*p_v/(1-p_v)     (dense part, kernel K4)
-              - s*w_v - s*w_v*p_v/(1-p_v)        (nnz corrections, index_add_)
+    dR/dz_v = -c + A*p_v + (1-c)*p_v/(1-p_v)     (dense part)
+              - s*w_v - s*w_v*p_v/(1-p_v)        (nnz corrections)
 
-The backward kernel is one launch as well: it evaluates the logits once more,
-forms G = dR/dz (dense part) from them on the chip and, from G, dW, db and
-dh.
+The backward kernel K4 is one launch as well: it evaluates the logits once
+more, forms G = dR/dz from them on the chip, adds the nnz corrections
+(computed here, per row and nnz slot) at their columns of G in a fixed order,
+and from G forms dW, db and dh. No float atomics add anything, so the
+backward gives the same bits on every run and every replay of a captured
+step (an ``index_add_`` of the corrections would not).
 
 W is the decoder's ``nn.Linear`` weight, [V, D].
 
@@ -112,11 +115,17 @@ def bow_forward_kernel(h: torch.Tensor, W: torch.Tensor,
 
 
 def bow_backward_kernel(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
-                        rowp: torch.Tensor):
-    """K4: (dW [V, D], db [V], dh [B, D]) of the dense part, with rowp [5, B]
-    = lse, A, (1-c)*gscale, c*gscale, gscale."""
+                        rowp: torch.Tensor, idx: torch.Tensor,
+                        corr: torch.Tensor):
+    """K4: (dW [V, D], db [V], dh [B, D]) with rowp [5, B] = lse, A,
+    (1-c)*gscale, c*gscale, gscale: of the dense part plus the corrections
+    corr [B, T] at the BoW indices idx [B, T] (int64; an index outside V, or
+    a correction of 0, adds nothing), each added to G in ascending t."""
     B, D, V = _check_dense(h, W, b)
     native.check_input(rowp, "rowp", (5, B), h.device)
+    T = idx.shape[-1]
+    native.check_input(idx, "idx", (B, T), h.device, torch.int64)
+    native.check_input(corr, "corr", (B, T), h.device)
     lib = native.lib()
     floats = lib.carel_bow_bwd_scratch(B, D, V, 0)
     if floats < 0:
@@ -128,9 +137,10 @@ def bow_backward_kernel(h: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     db = torch.empty_like(b)
     dh = torch.empty_like(h)
     err = lib.carel_bow_bwd(h.data_ptr(), W.data_ptr(), b.data_ptr(), B, D, V,
-                            rowp.data_ptr(), dW.data_ptr(), db.data_ptr(),
-                            dh.data_ptr(), scratch.data_ptr(),
-                            native.stream(h.device))
+                            rowp.data_ptr(), idx.data_ptr(), corr.data_ptr(),
+                            T,
+                            dW.data_ptr(), db.data_ptr(), dh.data_ptr(),
+                            scratch.data_ptr(), native.stream(h.device))
     native.check(err, "bow backward kernel")
     launches["bow_bwd"] += 1
     return dW, db, dh
@@ -140,8 +150,8 @@ def loss_from_row_sums(stats, h, W, b, bow_indices, bow_weights, mask,
                        label_smoothing):
     """The loss from the four dense row sums ``stats`` = (lse, S_z, S_log1mp,
     Qp) and the nnz part, which is computed here; also returns what the
-    backward keeps: (safe indices, valid, w, p at the indices, W's rows
-    there, the denominator)."""
+    backward keeps: (safe indices, valid, w, p at the indices, the
+    denominator)."""
     V = W.shape[0]
     c = label_smoothing / V
     s = 1.0 - label_smoothing
@@ -158,25 +168,24 @@ def loss_from_row_sums(stats, h, W, b, bow_indices, bow_weights, mask,
          + s * torch.sum(w * torch.where(valid, torch.log1p(-pg), 0.0),
                          dim=1))
     denom = torch.clamp(torch.sum(mask), min=1.0) * V
-    return torch.sum(R * mask) / denom, (safe, valid, w, pg, Wg, denom)
+    return torch.sum(R * mask) / denom, (safe, valid, w, pg, denom)
 
 
 class _FusedBow(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, W, b, bow_indices, bow_weights, mask, label_smoothing):
         stats = bow_forward_kernel(h, W, b)
-        loss, (safe, valid, w, pg, Wg, denom) = loss_from_row_sums(
+        loss, (safe, valid, w, pg, denom) = loss_from_row_sums(
             stats, h, W, b, bow_indices, bow_weights, mask, label_smoothing)
         ctx.save_for_backward(h, W, b, safe, valid, w, mask, stats[0],
-                              stats[3], pg, Wg, denom)
+                              stats[3], pg, denom)
         ctx.label_smoothing = label_smoothing
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        h, W, b, safe, valid, w, mask, lse, Qp, pg, Wg, denom = \
-            ctx.saved_tensors
-        V, D = W.shape
+        h, W, b, safe, valid, w, mask, lse, Qp, pg, denom = ctx.saved_tensors
+        V = W.shape[0]
         c = ctx.label_smoothing / V
         s = 1.0 - ctx.label_smoothing
         Qw = torch.sum(torch.where(valid, w / (1.0 - pg), 0.0), dim=1)
@@ -184,15 +193,10 @@ class _FusedBow(torch.autograd.Function):
         gscale = g * mask / denom  # per-row upstream grad x mean scaling
         rowp = torch.stack([lse, A, (1.0 - c) * gscale, c * gscale,
                             gscale]).contiguous()
-        dW, db, dh = bow_backward_kernel(h, W, b, rowp)
-
         # sparse corrections at the nnz indices: -s*w - s*w*p_g/(1-p_g)
         corr = torch.where(valid, (-s * w - s * w * pg / (1.0 - pg))
-                           * gscale[:, None], 0.0)
-        flat = safe.reshape(-1)
-        dW.index_add_(0, flat, (corr[:, :, None] * h[:, None, :]).reshape(-1, D))
-        db.index_add_(0, flat, corr.reshape(-1))
-        dh = dh + torch.einsum("bt,btd->bd", corr, Wg)
+                           * gscale[:, None], 0.0).contiguous()
+        dW, db, dh = bow_backward_kernel(h, W, b, rowp, safe, corr)
         return dh, dW, db, None, None, None, None
 
 

@@ -58,15 +58,17 @@ def kernel_calls(cs) -> dict:
     _, mres = cp.mmd_forward_kernel(x, y, mask, alphas)
     hx, hy, hmask = cs.hsic_inputs(64, 0, cs.HSIC_SPREAD)
     _, res = cp.hsic_forward_kernel(hx, hy, hmask, 1.0, 1.0)
-    h, W, b, _, _, bmask = cs.bow_inputs()
+    h, W, b, bidx, _, bmask = cs.bow_inputs()
     rowp = cs.bow_rowp(cb.bow_forward_kernel(h, W, b), bmask, W.shape[0])
+    safe, corr = cs.bow_corrections(bidx)
     return {
         "floor": lambda: cell.fill_(1.0),
         "mmd_fwd": lambda: cp.mmd_forward_kernel(x, y, mask, alphas),
         "mmd_bwd": lambda: cp.mmd_backward_kernel(x, y, mask, mres, one,
                                                   alphas),
         "bow_fwd": lambda: cb.bow_forward_kernel(h, W, b),
-        "bow_bwd": lambda: cb.bow_backward_kernel(h, W, b, rowp),
+        "bow_bwd": lambda: cb.bow_backward_kernel(h, W, b, rowp, safe,
+                                                  corr),
         "hsic_fwd": lambda: cp.hsic_forward_kernel(hx, hy, hmask, 1.0, 1.0),
         "hsic_bwd": lambda: cp.hsic_backward_kernel(hx, hy, hmask, 1.0, 1.0,
                                                     res, one),

@@ -1,4 +1,5 @@
-"""Evaluation metrics: binary precision/recall/F1 with forced-miss padding.
+"""Evaluation metrics: binary precision/recall/F1 with forced-miss padding,
+and stage 1's micro P/R/F1 over clauses.
 
 Port of carel_tpu/train/metrics.py (the reference's metric, flagship
 :868-870, including sklearn's 0-when-undefined convention). The forced-miss
@@ -39,3 +40,30 @@ def prf_with_forced_misses(
         labels = np.concatenate([labels, np.ones(num_unpred_pairs, np.int64)])
         preds = np.concatenate([preds, np.zeros(num_unpred_pairs, np.int64)])
     return binary_prf(labels, preds)
+
+
+def micro_prf(
+    pred_y: np.ndarray,
+    true_y: np.ndarray,
+    doc_len: np.ndarray,
+    labels=(0, 1, 2, 3, 4, 5),
+) -> Tuple[float, float, float]:
+    """Stage-1 micro-averaged P/R/F1 over the clauses of each document (up
+    to doc_len), over the classes in ``labels`` (acc_prf,
+    data_process.py:149-159): the null class 6 is left out, so P, R and F1
+    differ as sklearn's labels=[0..5] micro average makes them."""
+    flat_p, flat_t = [], []
+    for i in range(len(doc_len)):
+        d = int(doc_len[i])
+        flat_p.extend(np.asarray(pred_y[i][:d]).tolist())
+        flat_t.extend(np.asarray(true_y[i][:d]).tolist())
+    flat_p = np.asarray(flat_p)
+    flat_t = np.asarray(flat_t)
+    label_set = list(set(labels))
+    tp = sum(int(((flat_p == c) & (flat_t == c)).sum()) for c in label_set)
+    pred_in = int(np.isin(flat_p, label_set).sum())
+    true_in = int(np.isin(flat_t, label_set).sum())
+    p = tp / pred_in if pred_in else 0.0
+    r = tp / true_in if true_in else 0.0
+    f1 = 2 * p * r / (p + r) if (p + r) > 0 else 0.0
+    return p, r, f1

@@ -6,7 +6,7 @@ Phases, in order; any failure exits non-zero and no phase carries on after
 an error:
 
 1. device: require CUDA; print the nvidia-smi name and power limit line;
-2. build: compile the hand-written kernels K1-K9 from carel_tpu_torch/csrc;
+2. build: compile the hand-written kernels K1-K10 from carel_tpu_torch/csrc;
 3. kernels: hold each kernel against its plain PyTorch version at the shapes
    of the training step (fp32; HSIC against the plain version evaluated in
    float64, at two input scales), print errors, median times by CUDA events
@@ -27,16 +27,29 @@ an error:
    in fp32 (CUDA-core kernels) and bf16 (tensor-core kernels), at the
    training and the inference shape, at a ragged tiny
    one, at L over one block's rows (200, 513), at hd = 128 and with pad
-   tails longer than one tile of keys, with an all-pad row and a row
-   without pads, in the stock and the packed layout, and require two runs
-   to give the same bits; time every kernel, its plain version and, for
-   K7-K9, the library call by CUDA events and by the profiler's device time
-   per call, and the host's cost of one launch;
+   tails longer than one tile of keys, at the stage-1 clause batch
+   [300, 12, 60, 64] with most rows all pads and the DANN batch
+   [32, 12, 128, 64], with an all-pad row and a row without pads, in the
+   stock and the packed layout, and require two runs to give the same
+   bits; hold the BoW backward with many duplicate indices (K4 adds the
+   corrections at the indices to G in a fixed order): bit-equal over two
+   runs and over two replays of a CUDA graph, within the BoW gate of the
+   plain version, and time what the corrections cost K4; hold the
+   embeddings' backward (K10, every index's entries added in position
+   order) at the stage-2 and stage-1 batches, with Zipf-like ids and with
+   one id in every entry: bit-equal over two runs and two graph replays,
+   within 1e-5 normwise of index_add_; over the token types' table of two
+   rows, five runs bit-equal beside torch's embedding backward; time every kernel, its plain version
+   and, for K7-K10, the library call by CUDA events and by the profiler's
+   device time per call, and the host's cost of one launch, K7-K9 also at
+   the stage-1 and DANN shapes;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights, batch and noise, under
    the flagship's MMD (with the default and the flash attention), ec_hsic,
    ec_gan and ec_vi_final (with the same batch permutation and vi_beta);
-   loss, gradients and updated weights of every group must agree;
+   loss, gradients and updated weights of every group must agree; likewise
+   a stage-1 step under each clause mixer (the BiLSTM on cuDNN) and a DANN
+   step (params and the batch norm's running statistics);
 5. main paths, each at full width (12L/768H encoder, vocab 21,128, ec_dim
    24, BoW vocab 23,808, max_len 96, batch 64) on random weights from a
    seed, on a synthetic target domain (documents of 3-12 clauses with all
@@ -50,16 +63,17 @@ an error:
    and the path's kernels must launch on every training step, base and
    self-training alike; then one more epoch moves the params and the best
    is reloaded from disk:
-   - the flagship preset (MMD: K1-K4), one self-training iteration with
-     temporal_order_modification;
-   - ec_hsic (binary emotion, HSIC: K3-K6), two self-training iterations of
-     one epoch each with the random strategy;
-   - ec_gan (binary emotion, the discriminators and their RMSprop: K3-K4)
-     and ec_vi_final (the CLUB net, its Adam and the two-phase step: K3-K4),
+   - the flagship preset (MMD: K1-K4 and K10), one self-training iteration
+     with temporal_order_modification;
+   - ec_hsic (binary emotion, HSIC: K3-K6 and K10), two self-training
+     iterations of one epoch each with the random strategy;
+   - ec_gan (binary emotion, the discriminators and their RMSprop: K3, K4,
+     K10) and ec_vi_final (the CLUB net, its Adam and the two-phase step:
+     K3, K4, K10),
      one self-training iteration each with the random strategy; the disc
      params must move under ec_gan only, the club params under ec_vi_final
      only, the frozen latent heads on no path;
-   - the flagship preset with attention_impl="flash" (K1-K4 and K7-K9),
+   - the flagship preset with attention_impl="flash" (K1-K4, K7-K10),
      train then serve: one base epoch, evaluation and the best checkpoint
      saved; the checkpoint loaded into a fresh model; run_pair_inference
      over a larger synthetic target domain of 21 batches of 512 (p50 and
@@ -70,24 +84,42 @@ an error:
      training step and every evaluation, inference and scoring batch, K8
      and K9 once per layer on every training step, and no flash kernel on
      the four paths above;
+   - stage 1 (the stage1 verb's trainer) at 4 documents x 75 clauses x 60
+     tokens on synthetic documents (3-75 clauses, 3-20 to test): one base epoch
+     and one self-training epoch that writes the pair file, once with the
+     BiLSTM, the default attention and the fresh-Adam quirk, once with the
+     clause transformer, flash attention (K7-K9 once a layer on every forward)
+     and a carried Adam; K10 three times a step; the pair file holds the best
+     snapshot's predictions and reads back through build_pairs(test=True) with
+     the forced misses they give and at least one predicted pair, the best
+     snapshot is a copy of the params, and three steps from one state repeat
+     their bits;
+   - the clause-level DANN (the dann verb's driver) at 32 clauses x 128
+     tokens: one base epoch and one self-training iteration, K10 three
+     times a step; the running statistics move, the gradient reversal
+     sends the domain head's gradient back to the features as -lambda
+     times itself, and three steps from one state repeat their bits;
 6. capture: each of the five step variants at full width, from one initial
-   state, one epoch of the eager per-step loop (prefetched, as
-   --no_scan_epoch runs it) and one through the captured epoch step, both
-   with torch's deterministic algorithms (the BoW backward's index_add_
-   otherwise adds in the order its atomics land, and bf16 carries that
-   on): per-batch losses within rel 1e-5, params within 2 x their lr, the
-   generators alike, the disc, club and frozen groups moving as on the
-   paths; then, as the paths run (no deterministic algorithms), three more
-   epochs of each timed (the median's wall ms/step) and one profiled
-   (device ms/step, busy share, kernels/step; each path kernel once a
-   step, K7-K9 once a layer), with each run's peak memory; and the
+   state, as the paths run it: one epoch of the eager per-step loop
+   (prefetched, as --no_scan_epoch runs it) and one through the captured
+   epoch step: per-batch losses within rel 1e-5, params within 2 x their
+   lr, the generators alike, the disc, club and frozen groups moving as on
+   the paths; a second eager and a second captured run from the same state
+   must repeat the first epoch's losses and params bit for bit, and a third
+   eager run under torch's deterministic algorithms (warn_only) must too,
+   with no warning of an op without a deterministic version; the second
+   runs then take three more epochs timed (the median's wall ms/step) and
+   one profiled (device ms/step, busy share, kernels/step; each path kernel
+   once a step, K7-K9 once a layer), with each run's peak memory; and the
    sensitivity case: the tiny flagship and vi with kl_ann_iterations 4,
    vi_beta 0 then 0.5 and the lr halved between two epochs, captured
    against eager as above.
 
 Then one line a variant and kind compares its step with the captured
 flagship's: device ms/step, kernels/step, wall ms/step with the device's
-busy share, peak memory.
+busy share, peak memory; and one line each for the stage-1 and DANN paths:
+wall and device ms/step, kernels/step, documents/s or clauses/s, peak
+memory.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` is the sum over the main paths, ``launches_by_path`` splits
@@ -150,8 +182,9 @@ def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-# windows that device_profile profiled, and those without a device event
-PROFILE_WINDOWS = {"profiled": 0, "empty": 0}
+# windows that device_profile and profile_epoch profiled, those without a
+# device event, and the epochs whose profile missed a path kernel's launch
+PROFILE_WINDOWS = {"profiled": 0, "empty": 0, "short": 0}
 
 
 def device_profile(fn, iters: int = 30, warmup: int = 5):
@@ -611,6 +644,17 @@ def bow_rowp(stats: torch.Tensor, mask: torch.Tensor, V: int) -> torch.Tensor:
                         mask / (B * V)]).contiguous()
 
 
+def bow_corrections(idx: torch.Tensor):
+    """(safe indices, corrections) [B, T] as the BoW backward hands them to
+    K4: the indices with 0 where a slot is empty, and normal values of std
+    1e-4 from a seed where it is not, 0 where it is."""
+    valid = idx >= 0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    corr = torch.randn(idx.shape, device="cuda", generator=gen) * 1e-4
+    return (torch.where(valid, idx, 0).long().contiguous(),
+            torch.where(valid, corr, 0.0).contiguous())
+
+
 def bow_case(B: int, V: int, masked: int):
     """K3 and K4 through fused_bow_loss against the plain version at one
     shape: value rtol 1e-5, gradients normwise 1e-4; two runs of K3 and two
@@ -633,9 +677,10 @@ def bow_case(B: int, V: int, masked: int):
     if not torch.equal(stats, cb.bow_forward_kernel(h, W, b)):
         fail(f"bow B={B} V={V}: two runs of the forward kernel differ")
     rowp = bow_rowp(stats, mask, V)
+    safe, corr = bow_corrections(idx)
     if not all(torch.equal(u, v) for u, v in zip(
-            cb.bow_backward_kernel(h, W, b, rowp),
-            cb.bow_backward_kernel(h, W, b, rowp))):
+            cb.bow_backward_kernel(h, W, b, rowp, safe, corr),
+            cb.bow_backward_kernel(h, W, b, rowp, safe, corr))):
         fail(f"bow B={B} V={V}: two runs of the backward kernel differ")
     print(f"bow B={B} D={D} V={V}: value {vk:.8e} vs plain "
           f"{vp:.8e} rel {rel:.2e}; grads normwise rel "
@@ -662,12 +707,16 @@ def phase_bow(records: dict) -> None:
     h, W, b, idx, wts, mask = bow_inputs()
     B, D = h.shape
     V = W.shape[0]
+    T = idx.shape[1]
     rowp = bow_rowp(cb.bow_forward_kernel(h, W, b), mask, V)
+    safe, corr = bow_corrections(idx)
     t = {
         "fwd": timed(lambda: cb.bow_forward_kernel(h, W, b),
                      lambda: cb.fused_bow_loss_plain(h, W, b, idx, wts, 0.1,
                                                      mask)),
-        "bwd": timed(lambda: cb.bow_backward_kernel(h, W, b, rowp),
+        # as the backward calls it: with the corrections at the indices
+        "bwd": timed(lambda: cb.bow_backward_kernel(h, W, b, rowp, safe,
+                                                    corr),
                      lambda: torch.autograd.grad(val_p, leaves_p,
                                                  retain_graph=True)),
     }
@@ -677,7 +726,8 @@ def phase_bow(records: dict) -> None:
     # operations per logit (forward); z, dW and dh products and ~10 per
     # logit (backward)
     fwd_b = bound_ms(w_bytes + 4 * B * D + 4 * 4 * B, zflops + 8 * B * V)
-    bwd_b = bound_ms(2 * w_bytes + 2 * 4 * B * D + 4 * 5 * B,
+    # the backward also reads the corrections and their indices once
+    bwd_b = bound_ms(2 * w_bytes + 2 * 4 * B * D + 4 * 5 * B + 12 * B * T,
                      3 * zflops + 10 * B * V)
     for name, line, bnd, key in (("bow_fwd", 52, fwd_b, "fwd"),
                                  ("bow_bwd", 119, bwd_b, "bwd")):
@@ -689,6 +739,212 @@ def phase_bow(records: dict) -> None:
             "max_abs_err": err_v if key == "fwd" else err_g, **t[key],
             "bound_ms": bnd[0], "bound_by": bnd[1]}
         print_times(name, records[name])
+
+
+def dup_bow_inputs(words: int, B=64, T=128, seed=9):
+    """BoW indices and weights of rows of 8-48 terms drawn from only
+    ``words`` words, with repeats inside a row: each index is shared by
+    many rows (up to ~50 entries an index at words = 40)."""
+    rng = np.random.default_rng(seed + words)
+    idx = np.full((B, T), -1, np.int64)
+    wts = np.zeros((B, T), np.float32)
+    for r in range(B):
+        k = int(rng.integers(8, 48))
+        idx[r, :k] = rng.integers(0, words, k)
+        cnt = rng.integers(1, 4, size=k).astype(np.float32)
+        wts[r, :k] = cnt / cnt.sum()
+    return (torch.tensor(idx, device="cuda"),
+            torch.tensor(wts, device="cuda"))
+
+
+def phase_bow_corrections(records: dict) -> None:
+    """The backward's corrections at the BoW indices, which K4 adds to G
+    in a fixed order (row by row, t ascending): with many duplicate indices
+    (few words) and with the training vocabulary, the whole backward must
+    give the same bits over two runs and over two replays of a CUDA graph
+    of the forward and backward, and stay within the existing 1e-4 normwise
+    gate of the plain version. Then what they cost K4 at the training
+    shape, beside the index_add_ pair and product they replace."""
+    from carel_tpu_torch.ops import cuda_bow as cb
+
+    # the training batch, and 100 rows (two groups of K4's 64 rows)
+    for B, words in ((64, 40), (64, 23808), (100, 40)):
+        h, W, b, _, _, mask = bow_inputs(B=B)
+        idx, wts = dup_bow_inputs(words, B=B)
+        leaves = [t.clone().requires_grad_(True) for t in (h, W, b)]
+
+        def grads():
+            return torch.autograd.grad(
+                cb.fused_bow_loss(*leaves, idx, wts, 0.1, mask), leaves)
+
+        first = grads()
+        if not all(torch.equal(u, v) for u, v in zip(first, grads())):
+            fail(f"bow corrections (B={B}, {words} words): two backward "
+                 "runs differ")
+        if not replays_bit_equal(grads):
+            fail(f"bow corrections (B={B}, {words} words): graph replays "
+                 "differ from the eager backward")
+        plain = [t.clone().requires_grad_(True) for t in (h, W, b)]
+        gp = torch.autograd.grad(
+            cb.fused_bow_loss_plain(*plain, idx, wts, 0.1, mask), plain)
+        rel = {n: relnorm(a, c) for n, a, c in zip(("dh", "dW", "db"),
+                                                   first, gp)}
+        runs = torch.unique(idx[idx >= 0], return_counts=True)[1]
+        print(f"bow corrections, B={B}, {words} words ({int(runs.max())} "
+              f"entries at most an index): backward normwise rel "
+              + " ".join(f"{n} {v:.2e}" for n, v in rel.items())
+              + "; two runs and two graph replays bit-equal", flush=True)
+        if not max(rel.values()) <= 1e-4:
+            fail(f"bow corrections: normwise rel err {max(rel.values()):.2e}"
+                 " > 1e-4")
+
+    # what the corrections cost at the training shape: K4 with them against
+    # K4 with the same slots all 0 (each passed over, so G stays the dense
+    # part), and the index_add_ pair and product they replace
+    h, W, b, idx, wts, mask = bow_inputs()
+    B, D = h.shape
+    V = W.shape[0]
+    rowp = bow_rowp(cb.bow_forward_kernel(h, W, b), mask, V)
+    safe, corr = bow_corrections(idx)
+    zeros = torch.zeros_like(corr)
+    with_corr = cb.bow_backward_kernel(h, W, b, rowp, safe, corr)
+    dense = cb.bow_backward_kernel(h, W, b, rowp, safe, zeros)
+    flat = safe.reshape(-1)
+
+    def replaced():  # the backward's former corrections
+        dW = dense[0].index_add_(0, flat, (corr[:, :, None] * h[:, None, :])
+                                 .reshape(-1, D))
+        db = dense[1].index_add_(0, flat, corr.reshape(-1))
+        return dW, db, torch.einsum("bt,btd->bd", corr, W[safe])
+
+    want = [t.clone() for t in dense]
+    want[0].index_add_(0, flat, (corr[:, :, None] * h[:, None, :])
+                       .reshape(-1, D))
+    want[1].index_add_(0, flat, corr.reshape(-1))
+    want[2] += torch.einsum("bt,btd->bd", corr, W[safe])
+    fold_err = max(relnorm(a, c) for a, c in zip(with_corr, want))
+    if not fold_err <= 1e-5:
+        fail(f"K4's corrections off index_add_ by {fold_err:.2e} normwise")
+    costs = {
+        "with": device_profile(lambda: cb.bow_backward_kernel(
+            h, W, b, rowp, safe, corr)),
+        "without": device_profile(lambda: cb.bow_backward_kernel(
+            h, W, b, rowp, safe, zeros)),
+        "replaced": device_profile(replaced)}
+    rec = records["bow_bwd"]
+    rec.update(corrections_device_ms=costs["with"][0] - costs["without"][0],
+               without_corrections_device_ms=costs["without"][0],
+               replaced_corrections_device_ms=costs["replaced"][0],
+               replaced_corrections_kernels=costs["replaced"][1])
+    print(f"bow corrections at B={B} T={idx.shape[1]} "
+          f"({int((idx >= 0).sum())} entries): K4 with them "
+          f"{costs['with'][0]:.4f} ms, with them all 0 "
+          f"{costs['without'][0]:.4f} ms "
+          f"(device, {costs['with'][1]:g} and {costs['without'][1]:g} "
+          f"kernels); the index_add_ pair and product they replace "
+          f"{costs['replaced'][0]:.4f} ms in {costs['replaced'][1]:g} "
+          f"kernels; K4's dW, db, dh vs dense + index_add_ normwise "
+          f"{fold_err:.2e}", flush=True)
+
+
+def phase_embedding(records: dict) -> None:
+    """K10, the embeddings' backward in a fixed order, at the stage-2 batch
+    (64 x 96 ids) and the stage-1 batch (300 x 60), with Zipf-like ids (a
+    few in long runs) and with one id in every entry: two runs and two
+    replays of a CUDA graph bit-equal, within 1e-5 normwise of index_add_,
+    and whether three runs of torch's embedding backward on the same inputs
+    give the same bits (printed); over the token types' table of two rows,
+    five runs of K10 bit-equal, beside torch's embedding backward there
+    (printed); K10 timed at both batches beside torch's embedding backward
+    (the plain version and the library call)."""
+    import torch.nn.functional as F
+
+    from carel_tpu_torch.ops import cuda_embedding as ce
+
+    V, D = 21128, 768
+    err = 0.0
+    for n, case in ((64 * 96, "zipf"), (64 * 96, "one"), (300 * 60, "zipf"),
+                    (300 * 60, "one")):
+        rng = np.random.default_rng(n)
+        ids = (np.minimum(rng.zipf(1.3, n) - 1, V - 1) if case == "zipf"
+               else np.zeros(n, np.int64))
+        ids = torch.tensor(ids, dtype=torch.long, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        g = torch.randn(n, D, device="cuda", generator=gen)
+        first = ce.embedding_backward_kernel(ids, g, V)
+        if not torch.equal(first, ce.embedding_backward_kernel(ids, g, V)):
+            fail(f"embedding backward ({n} ids, {case}): two runs differ")
+        if not replays_bit_equal(
+                lambda: (ce.embedding_backward_kernel(ids, g, V),)):
+            fail(f"embedding backward ({n} ids, {case}): graph replays "
+                 "differ")
+        want = torch.zeros(V, D, device="cuda").index_add_(0, ids, g)
+        rel = relnorm(first, want)
+        err = max(err, float((first - want).abs().max()))
+        longest = int(torch.bincount(ids).max())
+        w = torch.zeros(V, D, device="cuda", requires_grad=True)
+        out = F.embedding(ids, w)
+        torch_runs = [torch.autograd.grad(out, w, g, retain_graph=True)[0]
+                      for _ in range(3)]
+        torch_same = all(torch.equal(torch_runs[0], t)
+                         for t in torch_runs[1:])
+        print(f"embedding backward, {n} ids ({case}, {longest} entries at "
+              f"most an id): two runs and two graph replays bit-equal; vs "
+              f"index_add_ normwise {rel:.2e}; three runs of torch's "
+              f"embedding backward bit-equal: {torch_same}", flush=True)
+        if not rel <= 1e-5:
+            fail(f"embedding backward off index_add_ by {rel:.2e}")
+    # the token types' table of two rows, every entry at index 0: torch's
+    # embedding backward there did not repeat its bits on the card
+    for n in (64 * 96, 300 * 60):
+        ids = torch.zeros(n, dtype=torch.long, device="cuda")
+        g = torch.randn(n, D, device="cuda")
+        w = torch.zeros(2, D, device="cuda", requires_grad=True)
+        out = F.embedding(ids, w)
+        runs = {"torch's embedding": [
+            torch.autograd.grad(out, w, g, retain_graph=True)[0]
+            for _ in range(5)],
+            "K10": [ce.embedding_backward_kernel(ids, g, 2)
+                    for _ in range(5)]}
+        same = {name: all(torch.equal(r[0], t) for t in r[1:])
+                for name, r in runs.items()}
+        print(f"token-type table (2 rows), {n} entries of index 0: five "
+              f"backward runs bit-equal: {same}", flush=True)
+        if not same["K10"]:
+            fail("embedding backward over two rows: five runs differ")
+
+    times = {}
+    for n in (64 * 96, 300 * 60):
+        ids = torch.tensor(np.minimum(
+            np.random.default_rng(1).zipf(1.3, n) - 1, V - 1),
+            dtype=torch.long, device="cuda")
+        g = torch.randn(n, D, device="cuda")
+        w = torch.randn(V, D, device="cuda", requires_grad=True)
+        out = F.embedding(ids, w)
+
+        def torch_backward():
+            return torch.autograd.grad(out, w, g, retain_graph=True)
+
+        t = times[n] = timed(
+            lambda: ce.embedding_backward_kernel(ids, g, V), torch_backward,
+            torch_backward)
+        # ids and g read once, dW written once; one add per element of g
+        t["bound_ms"], t["bound_by"] = bound_ms(8 * n + 4 * n * D
+                                                + 4 * V * D, n * D)
+        print(f"emb_bwd at {n} ids: device {t['device_ms']:.4f} ms in "
+              f"{t['kernels_per_call']:g} kernels (torch's "
+              f"{t['plain_device_ms']:.4f}); by events {t['ms']:.4f} ms "
+              f"(torch's {t['plain_ms']:.4f}); bound {t['bound_ms']:.6f} ms",
+              flush=True)
+    t = times[64 * 96]
+    records["emb_bwd"] = {
+        "name": "emb_bwd", "route": "cuda",
+        "source": "carel_tpu_torch/csrc/embedding.cu",
+        "replaces": "carel_tpu/models/encoder.py:132, :134, :140 (nn.Embed; XLA's "
+                    "scatter-add of its gather, no Pallas kernel)",
+        "launches": 0, "max_abs_err": err, **t,
+        "stage1_batch": times[300 * 60]}
+    print_times("emb_bwd", records["emb_bwd"])
 
 
 def phase_scores() -> None:
@@ -740,15 +996,18 @@ FLASH_GATES = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (6e-3, 8e-3)}
 
 
 def flash_inputs(B: int, h: int, L: int, hd: int, dtype, seed: int,
-                 min_tail: int = 0):
+                 min_tail: int = 0, pad_rows: float = 0.0):
     """q, k, v and a cotangent, N(0, 1) from a seed, and a mask with pad
     tails of varied length, each min_tail at least: row 0 has no pads, row 1
-    is all pads."""
+    is all pads, and each other row is all pads with probability pad_rows
+    (the stage-1 clause batch: documents padded to 75 clauses)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn(B, h, L, hd, device="cuda", generator=gen)
                   .to(dtype) for _ in range(4))
     lengths = torch.randint(1, L - min_tail + 1, (B,), device="cuda",
                             generator=gen)
+    empty = torch.rand(B, device="cuda", generator=gen) < pad_rows
+    lengths = torch.where(empty, 0, lengths)
     lengths[0], lengths[1] = L, 0
     mask = (torch.arange(L, device="cuda")[None, :]
             < lengths[:, None]).to(torch.int32)
@@ -763,16 +1022,18 @@ def pack_heads(q, k, v):
 
 
 def flash_case(B: int, h: int, L: int, hd: int, dtype, backward: bool,
-               min_tail: int = 0):
+               min_tail: int = 0, pad_rows: float = 0.0):
     """K7 (and K8/K9) against the plain version at one shape; returns the
     largest absolute errors of the output and of the gradients."""
     from carel_tpu_torch.ops import cuda_attention as ca
 
     q, k, v, g, mask = flash_inputs(B, h, L, hd, dtype, seed=B + L,
-                                    min_tail=min_tail)
+                                    min_tail=min_tail, pad_rows=pad_rows)
     scale = 1.0 / math.sqrt(hd)
     name = f"flash {str(dtype).split('.')[-1]} [{B}, {h}, {L}, {hd}]" \
-        + (f" pad tails >= {min_tail}" if min_tail else "")
+        + (f" pad tails >= {min_tail}" if min_tail else "") \
+        + (f" {int((mask.sum(1) == 0).sum())} rows all pads" if pad_rows
+           else "")
 
     def run_kernels():
         leaves = [t.clone().requires_grad_(backward) for t in (q, k, v)]
@@ -847,37 +1108,41 @@ def flash_work(mask: torch.Tensor, h: int, hd: int, element_size: int):
     }
 
 
-# (shape [B, h, L, hd], with backward, least pad tail): the training and the
-# inference shape; ragged tiny ones (hd = 16 is one k16 step, L = 37 not a
-# multiple of 16); L over one block's 128 rows, so that the tensor-core
-# kernels' ring of 4 tiles of 32 rows wraps; hd = 128; pad tails longer than
-# one tile, where every key of a tile is masked for a row
-FLASH_CASES = (((64, 12, 96, 64), True, 0), ((512, 12, 96, 64), False, 0),
-               ((5, 4, 37, 16), True, 0), ((3, 2, 200, 64), True, 0),
-               ((2, 2, 513, 32), True, 0), ((2, 2, 96, 128), True, 0),
-               ((4, 2, 160, 64), True, 48))
+# (shape [B, h, L, hd], with backward, least pad tail, share of all-pad
+# rows): the training and the inference shape; ragged tiny ones (hd = 16 is
+# one k16 step, L = 37 not a multiple of 16); L over one block's 128 rows,
+# so that the tensor-core kernels' ring of 4 tiles of 32 rows wraps;
+# hd = 128; pad tails longer than one tile, where every key of a tile is
+# masked for a row; the stage-1 clause batch (4 documents x 75 clauses of
+# 60 tokens, L no multiple of 16, most rows padded clauses) and the DANN
+# batch (32 clauses of 128 tokens, L past the one-block regime of L <= 96)
+FLASH_CASES = (((64, 12, 96, 64), True, 0, 0.0),
+               ((512, 12, 96, 64), False, 0, 0.0),
+               ((5, 4, 37, 16), True, 0, 0.0),
+               ((3, 2, 200, 64), True, 0, 0.0),
+               ((2, 2, 513, 32), True, 0, 0.0),
+               ((2, 2, 96, 128), True, 0, 0.0),
+               ((4, 2, 160, 64), True, 48, 0.0),
+               ((300, 12, 60, 64), True, 0, 0.8),
+               ((32, 12, 128, 64), True, 0, 0.0))
+# the shapes of the stage-1 and DANN paths, timed beside the training shape:
+# (tag, shape, share of all-pad rows)
+FLASH_PATH_SHAPES = (("stage1", (300, 12, 60, 64), 0.8),
+                     ("dann", (32, 12, 128, 64), 0.0))
 
 
-def phase_flash(records: dict) -> None:
-    """K7-K9 against the plain flash attention, then their times at the
-    shape and layout the training step gives them (bf16, packed)."""
+def flash_calls(B: int, h: int, L: int, hd: int, seed: int,
+                pad_rows: float = 0.0):
+    """At one bf16 shape in the packed layout the training step gives
+    K7-K9: {kernel name: (the wrapper's call, the plain version, the
+    library call)} and the least work of each (flash_work)."""
     import torch.nn.functional as F
 
-    from carel_tpu_torch.device import resolve_device
     from carel_tpu_torch.ops import cuda_attention as ca
 
-    resolve_device("cuda")  # full-fp32 matmuls for the plain version
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape, backward, min_tail in FLASH_CASES:
-            abs_out, abs_grad = flash_case(*shape, dtype, backward, min_tail)
-            if dtype == torch.bfloat16:
-                worst["fwd"] = max(worst["fwd"], abs_out)
-                worst["bwd"] = max(worst["bwd"], abs_grad)
-
-    B, h, L, hd = 64, 12, 96, 64
     scale = 1.0 / math.sqrt(hd)
-    q, k, v, g, mask = flash_inputs(B, h, L, hd, torch.bfloat16, seed=1)
+    q, k, v, g, mask = flash_inputs(B, h, L, hd, torch.bfloat16, seed=seed,
+                                    pad_rows=pad_rows)
     seg = ca.segment_ids(mask)
     qkv = pack_heads(q, k, v)
     qp, kp, vp = (t.transpose(1, 2) for t in qkv.unbind(2))
@@ -895,8 +1160,8 @@ def phase_flash(records: dict) -> None:
     lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=same,
                                              scale=scale)
     lib_err = relnorm(lib_out.detach().float(), plain_out.detach().float())
-    print(f"scaled_dot_product_attention with the segment mask vs plain: "
-          f"normwise rel {lib_err:.2e}", flush=True)
+    print(f"scaled_dot_product_attention with the segment mask vs plain at "
+          f"[{B}, {h}, {L}, {hd}]: normwise rel {lib_err:.2e}", flush=True)
 
     def grad_of(result, wrt):
         return lambda: torch.autograd.grad(result, wrt, g, retain_graph=True)
@@ -917,7 +1182,29 @@ def phase_flash(records: dict) -> None:
                                                 lse, scale, dqp),
             grad_of(plain_out, leaves[:1]), grad_of(lib_out, lib_leaves[:1])),
     }
-    work = flash_work(mask, h, hd, q.element_size())
+    return calls, flash_work(mask, h, hd, q.element_size())
+
+
+def phase_flash(records: dict) -> None:
+    """K7-K9 against the plain flash attention, then their times at the
+    shape and layout the training step gives them (bf16, packed)."""
+    import torch.nn.functional as F
+
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.ops import cuda_attention as ca
+
+    resolve_device("cuda")  # full-fp32 matmuls for the plain version
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, backward, min_tail, pad_rows in FLASH_CASES:
+            abs_out, abs_grad = flash_case(*shape, dtype, backward, min_tail,
+                                           pad_rows)
+            if dtype == torch.bfloat16:
+                worst["fwd"] = max(worst["fwd"], abs_out)
+                worst["bwd"] = max(worst["bwd"], abs_grad)
+
+    B, h, L, hd = 64, 12, 96, 64
+    calls, work = flash_calls(B, h, L, hd, seed=1)
     print("flash least work: " + "; ".join(
         f"{n} {nb} bytes, {fl:.0f} FLOP" for n, (nb, fl) in work.items()),
         flush=True)
@@ -943,6 +1230,7 @@ def phase_flash(records: dict) -> None:
               flush=True)
 
     # the forward at the inference batch
+    scale = 1.0 / math.sqrt(hd)
     q, k, v, _, mask = flash_inputs(512, h, L, hd, torch.bfloat16, seed=2)
     seg = ca.segment_ids(mask)
     out = torch.empty_like(q)
@@ -965,6 +1253,24 @@ def phase_flash(records: dict) -> None:
               *(rec[f"{key}{kind}_b512"] for kind in ("device_ms", "ms")
                 for key in ("", "plain_", "library_")),
               rec["bound_ms_b512"]), flush=True)
+
+    # K7-K9 at the shapes of the stage-1 and DANN paths
+    for tag, shape, pad_rows in FLASH_PATH_SHAPES:
+        calls, work = flash_calls(*shape, seed=3, pad_rows=pad_rows)
+        for name in FLASH_KERNELS:
+            kernel, plain, library = calls[name]
+            bnd = bound_ms(*work[name], PEAK_BF16_FLOPS)
+            at = records[name].setdefault("at", {})[tag] = {
+                "shape": list(shape), "device_ms": device_ms(kernel),
+                "ms": median_ms(kernel), "plain_device_ms": device_ms(plain),
+                "library_device_ms": device_ms(library),
+                "bound_ms": bnd[0], "bound_by": bnd[1]}
+            print(f"{name} at bf16 {list(shape)} ({tag} path, packed "
+                  f"layout): device {at['device_ms']:.4f} ms (plain "
+                  f"{at['plain_device_ms']:.4f}, library "
+                  f"{at['library_device_ms']:.4f}); by events "
+                  f"{at['ms']:.4f} ms; bound {bnd[0]:.6f} ms by {bnd[1]}",
+                  flush=True)
 
 
 def tiny_config(preset: str, attention_impl: str = "xla"):
@@ -1161,13 +1467,21 @@ class CountedEpochStep:
 
 FLAGSHIP = "ec_mmd_final_mul_newsplit_emnlp"
 
-# the kernels each main path must launch on every training step
+# the kernels every stage-2 training step launches: the fused BoW loss and
+# the embeddings' backward
+STEP_KERNELS = ("bow_fwd", "bow_bwd", "emb_bwd")
 PATH_KERNELS = {
-    FLAGSHIP: ("mmd_fwd", "mmd_bwd", "bow_fwd", "bow_bwd"),
-    "ec_hsic": ("hsic_fwd", "hsic_bwd", "bow_fwd", "bow_bwd"),
-    "ec_gan": ("bow_fwd", "bow_bwd"),
-    "ec_vi_final": ("bow_fwd", "bow_bwd"),
+    FLAGSHIP: ("mmd_fwd", "mmd_bwd", *STEP_KERNELS),
+    "ec_hsic": ("hsic_fwd", "hsic_bwd", *STEP_KERNELS),
+    "ec_gan": STEP_KERNELS,
+    "ec_vi_final": STEP_KERNELS,
 }
+# device kernels a wrapper call launches, where it is not one: K10 counts,
+# ranks, places, sums chunks and combines them
+KERNELS_A_CALL = {"emb_bwd": 5}
+# wrapper calls a training step makes, where it is not one: K10 for the
+# word, position and token-type tables
+CALLS_A_STEP = {"emb_bwd": 3}
 
 
 def full_width_config(preset: str, run: str, attention_impl: str = "xla",
@@ -1315,7 +1629,8 @@ def phase_path(records: dict, preset: str, iterations: int,
         fail(f"{tag}: self-training took no training step")
     counted_step.check(tag, steps)
     for name, n in counts.items():
-        want = steps if name in PATH_KERNELS[preset] else 0
+        want = (steps * CALLS_A_STEP.get(name, 1)
+                if name in PATH_KERNELS[preset] else 0)
         if n != want:
             fail(f"{tag}: kernel {name} launched {n} times in {steps} "
                  f"training steps (want {want})")
@@ -1502,7 +1817,8 @@ def phase_serve(records: dict):
             or not np.allclose(sorted(p for *_, p in hits), sorted(probs),
                                rtol=0, atol=1e-6):
         fail(f"{tag}: extract_document and score_texts disagree")
-    want = {name: steps for name in PATH_KERNELS[FLAGSHIP]}
+    want = {name: steps * CALLS_A_STEP.get(name, 1)
+            for name in PATH_KERNELS[FLAGSHIP]}
     want["flash_fwd"] = layers * (steps + len(forwards) + scored_batches)
     want["flash_bwd_dkv"] = want["flash_bwd_dq"] = layers * steps
     for name, n in counts.items():
@@ -1558,7 +1874,8 @@ def path_kernel_calls(preset: str, attention_impl: str) -> dict:
     """The kernels one training step of this variant launches: {wrapper
     name: launches}; the profiler names each device kernel after its
     wrapper (mmd_fwd_kernel, flash_fwd_mma_kernel, ...)."""
-    want = {name: 1 for name in PATH_KERNELS[preset]}
+    want = {name: KERNELS_A_CALL.get(name, 1) * CALLS_A_STEP.get(name, 1)
+            for name in PATH_KERNELS[preset]}
     if attention_impl == "flash":
         layers = 12
         want.update(flash_fwd=layers, flash_bwd_dkv=layers,
@@ -1628,14 +1945,29 @@ def loss_gap(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 @contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms for the enclosed work: the BoW
-    backward's index_add_ then adds in a fixed order instead of the order
-    its atomics land, so that two runs of one code keep the same bits
-    (warn_only: an op without a deterministic version warns)."""
+def deterministic_audit():
+    """torch's deterministic algorithms, warn_only, for the enclosed work.
+    Yields a list that is filled when the block ends: the ops torch warned
+    have no deterministic version, the gate's business, then (prefixed
+    "note:") its other determinism warnings, which the caller prints; the
+    cuBLAS workspace warning is one of those (it is about cuBLAS's
+    configuration, and the repeats the caller holds bit-equal show it
+    changes nothing on one stream). The port never turns the switch on."""
+    import warnings
+
+    warned: list = []
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        yield
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield warned
+            torch.cuda.synchronize()
+        msgs = sorted({str(w.message) for w in caught
+                       if "determinis" in str(w.message)})
+        warned += [m.split(" does not have")[0] for m in msgs
+                   if "does not have a deterministic" in m]
+        warned += [f"note: {m[:160]}" for m in msgs
+                   if "does not have a deterministic" not in m]
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -1643,11 +1975,11 @@ def deterministic():
 def hold_captured(tag: str, cfg, labels: dict, eager: dict, cap: dict,
                   steps: int) -> None:
     """Hold a captured run against an eager one of the same steps from the
-    same state, both under deterministic(): per-batch losses within rel
-    1e-5 and every group's params within 2 x its lr."""
+    same state: per-batch losses within rel 1e-5 and every group's params
+    within 2 x its lr."""
     gap = (loss_gap(cap["losses"], eager["losses"]),
            param_gaps(cfg, labels, cap["params"], eager["params"]))
-    print(f"{tag}: {steps} steps from one state, deterministic algorithms; "
+    print(f"{tag}: {steps} steps from one state; "
           f"captured against eager: losses rel {gap[0]:.3e} (batch 0 "
           f"equal: {bool(cap['losses'][0] == eager['losses'][0])}), params "
           f"{describe_gaps(gap[1])}", flush=True)
@@ -1666,17 +1998,22 @@ CAPTURE_VARIANTS = ((FLAGSHIP, "xla"), ("ec_hsic", "xla"),
 def phase_capture(preset: str, attention_impl: str) -> dict:
     """One step variant at full width (b64 x s96, the paths' 1,024 random
     train pairs), from one initial state (init_state of one seed, which
-    also seeds the dropout generator):
+    also seeds the dropout generator), every run as the paths run it (no
+    deterministic algorithms):
     - correctness: one epoch of the eager per-step loop and one through the
-      captured epoch step, both under deterministic(), held by
-      hold_captured; the generators must end alike, and the disc, club and
-      frozen groups move as on the paths;
-    - time: the same two runs as the paths run them (no deterministic
-      algorithms): one epoch, then three timed and one profiled
-      (time_epochs), each run alone on the card so that its peak memory is
-      its own. Their losses drift apart after the first update (index_add_
-      and bf16), which is printed, beside the spread of a second eager
-      run."""
+      captured epoch step, held by hold_captured; the generators must end
+      alike, and the disc, club and frozen groups move as on the paths;
+    - repeatability: a second eager and a second captured run from the same
+      state must give the bits of the first in their first epoch, losses
+      and params (K4 adds the BoW backward's corrections in a fixed
+      order);
+    - the deterministic-algorithms audit: a third eager run under
+      torch.use_deterministic_algorithms(True, warn_only=True) must give
+      the same bits again, and torch must warn of no op without a
+      deterministic version;
+    - time: after their first epoch the second eager and captured runs take
+      three timed epochs and one profiled (time_epochs), each run alone on
+      the card so that its peak memory is its own."""
     from carel_tpu_torch.pipeline import init_state
     from carel_tpu_torch.train.scan_epoch import make_epoch_step
     from carel_tpu_torch.train.state import (CLUB, DISC, FROZEN,
@@ -1697,7 +2034,7 @@ def phase_capture(preset: str, attention_impl: str) -> dict:
     dropout = dropout_generator(torch.device("cuda"))
     runs = {}
     for kind, mode in (("eager", "check"), ("captured", "check"),
-                       ("eager", "time"), ("eager again", "spread"),
+                       ("eager", "time"), ("eager", "audit"),
                        ("captured", "time")):
         if (kind, mode) == ("eager", "time"):
             # held now, so that the checked params leave the card before
@@ -1705,8 +2042,8 @@ def phase_capture(preset: str, attention_impl: str) -> dict:
             hold_captured(tag, cfg, labels, runs["eager", "check"],
                           runs["captured", "check"], nb)
             for r in runs.values():
-                del r["params"]
-        make, run = ((make_train_step, eager_epoch) if kind != "captured"
+                r["params"] = {n: p.cpu() for n, p in r["params"].items()}
+        make, run = ((make_train_step, eager_epoch) if kind == "eager"
                      else (make_epoch_step, captured_epoch))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1716,7 +2053,8 @@ def phase_capture(preset: str, attention_impl: str) -> dict:
             first = {n: p.detach().clone() for n, p in
                      state.model.named_parameters()
                      if state.labels[n] in want_moved}
-        with deterministic() if mode == "check" else contextlib.nullcontext():
+        with deterministic_audit() if mode == "audit" \
+                else contextlib.nullcontext() as warned:
             losses = run(step, state, train, B, 1, 0.0).cpu()
         if not torch.isfinite(losses).all():
             fail(f"{tag} ({kind}): a loss is not finite")
@@ -1733,6 +2071,24 @@ def phase_capture(preset: str, attention_impl: str) -> dict:
             if moved != want_moved:
                 fail(f"{tag} ({kind}): the disc, club and frozen params "
                      f"moved as {moved} (want {want_moved})")
+        else:
+            # the first epoch again from the same state: the same bits
+            want = runs[kind, "check"]
+            same_params = all(torch.equal(p.detach().cpu(), want["params"][n])
+                              for n, p in state.model.named_parameters())
+            same = torch.equal(losses, want["losses"]) and same_params
+            print(f"{tag} ({kind}, {mode}): one epoch from the same state "
+                  f"again: losses and params bit-equal to the first run: "
+                  f"{same}" + (f"; torch warned {warned}" if mode == "audit"
+                               else ""), flush=True)
+            if not same:
+                fail(f"{tag}: a second {kind} epoch from one state gives "
+                     f"other bits ({mode}; losses rel "
+                     f"{loss_gap(losses, want['losses']):.3e})")
+            ops_warned = [w for w in warned or ()
+                          if not w.startswith("note:")]
+            if mode == "audit" and ops_warned:
+                fail(f"{tag}: deterministic algorithms warn of {ops_warned}")
         if mode == "time":
             r.update(time_epochs(tag, kind, run, step, state, train, B, nb,
                                  want_calls))
@@ -1747,12 +2103,6 @@ def phase_capture(preset: str, attention_impl: str) -> dict:
         fail(f"{tag}: {runs['captured', 'time']['captures']} captures for "
              "its epochs (want one)")
     eager, cap = runs["eager", "time"], runs["captured", "time"]
-    again = runs["eager again", "spread"]
-    print(f"{tag}: without deterministic algorithms, one epoch from one "
-          f"state: captured against eager losses rel "
-          f"{loss_gap(cap['losses'], eager['losses']):.3e}, eager against "
-          f"eager {loss_gap(again['losses'], eager['losses']):.3e}",
-          flush=True)
     for kind, r in (("eager", eager), ("captured", cap)):
         print(f"{tag} ({kind}) b{B}xs{L}: wall {r['wall_ms']:.2f} ms/step "
               f"(median of {[round(w, 2) for w in r['walls']]}; "
@@ -1771,9 +2121,10 @@ def time_epochs(tag: str, kind: str, run, step, state, train, B: int,
                 nb: int, want_calls: dict, epochs: int = 3) -> dict:
     """``epochs`` more epochs, each timed (host clock around a value fetch
     after all its steps), and one profiled, in which each path kernel must
-    launch as often a step as ``want_calls`` says: the median epoch's wall
-    ms/step (and the range), device ms/step, kernels/step and the path
-    kernels a step."""
+    launch as often a step as ``want_calls`` says (an epoch whose profile
+    dropped a launch is profiled again, up to three in all): the median
+    epoch's wall ms/step (and the range), device ms/step, kernels/step and
+    the path kernels a step."""
     walls = []
     for epoch in range(epochs):
         torch.cuda.synchronize()
@@ -1782,13 +2133,24 @@ def time_epochs(tag: str, kind: str, run, step, state, train, B: int,
         walls.append((time.perf_counter() - t0) / nb * 1e3)
         if not torch.isfinite(losses).all():
             fail(f"{tag} ({kind}): a timed loss is not finite")
-    device_ms, kernels, per_kernel = profile_epoch(
-        lambda: run(step, state, train, B, 2 + epochs, 0.0), nb)
-    calls = kernel_calls_by_wrapper(per_kernel, nb)
-    for k, n in calls.items():
-        if n != want_calls.get(k, 0):
-            fail(f"{tag} ({kind}): the profile shows {k} {n:g} times a step "
-                 f"(want {want_calls.get(k, 0)})")
+    # the profiler now and then drops a device event (a fractional count
+    # a step); such an epoch is profiled again, up to three in all, and
+    # counted in PROFILE_WINDOWS, which main prints
+    for window in range(1, 4):
+        device_ms, kernels, per_kernel = profile_epoch(
+            lambda: run(step, state, train, B, 2 + epochs + window, 0.0), nb)
+        calls = kernel_calls_by_wrapper(per_kernel, nb)
+        off = {k: n for k, n in calls.items() if n != want_calls.get(k, 0)}
+        if not off:
+            break
+        PROFILE_WINDOWS["short"] += 1
+        print(f"{tag} ({kind}): the profile shows {off} a step (want "
+              f"{ {k: want_calls.get(k, 0) for k in off} }) in window "
+              f"{window} of 3", flush=True)
+    else:
+        fail(f"{tag} ({kind}): three profiles show the path kernels {off} "
+             f"times a step (want "
+             f"{ {k: want_calls.get(k, 0) for k in off} })")
     return dict(wall_ms=float(np.median(walls)), walls=walls,
                 device_ms=device_ms, kernels=kernels, calls=calls)
 
@@ -1821,16 +2183,462 @@ def phase_sensitivity(preset: str) -> None:
         state = init_state(cfg, "cuda")
         step = make(cfg)
         losses = []
-        with deterministic():
-            for epoch in range(2):
-                losses.append(run(step, state, train, B, epoch,
-                                  epoch * cfg.loss.vi_beta_step))
-                set_lr(state.optimizer, cfg.train.vae_lr / 2)
+        for epoch in range(2):
+            losses.append(run(step, state, train, B, epoch,
+                              epoch * cfg.loss.vi_beta_step))
+            set_lr(state.optimizer, cfg.train.vae_lr / 2)
         runs[kind] = dict(losses=torch.cat(losses).cpu(), params={
             n: p.detach().clone() for n, p in state.model.named_parameters()})
         labels = state.labels
     hold_captured(f"{tag} (tiny, 2 epochs)", cfg, labels, runs["eager"],
                   runs["captured"], len(runs["eager"]["losses"]))
+
+
+# the stage-1 and DANN paths' vocabulary: 21,000 CJK characters (a
+# ZhCharTokenizer of 21,120 entries; the encoder keeps BERT-zh's 21,128)
+ZH_CHARS = [chr(0x4E00 + i) for i in range(21000)]
+
+
+def synth_docs(rng, n_docs: int, max_clauses: int):
+    """Documents of 3..max_clauses clauses of 5-25 random characters, each
+    with one gold pair; every clause has a random emotion code: 0 half the
+    time, else 1-6 alike (the gold emotion clause's 1-5), so that a few
+    steps teach a model to predict emotion clauses."""
+    from carel_tpu_torch.data.ecpe_format import Clause, Document
+
+    docs = []
+    for d in range(n_docs):
+        n = int(rng.integers(3, max_clauses + 1))
+        emo = int(rng.integers(1, n + 1))
+        cause = int(np.clip(emo + rng.integers(-2, 2), 1, n))
+        clauses = []
+        for c in range(1, n + 1):
+            code = 0 if rng.random() < 0.5 else int(
+                rng.integers(1, 6 if c == emo else 7))
+            text = "".join(ZH_CHARS[i] for i in rng.integers(
+                0, len(ZH_CHARS), int(rng.integers(5, 26))))
+            clauses.append(Clause(sen_id=c, emotion=code, cause=6, text=text,
+                                  emotion_raw=str(code), cause_raw="6",
+                                  text_field3=text))
+        docs.append(Document(doc_id=str(d + 1), pairs=[(emo, cause)],
+                             clauses=clauses))
+    return docs
+
+
+def step_numbers(step, steps: int = 5) -> dict:
+    """Wall ms/step (host clock over ``steps`` steps, ended by a
+    synchronize) and the profiler's device ms/step and kernels/step of
+    ``step()``."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    dev, kernels = device_profile(step, iters=steps, warmup=1)
+    return dict(wall_ms=wall, device_ms=dev, kernels=kernels)
+
+
+def count_path_launches(records: dict, tag: str, counts: dict,
+                        want: dict) -> None:
+    """Every kernel launched as ``want`` says on this path (0 where it
+    names none), recorded under the path's tag."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{tag}: kernel {name} launched {n} times (want "
+                 f"{want.get(name, 0)})")
+        records[name].setdefault("launches_by_path", {})[tag] = n
+        records[name]["launches"] = sum(
+            records[name]["launches_by_path"].values())
+
+
+def phase_reference_stage1() -> None:
+    """Tiny fp32 models take one step on the card and on the CPU from the
+    same weights and batch: a stage-1 step (carried Adam) under each clause
+    mixer, and a DANN step (Adam, the domain loss through the gradient
+    reversal, the batch norm's running statistics). Losses rel 1e-5, the
+    gradients normwise 1e-4 (all at once), the running statistics abs 1e-5,
+    params within
+    2 x lr, and within 1e-3 x lr where |g| is above both 1e-3 max|g| of its
+    tensor and 100 x Adam's eps (there the first step is lr times the sign
+    of g, whatever the rounding). On the card the LSTM runs on cuDNN in fp32
+    (TF32 off)."""
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.models.encoder import tiny_encoder_config
+    from carel_tpu_torch.models import dann
+    from carel_tpu_torch.stage1 import build_doc_arrays
+    from carel_tpu_torch.stage1.dann_driver import (DannConfig,
+                                                    build_dann_model,
+                                                    encode_clauses)
+    from carel_tpu_torch.stage1.trainer import (Stage1Config,
+                                                build_stage1_model,
+                                                make_stage1_step, to_device)
+
+    rng = np.random.default_rng(8)
+    tok = ZhCharTokenizer(ZH_CHARS[:250])
+    enc = tiny_encoder_config(vocab_size=tok.vocab_size, dropout=0.0)
+    docs = synth_docs(rng, 4, 20)
+    for d in docs:
+        for c in d.clauses:
+            c.text = "".join(ZH_CHARS[ord(ch) % 250] for ch in c.text)
+    arr = build_doc_arrays(docs, tok)
+    lr = 1e-3
+
+    def compare(tag, out, stats=()):
+        (loss_g, p_g, g_g), (loss_c, p_c, g_c) = out["cuda"], out["cpu"]
+        rel = abs(loss_g - loss_c) / abs(loss_c)
+        # normwise over all the gradients at once: a gradient that is 0 in
+        # exact arithmetic (the attention's key bias) is rounding on both
+        # sides, and a tensor's own relative error is meaningless there
+        grad = math.sqrt(sum(float(((g_g[n] - g_c[n]).double() ** 2).sum())
+                             for n in g_c)
+                         / sum(float((g.double() ** 2).sum())
+                               for g in g_c.values()))
+        worst = max(float((p_g[n] - p_c[n]).abs().max()) for n in p_c) / lr
+        safe = max(float(torch.cat([
+            (p_g[n] - p_c[n])[(g.abs() > 1e-3 * g.abs().max())
+                              & (g.abs() > 1e-6)].abs(),
+            torch.zeros(1)]).max()) for n, g in g_c.items()) / lr
+        stat = max((float((p_g[n] - p_c[n]).abs().max()) for n in stats),
+                   default=0.0)
+        print(f"reference step {tag} (tiny fp32, card vs CPU): loss "
+              f"{loss_g:.7f} vs {loss_c:.7f} rel {rel:.2e}; grads normwise "
+              f"{grad:.2e}; params {worst:.2e} lr ({safe:.2e} lr where the "
+              f"sign of g is safe)"
+              + (f"; running statistics abs {stat:.2e}" if stats else ""),
+              flush=True)
+        if not (rel <= 1e-5 and grad <= 1e-4 and worst <= 2
+                and safe <= 1e-3 and stat <= 1e-5):
+            fail(f"card and CPU disagree on the {tag} reference step")
+
+    def kept(model):
+        return ({n: p.detach().cpu() for n, p in model.state_dict().items()},
+                {n: p.grad.cpu() for n, p in model.named_parameters()
+                 if p.grad is not None})
+
+    for mixer in ("bilstm", "transformer"):
+        cfg = Stage1Config(n_hidden=16, clause_mixer=mixer, fresh_adam=False,
+                           learning_rate=lr)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = build_stage1_model(cfg, enc, dev)
+            opt = torch.optim.Adam([p for p in model.parameters()
+                                    if p.requires_grad], lr=lr, eps=1e-8)
+            loss = make_stage1_step(cfg, model, opt)(
+                to_device(arr, np.arange(4), torch.device(dev)))
+            out[dev] = (float(loss), *kept(model))
+        compare(f"stage1 {mixer}", out)
+
+    sents = [c.text for d in docs for c in d.clauses]
+    data = encode_clauses(tok, sents, [c.emotion for d in docs
+                                       for c in d.clauses], 32)
+    labeled = {k: v[:4] for k, v in data.items()}  # one step of 8
+    cfg = DannConfig(learning_rate=lr)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_dann_model(cfg, enc, dev, dropout=0.0)
+        losses = []
+        dann.train_dann(model, labeled, data, epochs=1, batch_size=8,
+                        learning_rate=lr, seed=1, losses=losses)
+        out[dev] = (float(sum(losses[0])), *kept(model))
+    compare("dann", out,
+            stats=("batchnorm_l.running_mean", "batchnorm_l.running_var"))
+
+
+STAGE1_RUNS = (("bilstm", "xla", False), ("transformer", "flash", True))
+
+
+def phase_stage1(records: dict, mixer: str, impl: str, carried: bool
+                 ) -> dict:
+    """Stage 1 at full width (12L/768H bf16 encoder, vocab 21,128; batches
+    of 4 documents x 75 clauses x 60 tokens, so the encoder sees 300 x 60; n
+    hidden 100) on 16 train synthetic documents of 3-75 clauses and 8 test
+    documents of 3-20:
+    one base epoch and one self-training epoch (threshold 0, so the pseudo
+    set grows), evaluations over all 8 documents (600 sequences) at once.
+    The losses must be finite, the probabilities in [0, 1] and the pair
+    file's predictions the argmax of the best snapshot's, read back by the
+    port's build_pairs(test=True) with the forced misses those predictions
+    give and at least one predicted pair; the best snapshot shares no
+    storage with the live params and a later step leaves it as it was;
+    three steps from one state repeat their bits; K7-K9 launch once a layer
+    on every forward (and K8/K9 on every step) under flash, K10 three times
+    a step, and no other kernel of the port. Then it times the step and
+    the evaluation."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.config import EncoderConfig
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.data.pairs import build_pairs
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.stage1 import build_doc_arrays
+    from carel_tpu_torch.stage1.trainer import (Stage1Config,
+                                                build_stage1_model,
+                                                fit_stage1,
+                                                make_stage1_step,
+                                                predict_docs, snapshot,
+                                                to_device)
+
+    run = f"stage1_{mixer}"
+    tag = f"stage1 path ({mixer}, {impl} attention, " \
+        + ("carried Adam)" if carried else "fresh Adam)")
+    rng = np.random.default_rng(7)
+    tok = ZhCharTokenizer(ZH_CHARS)
+    train = build_doc_arrays(synth_docs(rng, 16, 75), tok)
+    # test documents of 3-20 clauses, padded to 75 as every document: the
+    # pseudo labels (one emotion clause a document, the rest class 6) do
+    # not outnumber the training set's emotion clauses, so the self-trained
+    # best still predicts some and the pair file holds pairs to read back
+    test = build_doc_arrays(synth_docs(rng, 8, 20), tok)
+    cfg = Stage1Config(training_epoch=1, self_epoch=1, threshold=0.0,
+                       clause_mixer=mixer, fresh_adam=not carried,
+                       save_dir=os.path.join(RUN_DIR, run))
+    enc = EncoderConfig(arch="bert", dtype="bfloat16", attention_impl=impl)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_stage1_model(cfg, enc, "cuda")
+    t_init = time.perf_counter() - t0
+    logger, losses = _Records(), []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    best_state, best, pair_file = fit_stage1(cfg, model, train, test, tok,
+                                             logger, losses=losses)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = torch.stack(losses).tolist()
+    events = [r["event"] for r in logger.records]
+    evals = events.count("stage1_eval") + events.count("stage1_self_eval")
+    print(f"{tag}: init {t_init:.1f} s; {len(losses)} steps and {evals} "
+          f"evaluations in {wall:.2f} s; events {events}; best {best}; "
+          f"losses {[round(x, 4) for x in losses]}; launches "
+          f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: a loss is not finite")
+    if "stage1_selftrain" not in events or pair_file is None:
+        fail(f"{tag}: the self-training set did not grow, or no pair file")
+    layers = enc.num_layers
+    want = {"emb_bwd": CALLS_A_STEP["emb_bwd"] * len(losses)}
+    if impl == "flash":
+        want.update(flash_fwd=layers * (len(losses) + evals),
+                    flash_bwd_dkv=layers * len(losses),
+                    flash_bwd_dq=layers * len(losses))
+    count_path_launches(records, run, counts, want)
+
+    # the best snapshot is a copy: no shared storage, and a step leaves it
+    live = {t.untyped_storage().data_ptr()
+            for t in model.state_dict().values()}
+    if any(t.untyped_storage().data_ptr() in live
+           for t in best_state.values()):
+        fail(f"{tag}: the best snapshot shares storage with the live model")
+    kept = {k: v.clone() for k, v in best_state.items()}
+    step = make_stage1_step(cfg, model, None if not carried else
+                            torch.optim.Adam([p for p in model.parameters()
+                                              if p.requires_grad],
+                                             lr=cfg.learning_rate,
+                                             fused=True))
+    batch = to_device(train, np.arange(cfg.batch_size), torch.device("cuda"))
+    step(batch)
+    if not same_state(kept, best_state) or same_state(
+            kept, model.state_dict()):
+        fail(f"{tag}: the best snapshot moved with the live params")
+
+    # three steps from one state (the same dropout draws) repeat their
+    # bits: the clause mixer on the card (cuDNN's LSTM) included
+    start, rng_state = snapshot(model), torch.cuda.get_rng_state()
+    fresh = make_stage1_step(dataclasses.replace(cfg, fresh_adam=True), model)
+    batches = [to_device(train, np.arange(i, i + cfg.batch_size),
+                         torch.device("cuda"))
+               for i in range(0, 3 * cfg.batch_size, cfg.batch_size)]
+    repeats = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        torch.cuda.set_rng_state(rng_state)
+        repeats.append((torch.stack([fresh(b) for b in batches]),
+                        snapshot(model)))
+    same = torch.equal(repeats[0][0], repeats[1][0]) and same_state(
+        repeats[0][1], repeats[1][1])
+    print(f"{tag}: three steps from one state twice, losses and params "
+          f"bit-equal: {same}", flush=True)
+    if not same:
+        fail(f"{tag}: steps from one state do not repeat their bits")
+    del start, repeats, batches
+
+    # the pair file: the best snapshot's argmax, read back with its misses
+    model.load_state_dict(best_state)
+    probs = predict_docs(model, test, torch.device("cuda"))
+    if not (probs.shape == (8, 75, 7) and np.all(np.isfinite(probs))
+            and probs.min() >= 0.0 and probs.max() <= 1.0):
+        fail(f"{tag}: probabilities are not finite values in [0, 1]")
+    pred = probs.argmax(-1)
+    written = parse_ecpe_file(pair_file)
+    got = [[c.emotion for c in d.clauses] for d in written]
+    if got != [list(pred[i, :test.doc_len[i]]) for i in range(len(test))]:
+        fail(f"{tag}: the pair file's predictions are not the best "
+             "snapshot's")
+    misses = sum(int(pred[i, d.pairs[0][0] - 1] == 6)
+                 for i, d in enumerate(written))
+    pairs = build_pairs(written, test=True)
+    print(f"{tag}: pair file {os.path.basename(pair_file)}: "
+          f"{len(written)} documents, {len(pairs)} test pairs, "
+          f"{pairs.num_unpred_emotions} forced misses (want {misses}); best "
+          "snapshot kept apart from the live params", flush=True)
+    if pairs.num_unpred_emotions != misses:
+        fail(f"{tag}: build_pairs counts {pairs.num_unpred_emotions} forced "
+             f"misses (want {misses})")
+    if not len(pairs):
+        fail(f"{tag}: the pair file holds no predicted pair to read back")
+
+    nums = step_numbers(lambda: step(batch))
+    ev = step_numbers(lambda: predict_docs(model, test,
+                                           torch.device("cuda")), steps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} b4x75x60: step wall {nums['wall_ms']:.2f} ms (device "
+          f"{nums['device_ms']:.2f} ms, busy "
+          f"{nums['device_ms'] / nums['wall_ms']:.3f}, "
+          f"{nums['kernels']:.1f} kernels), "
+          f"{cfg.batch_size / nums['wall_ms'] * 1e3:.1f} documents/s; "
+          f"evaluation of 8 documents (600 x 60) wall {ev['wall_ms']:.2f} "
+          f"ms (device {ev['device_ms']:.2f} ms, {ev['kernels']:.1f} "
+          f"kernels), {8 / ev['wall_ms'] * 1e3:.1f} documents/s; peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    return dict(nums, eval_wall_ms=ev["wall_ms"],
+                eval_device_ms=ev["device_ms"], peak_gib=peak)
+
+
+def phase_dann(records: dict) -> dict:
+    """The clause-level DANN at full width (12L/768H bf16 encoder; batches
+    of 32 clauses x 128 tokens, predictions in batches of 256) on synthetic
+    domain files (~320 source and ~300 target clauses): one base epoch and
+    one self-training iteration of one epoch, the domain loss on. The
+    losses must be finite, the running statistics must move, K10 alone of
+    the port's kernels launches (three times a step; default attention),
+    the gradient reversal must send the domain head's gradient back to the
+    features as -3 times itself, and three steps from one state must give
+    the same losses, params and running statistics bit for bit. Then it
+    times a step and a prediction batch."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.config import EncoderConfig
+    from carel_tpu_torch.data.ecpe_format import write_ecpe_file
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.models import dann
+    from carel_tpu_torch.stage1.dann_driver import (DannConfig,
+                                                    build_dann_model,
+                                                    encode_clauses,
+                                                    fit_dann, read_domains)
+    from carel_tpu_torch.stage1.trainer import snapshot
+
+    tag = "dann path (xla attention)"
+    root = os.path.join(RUN_DIR, "dann")
+    rng = np.random.default_rng(9)
+    cfg = DannConfig(epochs=1, self_iteration=1, self_epochs=1)
+    for name, n_docs in ((cfg.source_domain, 40), (cfg.target_domain, 38)):
+        path = os.path.join(root, cfg.doc_dir, f"{name}.txt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_ecpe_file(path, synth_docs(rng, n_docs, 12))
+    tok = ZhCharTokenizer(ZH_CHARS)
+    source, target = (encode_clauses(tok, sent, y, cfg.max_len)
+                      for sent, y in read_domains(cfg, root))
+    enc = EncoderConfig(arch="bert", dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_dann_model(cfg, enc, "cuda")
+    stats0 = {k: v.clone() for k, v in model.state_dict().items()
+              if k.startswith("batchnorm_l.running")}
+    logger, losses = _Records(), []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit_dann(cfg, model, source, target, logger, losses)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    flat = torch.stack([torch.stack(pair) for pair in losses]).cpu()
+    events = [r["event"] for r in logger.records]
+    print(f"{tag}: {len(source['labels'])} source and "
+          f"{len(target['labels'])} target clauses; {len(losses)} steps in "
+          f"{wall:.2f} s with their evaluations; events {events}; base "
+          f"{res['base']}, best {res['best']}", flush=True)
+    if not losses or not bool(torch.isfinite(flat).all()):
+        fail(f"{tag}: a loss is not finite")
+    if "dann_selftrain" not in events:
+        fail(f"{tag}: no self-training iteration ran")
+    count_path_launches(records, "dann", counts,
+                        {"emb_bwd": CALLS_A_STEP["emb_bwd"] * len(losses)})
+    moved = {k: float((model.state_dict()[k] - v).abs().max())
+             for k, v in stats0.items()}
+    if not all(m > 0.0 for m in moved.values()):
+        fail(f"{tag}: the running statistics did not move: {moved}")
+
+    # the gradient reversal, on the model's own forward
+    seen = {}
+
+    def keep(key, t):  # a hook that returns None changes nothing
+        t.retain_grad()
+        seen[key] = t
+
+    hooks = [model.batchnorm_l.register_forward_hook(
+        lambda m, i, o: keep("feat", o)),
+        model.dom_linear_1.register_forward_pre_hook(
+            lambda m, i: keep("d", i[0]))]
+    idx = np.arange(cfg.batch_size)
+    rows = [torch.from_numpy(np.asarray(source[k])[idx]).cuda() for k in
+            ("input_ids", "attention_mask", "token_type_ids")]
+    _, dom = model(*rows, deterministic=False, use_running_average=False)
+    for h in hooks:
+        h.remove()
+    torch.nn.functional.cross_entropy(
+        dom.float(), torch.zeros(len(idx), dtype=torch.long,
+                                 device="cuda")).backward()
+    g_feat, g_d = seen["feat"].grad, seen["d"].grad
+    ok = torch.equal(g_feat, -cfg.domain_weight * g_d) and bool(
+        (g_feat * g_d <= 0).all()) and bool(g_d.abs().max() > 0)
+    print(f"{tag}: running statistics moved by {moved}; the features' "
+          f"gradient is -{cfg.domain_weight:g} x the domain head's: {ok}",
+          flush=True)
+    if not ok:
+        fail(f"{tag}: the gradient reversal does not reverse")
+
+    # three steps from one state (params, running statistics, dropout
+    # draws; train_dann seeds its numpy draws) repeat their bits: losses,
+    # params and running statistics
+    start, rng_state = snapshot(model), torch.cuda.get_rng_state()
+    three = {k: np.asarray(v)[:16 * 3] for k, v in source.items()}
+    repeats = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        torch.cuda.set_rng_state(rng_state)
+        run_losses = []
+        dann.train_dann(model, three, target, epochs=1,
+                        learning_rate=cfg.learning_rate, losses=run_losses)
+        repeats.append((torch.stack([torch.stack(p) for p in run_losses]),
+                        snapshot(model)))
+    same = torch.equal(repeats[0][0], repeats[1][0]) and same_state(
+        repeats[0][1], repeats[1][1])
+    print(f"{tag}: three steps from one state twice, losses, params and "
+          f"running statistics bit-equal: {same}", flush=True)
+    if not same:
+        fail(f"{tag}: steps from one state do not repeat their bits")
+    del start, repeats
+
+    few = {k: np.asarray(v)[:16 * 5] for k, v in source.items()}
+    nums = step_numbers(lambda: dann.train_dann(
+        model, few, target, epochs=1, learning_rate=cfg.learning_rate),
+        steps=1)
+    per_step = {k: v / 5 for k, v in nums.items()}
+    pred = step_numbers(lambda: dann.predict_dann(
+        model, {k: v[:256] for k, v in target.items()}), steps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} b32xs128: step wall {per_step['wall_ms']:.2f} ms (device "
+          f"{per_step['device_ms']:.2f} ms, busy "
+          f"{per_step['device_ms'] / per_step['wall_ms']:.3f}, "
+          f"{per_step['kernels']:.1f} kernels), "
+          f"{cfg.batch_size / per_step['wall_ms'] * 1e3:.1f} clauses/s; "
+          f"prediction of 256 clauses wall {pred['wall_ms']:.2f} ms (device "
+          f"{pred['device_ms']:.2f} ms), "
+          f"{256 / pred['wall_ms'] * 1e3:.1f} clauses/s; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    return dict(per_step, pred_wall_ms=pred["wall_ms"], peak_gib=peak)
 
 
 def main() -> int:
@@ -1841,11 +2649,14 @@ def main() -> int:
     phase_mmd(records)
     phase_hsic(records)
     phase_bow(records)
+    phase_bow_corrections(records)
+    phase_embedding(records)
     phase_scores()
     phase_flash(records)
     for preset in PATH_KERNELS:
         phase_reference(preset)
     phase_reference(FLAGSHIP, "flash")
+    phase_reference_stage1()
     paths = {}
     for preset, iterations, strategy in (
             (FLAGSHIP, 1, "temporal_order_modification"),
@@ -1854,6 +2665,13 @@ def main() -> int:
         paths[preset] = phase_path(records, preset, iterations, strategy)
         torch.cuda.empty_cache()
     paths["flash"] = phase_serve(records)
+    torch.cuda.empty_cache()
+    clause_paths = {}
+    for mixer, impl, carried in STAGE1_RUNS:
+        clause_paths[f"stage1 {mixer}/{impl}"] = phase_stage1(
+            records, mixer, impl, carried)
+        torch.cuda.empty_cache()
+    clause_paths["dann"] = phase_dann(records)
     torch.cuda.empty_cache()
     steps = {}
     for preset, impl in CAPTURE_VARIANTS:
@@ -1877,9 +2695,15 @@ def main() -> int:
               f"memory {path['peak_gib']:.2f} GiB"
               + (f", K3/K4 {path['bow_per_step']:.0f} a step"
                  if "bow_per_step" in path else ""), flush=True)
+    for name, p in clause_paths.items():
+        print(f"path {name} (eager): device {p['device_ms']:.2f} ms/step, "
+              f"{p['kernels']:.1f} kernels/step, wall {p['wall_ms']:.2f} "
+              f"ms/step (device busy {p['device_ms'] / p['wall_ms']:.3f}), "
+              f"peak memory {p['peak_gib']:.2f} GiB", flush=True)
     print(f"device_profile: {PROFILE_WINDOWS['empty']} of "
-          f"{PROFILE_WINDOWS['profiled']} windows recorded no device event",
-          flush=True)
+          f"{PROFILE_WINDOWS['profiled']} windows recorded no device event, "
+          f"{PROFILE_WINDOWS['short']} epoch profiles missed a path kernel's "
+          f"launch", flush=True)
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,10 @@ kernel) builds from the emulated sums is held against
 ``carel_tpu.ops.pallas_bow.fused_bow_loss`` (Pallas in interpret mode) and
 against ``fused_bow_loss_plain``, value rtol 1e-5, for 1, 7 and 132 ranges,
 V = 1,003 and 23,808, B = 5 and 64. Inputs come from a numpy seed.
+
+K4 adds the backward's corrections at the bag-of-words indices to G itself,
+row by row in a fixed order: an emulation of that fold and of the products
+that follow is held against the index_add_ and the product they replace.
 """
 
 import functools
@@ -118,3 +122,53 @@ def test_loss_from_emulated_row_sums_matches_jax(ranges, V, B):
     plain = cuda_bow.fused_bow_loss_plain(*args[:5], LS, args[5])
     np.testing.assert_allclose(float(got), float(plain), rtol=1e-5)
     np.testing.assert_allclose(float(got), _jax_loss(B, V), rtol=1e-5)
+
+
+def _fold_corrections(G, idx, corr, v0=0):
+    """K4's corrections in plain PyTorch: for each row of the piece G
+    [rows, cols] of columns v0.., the row's entries whose index falls in
+    the piece added to G one at a time, t ascending (fp32)."""
+    G = G.clone()
+    for r in range(G.shape[0]):
+        for t in range(idx.shape[1]):
+            c = int(idx[r, t]) - v0
+            if 0 <= c < G.shape[1]:
+                G[r, c] += corr[r, t]
+    return G
+
+
+# few words (many repeats, in a row too) and many; V cut into pieces of
+# 64 columns, as K4's blocks cut it, or kept whole
+@pytest.mark.parametrize("words,cols", [(5, 300), (300, 300), (5, 64),
+                                        (300, 64)])
+def test_corrections_folded_into_g_match_index_add(words, cols):
+    """The corrections at the BoW indices added to G (K4's order: each
+    block's piece, row by row, t ascending), then dW = G^T h, db = the
+    column sums and dh = G W, equal the dense products plus the index_add_
+    and the batched product of the corrections that they replace, within
+    fp32 rounding (rtol 1e-6 normwise)."""
+    V, B = 300, 6
+    rng = np.random.default_rng(words + cols)
+    idx = rng.integers(0, words, (B, T))
+    idx[:, T // 2:] = -1
+    idx[0, 1] = idx[0, 0]  # an index twice in a row
+    idx = torch.tensor(idx)
+    valid = idx >= 0
+    safe = torch.where(valid, idx, 0)
+    corr = torch.where(valid, torch.tensor(rng.normal(size=(B, T)),
+                                           dtype=torch.float32), 0.0)
+    h = torch.tensor(rng.normal(size=(B, D)), dtype=torch.float32)
+    W = torch.tensor(rng.normal(size=(V, D)), dtype=torch.float32)
+    G = torch.tensor(rng.normal(size=(B, V)) * 1e-3, dtype=torch.float32)
+    folded = torch.cat([_fold_corrections(G[:, v0:v0 + cols], safe, corr, v0)
+                        for v0 in range(0, V, cols)], dim=1)
+    got = (folded.T @ h, folded.sum(0), folded @ W)
+    flat = safe.reshape(-1)
+    want = (
+        (G.T @ h).index_add_(0, flat, (corr[:, :, None] * h[:, None, :])
+                             .reshape(-1, D)),
+        G.sum(0).index_add_(0, flat, corr.reshape(-1)),
+        G @ W + torch.einsum("bt,btd->bd", corr, W[safe]))
+    for a, c in zip(got, want):
+        assert float(torch.linalg.vector_norm(a - c)
+                     / torch.linalg.vector_norm(c)) <= 1e-6

@@ -358,6 +358,82 @@ def test_bow_kernels_match_plain(cuda, V):
         assert _relnorm(a, c) <= 1e-4
 
 
+# few words (each in many rows, up to 64 times; an index may repeat in a
+# row) and the training vocabulary, at the training batch and at 100 rows
+# (two groups of K4's rows)
+@pytest.mark.parametrize("B,words", [(64, 40), (64, 23808), (100, 40)])
+def test_bow_backward_repeats_its_bits_with_duplicate_indices(cuda, B,
+                                                              words):
+    """K3 + K4 with the corrections at the BoW indices added to G in a
+    fixed order: two backward runs give the same bits, a CUDA graph of the
+    forward and backward replays them, and the gradients stay within 1e-4
+    normwise of the plain version."""
+    h, W, b, _, _, mask = _bow_problem(cuda, B=B)
+    T = 128
+    rng = np.random.default_rng(words)
+    idx = rng.integers(0, words, (B, T)).astype(np.int32)
+    idx[:, T // 4:] = -1
+    wts = np.where(idx >= 0, rng.random((B, T)), 0.0).astype(np.float32)
+    wts /= wts.sum(axis=1, keepdims=True)
+    idx, wts = torch.tensor(idx, device=cuda), torch.tensor(wts, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (h, W, b)]
+
+    def grads():
+        return torch.autograd.grad(
+            cuda_bow.fused_bow_loss(*leaves, idx, wts, 0.1, mask), leaves)
+
+    ops.reset_launch_counts()
+    first = grads()
+    assert ops.launch_counts()["bow_bwd"] == 1
+    assert all(torch.equal(u, v) for u, v in zip(first, grads()))
+    _assert_replays_bit_equal(grads)
+    leaves_p = [t.clone().requires_grad_() for t in (h, W, b)]
+    gp = torch.autograd.grad(
+        cuda_bow.fused_bow_loss_plain(*leaves_p, idx, wts, 0.1, mask),
+        leaves_p)
+    for a, c in zip(first, gp):
+        assert _relnorm(a, c) <= 1e-4
+
+
+# the encoder's word ids at the training batch: Zipf-like (a few ids in
+# long runs), and one id in every entry (as the token types are); and the
+# stage-1 batch of 300 clauses of 60 tokens
+@pytest.mark.parametrize("n,case", [(64 * 96, "zipf"), (64 * 96, "one"),
+                                    (300 * 60, "zipf")])
+def test_embedding_backward_repeats_its_bits(cuda, n, case):
+    """K10: two runs and two replays of a CUDA graph give the same bits,
+    within 1e-5 normwise of index_add_ (fp32 sums in another order)."""
+    from carel_tpu_torch.ops import cuda_embedding
+
+    rng = np.random.default_rng(n)
+    V, D = 21128, 768
+    ids = (np.minimum(rng.zipf(1.3, n) - 1, V - 1) if case == "zipf"
+           else np.zeros(n, np.int64))
+    ids = torch.tensor(ids, dtype=torch.long, device=cuda)
+    g = torch.tensor(rng.normal(size=(n, D)), dtype=torch.float32,
+                     device=cuda)
+    ops.reset_launch_counts()
+    first = cuda_embedding.embedding_backward_kernel(ids, g, V)
+    assert ops.launch_counts()["emb_bwd"] == 1
+    assert torch.equal(first, cuda_embedding.embedding_backward_kernel(
+        ids, g, V))
+    _assert_replays_bit_equal(
+        lambda: (cuda_embedding.embedding_backward_kernel(ids, g, V),))
+    want = torch.zeros(V, D, device=cuda).index_add_(0, ids, g)
+    assert _relnorm(first, want) <= 1e-5
+
+
+def _bow_corrections(idx):
+    """(safe indices [B, T] int64, corrections [B, T]) as the BoW backward
+    hands them to K4: 0 at an empty slot, normal values of std 1e-4 from a
+    seed where the slot holds an index."""
+    valid = idx >= 0
+    gen = torch.Generator(device=idx.device).manual_seed(3)
+    corr = torch.randn(idx.shape, device=idx.device, generator=gen) * 1e-4
+    return (torch.where(valid, idx, 0).long().contiguous(),
+            torch.where(valid, corr, 0.0).contiguous())
+
+
 def _bow_rowp(h, W, b, mask):
     """K3's row sums of (h, W, b) and a rowp [5, B] for K4 with A = 0, as
     the training step's weights would give it."""
@@ -389,12 +465,13 @@ def test_bow_backward_kernel_at_ragged_shapes(cuda, B, D, V):
     for a, c in zip(gk, gp):
         assert _relnorm(a, c) <= 1e-4
     rowp = _bow_rowp(h, W, b, mask)
+    corr = _bow_corrections(idx)
     assert all(torch.equal(u, v) for u, v in zip(
-        cuda_bow.bow_backward_kernel(h, W, b, rowp),
-        cuda_bow.bow_backward_kernel(h, W, b, rowp)))
+        cuda_bow.bow_backward_kernel(h, W, b, rowp, *corr),
+        cuda_bow.bow_backward_kernel(h, W, b, rowp, *corr)))
 
 
-def _bow_backward_planned(h, W, b, rowp, cols, grid):
+def _bow_backward_planned(h, W, b, rowp, idx, corr, cols, grid):
     """K4 under a plan given: (error, dW, db, dh)."""
     from carel_tpu_torch.ops import native
 
@@ -408,8 +485,9 @@ def _bow_backward_planned(h, W, b, rowp, cols, grid):
     dh = torch.full_like(h, 7.0)
     err = lib.carel_bow_bwd_planned(
         h.data_ptr(), W.data_ptr(), b.data_ptr(), B, D, V, cols, grid,
-        rowp.data_ptr(), dW.data_ptr(), db.data_ptr(), dh.data_ptr(),
-        scratch.data_ptr(), native.stream(h.device))
+        rowp.data_ptr(), idx.data_ptr(), corr.data_ptr(), idx.shape[1],
+        dW.data_ptr(), db.data_ptr(),
+        dh.data_ptr(), scratch.data_ptr(), native.stream(h.device))
     return err, dW, db, dh
 
 
@@ -420,10 +498,11 @@ def test_bow_backward_plans_agree(cuda, cols, grid):
     same order), dh the same sums merged in another order."""
     from carel_tpu_torch.ops import native
 
-    h, W, b, *_, mask = _bow_problem(cuda)
+    h, W, b, idx, _, mask = _bow_problem(cuda)
     rowp = _bow_rowp(h, W, b, mask)
-    want = cuda_bow.bow_backward_kernel(h, W, b, rowp)
-    err, *got = _bow_backward_planned(h, W, b, rowp, cols, grid)
+    corr = _bow_corrections(idx)
+    want = cuda_bow.bow_backward_kernel(h, W, b, rowp, *corr)
+    err, *got = _bow_backward_planned(h, W, b, rowp, *corr, cols, grid)
     native.check(err, "bow backward kernel")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert _relnorm(got[2], want[2]) <= 1e-6
@@ -434,9 +513,10 @@ def test_bow_backward_refuses_a_grid_that_cannot_be_resident(cuda):
     entry point returns the error and launches nothing."""
     from carel_tpu_torch.ops import native
 
-    h, W, b, *_, mask = _bow_problem(cuda)
+    h, W, b, idx, _, mask = _bow_problem(cuda)
     rowp = _bow_rowp(h, W, b, mask)
-    err, dW, db, dh = _bow_backward_planned(h, W, b, rowp, 8,
+    err, dW, db, dh = _bow_backward_planned(h, W, b, rowp,
+                                            *_bow_corrections(idx), 8,
                                             -(-W.shape[0] // 8))
     with pytest.raises(RuntimeError, match="too many blocks|cooperative"):
         native.check(err, "bow backward kernel")
@@ -538,13 +618,15 @@ def test_bow_forward_launch_can_be_captured_in_a_cuda_graph(cuda):
 def test_bow_backward_launch_can_be_captured_in_a_cuda_graph(cuda):
     """K4's cooperative launch is recorded by a stream capture too, and the
     replay writes the same bits."""
-    h, W, b, *_, mask = _bow_problem(cuda)
+    h, W, b, idx, _, mask = _bow_problem(cuda)
     rowp = _bow_rowp(h, W, b, mask)
-    want = [t.clone() for t in cuda_bow.bow_backward_kernel(h, W, b, rowp)]
+    corr = _bow_corrections(idx)
+    want = [t.clone() for t in cuda_bow.bow_backward_kernel(h, W, b, rowp,
+                                                             *corr)]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        got = cuda_bow.bow_backward_kernel(h, W, b, rowp)
+        got = cuda_bow.bow_backward_kernel(h, W, b, rowp, *corr)
     for t in got:
         t.zero_()
     graph.replay()
@@ -562,13 +644,14 @@ def test_kernels_repeat_bit_for_bit(cuda):
         da = cuda_pairwise.mmd_backward_kernel(x, y, mask, res_a, g, (0.1,))
         db = cuda_pairwise.mmd_backward_kernel(x, y, mask, res_b, g, (0.1,))
         assert all(torch.equal(u, v) for u, v in zip(da, db))
-    h, W, bias, *_, bmask = _bow_problem(cuda)
+    h, W, bias, bidx, _, bmask = _bow_problem(cuda)
     assert torch.equal(cuda_bow.bow_forward_kernel(h, W, bias),
                        cuda_bow.bow_forward_kernel(h, W, bias))
     rowp = _bow_rowp(h, W, bias, bmask)
+    corr = _bow_corrections(bidx)
     assert all(torch.equal(u, v) for u, v in zip(
-        cuda_bow.bow_backward_kernel(h, W, bias, rowp),
-        cuda_bow.bow_backward_kernel(h, W, bias, rowp)))
+        cuda_bow.bow_backward_kernel(h, W, bias, rowp, *corr),
+        cuda_bow.bow_backward_kernel(h, W, bias, rowp, *corr)))
     for B, masked in ((61, 3), (1000, 7)):
         x, y, mask = _hsic_problem(cuda, B, masked, 0.2)
         a, res_a = cuda_pairwise.hsic_forward_kernel(x, y, mask, 1.0, 1.0)

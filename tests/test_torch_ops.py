@@ -145,7 +145,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops.launch_counts() == {
         "mmd_fwd": 0, "mmd_bwd": 0, "hsic_fwd": 0, "hsic_bwd": 0,
         "bow_fwd": 0, "bow_bwd": 0, "flash_fwd": 0, "flash_bwd_dkv": 0,
-        "flash_bwd_dq": 0}
+        "flash_bwd_dq": 0, "emb_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -155,6 +155,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     h = torch.zeros(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_bow.bow_forward_kernel(h, torch.zeros(10, 4), torch.zeros(10))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_bow.bow_backward_kernel(
+            h, torch.zeros(10, 4), torch.zeros(10), torch.zeros(5, 2),
+            torch.zeros(2, 3, dtype=torch.long), torch.zeros(2, 3))
 
 
 def _view(dtype, offset, stride_pad):
