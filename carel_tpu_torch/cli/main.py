@@ -4,10 +4,12 @@
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
         --data_root /path/to/corpora [--device cuda]
     python -m carel_tpu_torch.cli train --preset ec_hsic --data_root ...
+    python -m carel_tpu_torch.cli train --preset en_newsplit --data_root ... \\
+        [--hf_encoder /path/to/local/roberta-base]
     python -m carel_tpu_torch.cli infer --preset ... --data_root ... \\
         --model_id <id printed by train> [--output_dir pair_data/ec_pair]
-    python -m carel_tpu_torch.cli stage1 --data_root ... [--clause_mixer
-        transformer] [--carried_adam] [--save_dir DIR]
+    python -m carel_tpu_torch.cli stage1 --data_root ... [--language en]
+        [--clause_mixer transformer] [--carried_adam] [--save_dir DIR]
     python -m carel_tpu_torch.cli dann --data_root ... [--no_domain_loss]
     python -m carel_tpu_torch.cli presets
 
@@ -24,7 +26,11 @@ file in fixed-size batches and, with ``--output_dir``, writes the true/pred
 pickles. ``stage1`` trains the document-level emotion model on the source
 domain, self-trains on the target and writes the stage-1 pair file that the
 ``predicted_emotion`` presets test on; ``dann`` runs the clause-level DANN
-emotion classifier with its self-training. All of them run on the GPU
+emotion classifier with its self-training. ``--hf_encoder`` takes a local HF
+BERT/RoBERTa checkpoint directory: under ``train`` and ``infer`` its
+config.json sets the encoder's shape and the directory is also the
+tokenizer, under ``stage1`` and ``dann`` its weights replace the configured
+encoder's, as in the JAX CLI. All of them run on the GPU
 unless ``--device cpu`` is given, and raise when no GPU is there. The last
 line of each is the JSON summary the JAX CLI prints.
 """
@@ -34,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import Optional
 
@@ -60,7 +67,7 @@ def _encoder_preset(name: str, language: str) -> EncoderConfig:
 
 
 def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
-    data, loss, train = cfg.data, cfg.loss, cfg.train
+    data, loss, model, train = cfg.data, cfg.loss, cfg.model, cfg.train
     dkw = {f: getattr(args, f) for f in
            ("data_root", "language", "source_domain", "target_domain",
             "train_file", "test_file", "max_len") if getattr(args, f)}
@@ -74,6 +81,14 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
                                    regularizer=Regularizer(args.regularizer))
     if args.mmd_loss_weight is not None:
         loss = dataclasses.replace(loss, mmd_loss_weight=args.mmd_loss_weight)
+    if args.hf_encoder:
+        from carel_tpu_torch.models.hf_port import is_hf_dir
+
+        model = dataclasses.replace(model, pretrained_encoder=args.hf_encoder)
+        # an HF checkpoint dir also supplies the tokenizer; an orbax dir
+        # keeps the corpus-built one (and raises at init_state)
+        if is_hf_dir(args.hf_encoder):
+            data = dataclasses.replace(data, tokenizer=args.hf_encoder)
     tkw = {f: getattr(args, f) for f in
            ("epochs", "batch_size", "vae_lr", "self_iteration", "self_epochs",
             "checkpoint_dir", "log_dir", "seed")
@@ -108,7 +123,8 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
     if getattr(args, "no_scan_epoch", False):
         tkw["scan_epoch"] = False
     train = dataclasses.replace(train, **tkw)
-    return dataclasses.replace(cfg, data=data, loss=loss, train=train)
+    return dataclasses.replace(cfg, data=data, loss=loss, model=model,
+                               train=train)
 
 
 def _nonneg_float(value: str) -> float:
@@ -145,6 +161,8 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mmd_loss_weight", type=float, default=None)
     p.add_argument("--encoder", default="base",
                    help="tiny | base (bf16) | base_f32")
+    p.add_argument("--hf_encoder", default="",
+                   help="local HF checkpoint dir to init the encoder from")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--vae_lr", type=float, default=None)
@@ -350,21 +368,7 @@ def cmd_infer(args) -> int:
     return 0
 
 
-def _stage1_scope(language: str, hf_encoder: str) -> None:
-    """What the stage1 and dann verbs do not run yet raises."""
-    if language != "zh":
-        raise NotImplementedError(
-            f"language {language!r} is not ported to carel_tpu_torch yet "
-            "(ROADMAP Queue 1 item 2: the en tokenizer): only zh runs")
-    if hf_encoder:
-        raise NotImplementedError(
-            "--hf_encoder is not ported to carel_tpu_torch yet (ROADMAP "
-            "Queue 1 item 2: models/hf_port.py)")
-
-
 def cmd_stage1(args) -> int:
-    import os
-
     from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
     from carel_tpu_torch.data.tokenizer import build_tokenizer
     from carel_tpu_torch.device import resolve_device
@@ -374,7 +378,6 @@ def cmd_stage1(args) -> int:
 
     device = resolve_device(args.device)
     language = args.language or "zh"
-    _stage1_scope(language, args.hf_encoder)
     s1 = Stage1Config(
         language=language,
         source_domain=args.source_domain or "home",
@@ -385,7 +388,9 @@ def cmd_stage1(args) -> int:
         fresh_adam=not args.carried_adam,
         save_dir=args.save_dir,
     )
-    d = os.path.join(args.data_root, args.doc_dir or "data/ECPE_new_dataset")
+    d = os.path.join(args.data_root, args.doc_dir or (
+        "data/ECPE_new_dataset" if language == "zh"
+        else "domains/Englishnovel_multiple"))
     train_docs = parse_ecpe_file(os.path.join(d, f"{s1.source_domain}.txt"))
     test_docs = parse_ecpe_file(os.path.join(d, f"{s1.target_domain}.txt"))
     if args.max_train_docs:
@@ -398,16 +403,19 @@ def cmd_stage1(args) -> int:
     tokenizer = build_tokenizer(
         language, corpus,
         os.path.join(args.cache_dir, f"tokenizer_{language}.json"))
+    # zh clauses lose their spaces; en clauses keep them
+    strip = language == "zh"
     train_arr = build_doc_arrays(train_docs, tokenizer, s1.max_doc_len,
-                                 s1.max_sen_len, True)
+                                 s1.max_sen_len, strip)
     test_arr = build_doc_arrays(test_docs, tokenizer, s1.max_doc_len,
-                                s1.max_sen_len, True)
+                                s1.max_sen_len, strip)
 
     enc = dataclasses.replace(_encoder_preset(args.encoder, language),
                               vocab_size=tokenizer.vocab_size)
     logger = JsonlLogger(args.log_dir or "emotion_logs", "stage1")
     _, best, pair_file = train_stage1(s1, enc, train_arr, test_arr,
-                                      tokenizer, logger, device=device)
+                                      tokenizer, logger, device=device,
+                                      encoder_ckpt=args.hf_encoder)
     logger.close()
     print(json.dumps({"best_f1": best[2], "pair_file": pair_file}))
     return 0
@@ -418,8 +426,6 @@ def cmd_dann(args) -> int:
     imbalanced-sampled source training + full-set pseudo-label
     self-training, with the gradient-reversal domain loss on by default
     (--no_domain_loss reproduces the reference's shipped recipe)."""
-    import os
-
     from carel_tpu_torch.data.tokenizer import build_tokenizer
     from carel_tpu_torch.device import resolve_device
     from carel_tpu_torch.stage1.dann_driver import (DannConfig,
@@ -429,7 +435,6 @@ def cmd_dann(args) -> int:
 
     device = resolve_device(args.device)
     language = args.language or "zh"
-    _stage1_scope(language, args.hf_encoder)
     cfg = DannConfig(
         source_domain=args.source_domain or "society",
         target_domain=args.target_domain or "finance",
@@ -456,7 +461,8 @@ def cmd_dann(args) -> int:
                               vocab_size=tokenizer.vocab_size)
     logger = JsonlLogger(args.log_dir or "emotion_logs", "dann")
     res = run_dann(cfg, enc, tokenizer, args.data_root, logger,
-                   device=device, max_clauses=args.max_test_docs)
+                   device=device, max_clauses=args.max_test_docs,
+                   encoder_ckpt=args.hf_encoder)
     logger.close()
     print(json.dumps({"base": res["base"], "best": res["best"]}))
     return 0
@@ -495,9 +501,6 @@ def build_parser() -> argparse.ArgumentParser:
     p_s1.add_argument("--doc_dir", default="",
                       help="override the doc-file directory (e.g. "
                            "domains/THUCTC_multiple for the zh old split)")
-    p_s1.add_argument("--hf_encoder", default="",
-                      help="a local HF encoder checkpoint (not ported yet: "
-                           "raises)")
     p_s1.set_defaults(fn=cmd_stage1)
     p_dann = sub.add_parser(
         "dann", help="clause-level DANN emotion classifier "
@@ -511,9 +514,6 @@ def build_parser() -> argparse.ArgumentParser:
     p_dann.add_argument("--no_domain_loss", action="store_true",
                         help="drop the adversarial domain term, exactly "
                              "like the reference's shipped train loop")
-    p_dann.add_argument("--hf_encoder", default="",
-                        help="a local HF encoder checkpoint (not ported "
-                             "yet: raises)")
     p_dann.set_defaults(fn=cmd_dann)
     p_pre = sub.add_parser("presets", help="list presets")
     p_pre.set_defaults(fn=cmd_presets)

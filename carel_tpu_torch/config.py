@@ -72,7 +72,7 @@ class EncoderConfig:
     reference's `hfl/chinese-roberta-wwm-ext` / `roberta-base` architecture
     (drl_classifier_ec_mmd_final_mul.py:186-192). The reference downloads
     pretrained weights from the HF hub; here weights can be randomly initialized
-    or ported from a local HF checkpoint (not ported to this package yet).
+    or ported from a local HF checkpoint (``models/hf_port.py``).
     """
 
     vocab_size: int = 21128  # chinese-roberta-wwm-ext vocab; en preset overrides

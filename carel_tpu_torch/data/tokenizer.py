@@ -1,13 +1,21 @@
-"""Tokenizers for the ECPE pipelines (zh), from carel_tpu/data/tokenizer.py.
+"""Tokenizers for the ECPE pipelines, from carel_tpu/data/tokenizer.py.
 
 The reference encodes each pair string with a pretrained HF tokenizer to a
 fixed 128-token window (ECPEDataset.__getitem__, flagship :120-146). This
-module keeps the JAX package's corpus-built character tokenizer for zh
-(Chinese BERT tokenization is effectively per-character for CJK) on its pure
-Python encode path. The native C ingest, the trained English WordPiece and HF
-tokenizer directories are not ported yet: ``build_tokenizer`` raises for en.
+module gives the same fixed-shape encoding with three backends:
 
-The literal "[SEP]" embedded in pair strings splits segments, and every batch
+- ZhCharTokenizer: a deterministic character vocabulary built from the
+  corpus (Chinese BERT tokenization is effectively per-character for CJK),
+  encoded by the C ingest extension (``native/``) where it builds and by
+  the Python loop where it does not;
+- WordPieceTokenizer: an English WordPiece trained from the corpus through
+  the ``tokenizers`` library (offline, cached to disk);
+- HFTokenizerAdapter: a local HF tokenizer directory, through
+  ``transformers``.
+
+``tokenizers`` and ``transformers`` are imported inside the functions that
+need them, so that this module imports on a machine without them. The
+literal "[SEP]" embedded in pair strings splits segments, and every batch
 comes out as (input_ids, attention_mask, token_type_ids) numpy arrays of a
 static shape.
 """
@@ -79,6 +87,22 @@ class BaseTokenizer:
             types[i] = e["token_type_ids"]
         return Encoded(ids, mask, types)
 
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        raise NotImplementedError
+
+
+def _require(module: str, what: str):
+    """Import ``module``, or raise an ImportError that names it."""
+    import importlib
+
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(
+            f"{what} needs the {module!r} package, which this machine "
+            f"lacks: {e}") from e
+
 
 class ZhCharTokenizer(BaseTokenizer):
     """Character-level tokenizer with a deterministic corpus-built vocab.
@@ -130,6 +154,18 @@ class ZhCharTokenizer(BaseTokenizer):
         unk = self.unk_id
         return [get(ch, unk) for ch in text if not ch.isspace()]
 
+    def encode_batch(self, texts: Sequence[str], max_len: int) -> Encoded:
+        # the C ingest extension (native/), or the Python loop where it does
+        # not build. This is host ingest, not a device kernel: a C loop over
+        # the characters is all it needs, so it deliberately keeps a
+        # fallback, as the JAX package's does
+        from carel_tpu_torch.native.fast_tokenizer import native_encode_batch
+
+        out = native_encode_batch(self, [str(t) for t in texts], max_len)
+        if out is not None:
+            return Encoded(*out)
+        return super().encode_batch(texts, max_len)
+
     def decode(self, ids: Sequence[int],
                skip_special_tokens: bool = True) -> str:
         """The tokens of ``ids`` joined by single spaces, as the reference's
@@ -148,21 +184,154 @@ class ZhCharTokenizer(BaseTokenizer):
         return " ".join(toks)
 
 
+class WordPieceTokenizer(BaseTokenizer):
+    """English WordPiece trained offline from the corpus via `tokenizers`."""
+
+    SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+
+    def __init__(self, tok, vocab_size: int):
+        self._tok = tok  # tokenizers.Tokenizer
+        self.vocab_size = vocab_size
+        v = tok.get_vocab()
+        self.pad_id = v.get("[PAD]", 0)
+        self.unk_id = v.get("[UNK]", 1)
+        self.cls_id = v.get("[CLS]", 2)
+        self.sep_id = v.get("[SEP]", 3)
+
+    @classmethod
+    def train_from_corpus(
+        cls, texts: Sequence[str], vocab_size: int = 8192
+    ) -> "WordPieceTokenizer":
+        """NFD, lowercase and accent stripping; whitespace then punctuation
+        pre-tokenizers; "##" continuation prefix; the five specials first."""
+        tk = _require("tokenizers", "the English WordPiece tokenizer")
+        tok = tk.Tokenizer(tk.models.WordPiece(unk_token="[UNK]"))
+        tok.decoder = tk.decoders.WordPiece(prefix="##")
+        tok.normalizer = tk.normalizers.Sequence(
+            [tk.normalizers.NFD(), tk.normalizers.Lowercase(),
+             tk.normalizers.StripAccents()])
+        tok.pre_tokenizer = tk.pre_tokenizers.Sequence(
+            [tk.pre_tokenizers.WhitespaceSplit(),
+             tk.pre_tokenizers.Punctuation()])
+        trainer = tk.trainers.WordPieceTrainer(
+            vocab_size=vocab_size, special_tokens=list(cls.SPECIALS),
+            continuing_subword_prefix="##")
+        tok.train_from_iterator(iter(texts), trainer=trainer)
+        return cls(tok, tok.get_vocab_size())
+
+    @classmethod
+    def load(cls, path: str) -> "WordPieceTokenizer":
+        tk = _require("tokenizers", "the English WordPiece tokenizer")
+        tok = tk.Tokenizer.from_file(path)
+        return cls(tok, tok.get_vocab_size())
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._tok.save(path)
+
+    def tokenize_to_ids(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False).ids
+
+    def encode_batch(self, texts: Sequence[str], max_len: int) -> Encoded:
+        """Every segment of every text through the Rust batch encoder, then
+        [CLS] seg [SEP] seg [SEP] ..., cut to max_len - 1 tokens plus a
+        [SEP]."""
+        n = len(texts)
+        ids = np.full((n, max_len), self.pad_id, np.int32)
+        mask = np.zeros((n, max_len), np.int32)
+        types = np.zeros((n, max_len), np.int32)
+        split_texts = [_SEP_SPLIT.split(str(t)) for t in texts]
+        flat = [seg for segs in split_texts for seg in segs]
+        encodings = self._tok.encode_batch(flat, add_special_tokens=False)
+        pos = 0
+        for i, segs in enumerate(split_texts):
+            row: List[int] = [self.cls_id]
+            for _ in segs:
+                row.extend(encodings[pos].ids)
+                row.append(self.sep_id)
+                pos += 1
+            if len(row) > max_len:
+                row = row[: max_len - 1] + [self.sep_id]
+            k = len(row)
+            ids[i, :k] = row
+            mask[i, :k] = 1
+        return Encoded(ids, mask, types)
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        return self._tok.decode([int(i) for i in ids],
+                                skip_special_tokens=skip_special_tokens)
+
+
+class HFTokenizerAdapter(BaseTokenizer):
+    """Wraps a locally available HuggingFace tokenizer directory; the HF
+    tokenizer itself splits the literal "[SEP]" (a special token) and
+    truncates and pads."""
+
+    def __init__(self, hf_tokenizer):
+        self._tok = hf_tokenizer
+        self.pad_id = hf_tokenizer.pad_token_id or 0
+        self.unk_id = hf_tokenizer.unk_token_id or 0
+        self.cls_id = hf_tokenizer.cls_token_id \
+            if hf_tokenizer.cls_token_id is not None \
+            else hf_tokenizer.bos_token_id
+        self.sep_id = hf_tokenizer.sep_token_id \
+            if hf_tokenizer.sep_token_id is not None \
+            else hf_tokenizer.eos_token_id
+        self.vocab_size = len(hf_tokenizer)
+
+    @classmethod
+    def load(cls, path: str) -> "HFTokenizerAdapter":
+        tr = _require("transformers", "an HF tokenizer directory")
+        return cls(tr.AutoTokenizer.from_pretrained(path))
+
+    def encode_batch(self, texts: Sequence[str], max_len: int) -> Encoded:
+        out = self._tok(
+            [str(t) for t in texts],
+            add_special_tokens=True,
+            max_length=max_len,
+            padding="max_length",
+            truncation=True,
+            return_token_type_ids=True,
+            return_attention_mask=True,
+            return_tensors="np",
+        )
+        return Encoded(
+            out["input_ids"].astype(np.int32),
+            out["attention_mask"].astype(np.int32),
+            out.get("token_type_ids",
+                    np.zeros_like(out["input_ids"])).astype(np.int32),
+        )
+
+    def tokenize_to_ids(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        return self._tok.decode(ids, skip_special_tokens=skip_special_tokens)
+
+
 def build_tokenizer(
     language: str,
     corpus_texts: Optional[Sequence[str]] = None,
     cache_path: Optional[str] = None,
+    hf_path: Optional[str] = None,
+    vocab_size: int = 8192,
 ) -> BaseTokenizer:
-    """Resolve the zh tokenizer: disk cache > corpus-built (then cached)."""
-    if language != "zh":
-        raise NotImplementedError(
-            f"tokenizer for language {language!r} is not ported yet: only zh "
-            "(ZhCharTokenizer) runs in carel_tpu_torch")
+    """Resolve a tokenizer: HF dir > disk cache > corpus-built (then
+    cached): characters for zh, a trained WordPiece otherwise."""
+    if hf_path and os.path.isdir(hf_path):
+        return HFTokenizerAdapter.load(hf_path)
     if cache_path and os.path.exists(cache_path):
-        return ZhCharTokenizer.load(cache_path)
+        if language == "zh":
+            return ZhCharTokenizer.load(cache_path)
+        return WordPieceTokenizer.load(cache_path)
     if corpus_texts is None:
         raise ValueError("no cached tokenizer and no corpus to build one from")
-    tok = ZhCharTokenizer.from_corpus(corpus_texts)
+    if language == "zh":
+        tok: BaseTokenizer = ZhCharTokenizer.from_corpus(corpus_texts)
+    else:
+        tok = WordPieceTokenizer.train_from_corpus(corpus_texts, vocab_size)
     if cache_path:
         tok.save(cache_path)
     return tok

@@ -4,9 +4,11 @@ state. Port of carel_tpu/pipeline.py.
 Resolves corpus paths exactly like the reference entry points
 (drl_classifier_ec_mmd_final_mul.py:939-948 for the old split,
 newsplit :1205-1227 for the new split + predicted-emotion test files), builds
-the tokenizer/BoW/arrays, and sizes the model config to them. Ported for zh,
-with the self-chain pair construction; en ingest and pretrained encoders
-wait for later slices and raise.
+the tokenizer/BoW/arrays, and sizes the model config to them: zh and en,
+the self-chain pair construction, and a local HF checkpoint as the
+encoder (its config.json sets the encoder's shape, its weights replace the
+random ones in ``init_state``). An orbax encoder directory (the JAX
+package's pretraining output) raises: the port has no pretraining yet.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 
 from carel_tpu_torch.config import CarelConfig, EncoderConfig
 from carel_tpu_torch.data.batching import PairArrays, encode_pairs
-from carel_tpu_torch.data.bow import BowVocab, build_bow_vocab_zh
+from carel_tpu_torch.data.bow import (BowVocab, build_bow_vocab_en,
+                                      build_bow_vocab_zh)
 from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
 from carel_tpu_torch.data.pairs import PairSet, build_pairs
 from carel_tpu_torch.data.self_chain import build_pairs_self_chain
@@ -30,6 +33,8 @@ from carel_tpu_torch.data.tokenizer import BaseTokenizer, build_tokenizer
 from carel_tpu_torch.device import resolve_device
 from carel_tpu_torch.models.drl import DrlModel
 from carel_tpu_torch.models.encoder import init_flax_
+from carel_tpu_torch.models.hf_port import (encoder_config_from_hf, is_hf_dir,
+                                            load_encoder_checkpoint)
 from carel_tpu_torch.train.state import TrainState, create_train_state
 
 
@@ -106,6 +111,10 @@ def fit_max_len(tokenizer, texts, cap: int = 128, floor: int = 32) -> int:
     return min(cap, max(floor, -(-observed // 16) * 16))
 
 
+def _spaced_sep(cfg: CarelConfig) -> bool:
+    return cfg.data.language == "en" and cfg.data.bow_optimize
+
+
 def build_pipeline(
     cfg: CarelConfig,
     cache_dir: str = ".carel_cache",
@@ -113,14 +122,6 @@ def build_pipeline(
     max_train_docs: int = 0,
     max_test_docs: int = 0,
 ) -> Pipeline:
-    if cfg.data.language != "zh":
-        raise NotImplementedError(
-            f"language {cfg.data.language!r} is not ported to carel_tpu_torch "
-            "yet: only zh runs")
-    if cfg.model.pretrained_encoder:
-        raise NotImplementedError(
-            "loading a pretrained encoder is not ported to carel_tpu_torch "
-            "yet (it waits for a local HF checkpoint)")
     train_path, test_path, bow_path = resolve_paths(cfg)
 
     train_docs = parse_ecpe_file(train_path)
@@ -131,24 +132,40 @@ def build_pipeline(
         test_docs = test_docs[:max_test_docs]
 
     rng = random.Random(cfg.data.seed)
+    spaced = _spaced_sep(cfg)
     make_pairs = (build_pairs_self_chain if cfg.data.self_chain
                   else build_pairs)
-    train_pairs = make_pairs(train_docs, test=False, rng=rng)
-    test_pairs = make_pairs(test_docs, test=True, rng=rng)
+    train_pairs = make_pairs(train_docs, test=False, spaced_sep=spaced,
+                             rng=rng)
+    test_pairs = make_pairs(test_docs, test=True, spaced_sep=spaced, rng=rng)
 
-    bow = build_bow_vocab_zh(bow_path)
+    if cfg.data.language == "zh":
+        bow = build_bow_vocab_zh(bow_path)
+    else:
+        bow = build_bow_vocab_en(bow_path, bow_optimize=cfg.data.bow_optimize)
 
-    # tokenizer: corpus-built + cached (no network)
+    # tokenizer: an HF dir (data.tokenizer), else the cache, else built from
+    # the BoW corpus and cached (no network)
     os.makedirs(cache_dir, exist_ok=True)
-    tok_cache = os.path.join(cache_dir, "tokenizer_zh.json")
+    tok_cache = os.path.join(cache_dir,
+                             f"tokenizer_{cfg.data.language}.json")
+    hf = cfg.data.tokenizer if cfg.data.tokenizer not in ("auto", "") \
+        else None
     corpus = None
-    if not os.path.exists(tok_cache):
+    if hf is None and not os.path.exists(tok_cache):
         bow_docs = parse_ecpe_file(bow_path)
         corpus = [c.text for doc in bow_docs for c in doc.clauses]
-    tokenizer = build_tokenizer("zh", corpus, tok_cache)
+    tokenizer = build_tokenizer(cfg.data.language, corpus, tok_cache, hf)
 
-    enc = dataclasses.replace(encoder_cfg or cfg.model.encoder,
-                              vocab_size=tokenizer.vocab_size)
+    # a local HF checkpoint dictates the encoder's shape (and keeps only the
+    # configured dtype, as in the JAX package); otherwise the configured
+    # encoder takes the tokenizer's vocab
+    if is_hf_dir(cfg.model.pretrained_encoder):
+        enc = encoder_config_from_hf(cfg.model.pretrained_encoder,
+                                     (encoder_cfg or cfg.model.encoder).dtype)
+    else:
+        enc = dataclasses.replace(encoder_cfg or cfg.model.encoder,
+                                  vocab_size=tokenizer.vocab_size)
     model_cfg = dataclasses.replace(cfg.model, encoder=enc, bow_dim=len(bow))
     cfg = dataclasses.replace(cfg, model=model_cfg)
 
@@ -181,13 +198,18 @@ def init_state(cfg: CarelConfig, device="cuda",
     Seeds, all from cfg.train.seed: the parameters come from a CPU generator
     (so they do not depend on the device), dropout draws from the device's
     default generator (seeded here), and the sampling noise from a generator
-    on the device seeded with seed + 1.
+    on the device seeded with seed + 1. When ``cfg.model.pretrained_encoder``
+    is an HF checkpoint dir, its weights then replace the encoder's; an
+    orbax dir raises.
     """
     device = resolve_device(device)
     seed = cfg.train.seed
     torch.manual_seed(seed)
     model = DrlModel(cfg.model)
     init_flax_(model, torch.Generator().manual_seed(seed))
+    if cfg.model.pretrained_encoder:
+        model.encoder.load_state_dict(load_encoder_checkpoint(
+            cfg.model.pretrained_encoder, cfg.model.encoder)[1])
     model.to(device)
     sample_gen = torch.Generator(device=device).manual_seed(seed + 1)
     return create_train_state(cfg, model, sample_gen,

@@ -34,6 +34,7 @@ from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
 from carel_tpu_torch.device import resolve_device
 from carel_tpu_torch.models.dann import (ClauseEmotionDANN, init_dann,
                                          predict_dann, train_dann)
+from carel_tpu_torch.models.hf_port import load_encoder_checkpoint
 from carel_tpu_torch.stage1.trainer import snapshot
 from carel_tpu_torch.train.metrics import micro_prf
 
@@ -84,17 +85,26 @@ def flat_prf(pred: np.ndarray, true: np.ndarray):
 
 
 def build_dann_model(cfg: DannConfig, encoder_cfg: EncoderConfig,
-                     device="cuda", dropout: float = 0.1
-                     ) -> ClauseEmotionDANN:
+                     device="cuda", dropout: float = 0.1,
+                     encoder_ckpt: str = "") -> ClauseEmotionDANN:
     """The model with Flax-style random init from ``cfg.seed`` (a CPU
     generator) on ``device``; seeds the device's default generator, which
     dropout draws from. ``dropout`` is the model's (the reference's
-    0.1)."""
+    0.1). With ``encoder_ckpt`` (a local HF checkpoint dir) the encoder
+    then takes its weights and the sizes of its tables, keeping
+    ``encoder_cfg``'s other fields, as the JAX driver does; an orbax dir
+    raises."""
     device = resolve_device(device)
+    enc_state = None
+    if encoder_ckpt:
+        encoder_cfg, enc_state = load_encoder_checkpoint(encoder_ckpt,
+                                                         encoder_cfg)
     torch.manual_seed(cfg.seed)
     model = ClauseEmotionDANN(encoder_cfg, dropout=dropout,
                               domain_weight=cfg.domain_weight)
     init_dann(model, cfg.seed)
+    if enc_state is not None:
+        model.encoder.load_state_dict(enc_state)
     return model.to(device)
 
 
@@ -119,13 +129,15 @@ def run_dann(
     logger=None,
     device="cuda",
     max_clauses: int = 0,  # test-size cap; 0 = all
+    encoder_ckpt: str = "",  # a local HF checkpoint dir
 ) -> dict:
     """Full DANN experiment on ``device``; returns the best base and
     self-training metrics and the best state_dict."""
     source, target = (encode_clauses(tokenizer, sent, y, cfg.max_len)
                       for sent, y in read_domains(cfg, data_root,
                                                   max_clauses))
-    model = build_dann_model(cfg, encoder_cfg, device)
+    model = build_dann_model(cfg, encoder_cfg, device,
+                             encoder_ckpt=encoder_ckpt)
     return fit_dann(cfg, model, source, target, logger)
 
 

@@ -36,6 +36,7 @@ import torch
 
 from carel_tpu_torch.config import EncoderConfig
 from carel_tpu_torch.device import resolve_device
+from carel_tpu_torch.models.hf_port import load_encoder_checkpoint
 from carel_tpu_torch.models.stage1 import DocEmotionModel, init_stage1_
 from carel_tpu_torch.stage1.data import DocArrays
 from carel_tpu_torch.stage1.pair_writer import write_pair_data
@@ -201,15 +202,26 @@ def eval_prf(model, test: DocArrays, device):
 
 
 def build_stage1_model(cfg: Stage1Config, encoder_cfg: EncoderConfig,
-                       device="cuda") -> DocEmotionModel:
+                       device="cuda", encoder_ckpt: str = ""
+                       ) -> DocEmotionModel:
     """The model with Flax-style random init from ``cfg.seed`` (a CPU
     generator, so it does not depend on the device) on ``device``; seeds
-    the device's default generator, which dropout draws from."""
+    the device's default generator, which dropout draws from. With
+    ``encoder_ckpt`` (a local HF checkpoint dir) the encoder then takes its
+    weights and the sizes of its tables, keeping ``encoder_cfg``'s other
+    fields, as the JAX trainer does (devin :265 downloads hub BERT); an
+    orbax dir raises."""
     device = resolve_device(device)
+    enc_state = None
+    if encoder_ckpt:
+        encoder_cfg, enc_state = load_encoder_checkpoint(encoder_ckpt,
+                                                         encoder_cfg)
     torch.manual_seed(cfg.seed)
     model = DocEmotionModel(encoder_cfg, cfg.n_hidden, cfg.n_class,
                             cfg.keep_softmax, cfg.clause_mixer)
     init_stage1_(model, torch.Generator().manual_seed(cfg.seed))
+    if enc_state is not None:
+        model.encoder.load_state_dict(enc_state)
     return model.to(device)
 
 
@@ -222,11 +234,12 @@ def train_stage1(
     logger: Optional[JsonlLogger] = None,
     write_pairs: bool = True,
     device="cuda",
+    encoder_ckpt: str = "",  # a local HF checkpoint dir
 ) -> Tuple[Dict[str, torch.Tensor], Tuple[float, float, float],
            Optional[str]]:
     """Full stage-1 run on ``device``. Returns (the best state_dict, best
     (p, r, f1), the pair file's path or None)."""
-    model = build_stage1_model(cfg, encoder_cfg, device)
+    model = build_stage1_model(cfg, encoder_cfg, device, encoder_ckpt)
     return fit_stage1(cfg, model, train_arr, test_arr, tokenizer, logger,
                       write_pairs)
 

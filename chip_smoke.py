@@ -6,43 +6,49 @@ Phases, in order; any failure exits non-zero and no phase carries on after
 an error:
 
 1. device: require CUDA; print the nvidia-smi name and power limit line;
+   host: print which of tokenizers, transformers, safetensors, sklearn and
+   jieba import, and whether the C ingest extension (carel_tpu_torch/native)
+   builds; time zh tokenization of 20,000 synthetic pair strings on the
+   host through its C path and through the Python loop (arrays equal);
 2. build: compile the hand-written kernels K1-K10 from carel_tpu_torch/csrc;
 3. kernels: hold each kernel against its plain PyTorch version at the shapes
    of the training step (fp32; HSIC against the plain version evaluated in
    float64, at two input scales), print errors, median times by CUDA events
    and the plain version's time; hold the encoder's fp32 attention scores
    (bf16 tensor-core GEMM with an fp32 output) against the product of the
-   upcast q and k; hold the fused BoW kernels also at ragged shapes (V =
-   1,003 with B = 5 and 200, and B = 300 at the full V, where the forward
-   evaluates its logits twice) and require two runs of each to give the
-   same bits; hold HSIC also at B = 1,000 (where the forward evaluates its
-   Gram entries again) and at every shape require two runs of K5 and of K6
-   to give the same bits, K5 + K6 captured in one CUDA graph to replay
-   them, and (B = 64) one device kernel a call of each, and print K6's
-   registers a thread; hold MMD also at B = 1,000 with 7 masked rows, with
-   one alpha and with four (the kernels' most), and at every shape require
-   two runs of K1 and of K2 to give the same bits, K1 + K2 captured in one
-   CUDA graph to replay them, and (B = 64) one device kernel a call of
-   each; hold the flash attention kernels K7-K9 against their plain version
-   in fp32 (CUDA-core kernels) and bf16 (tensor-core kernels), at the
-   training and the inference shape, at a ragged tiny
-   one, at L over one block's rows (200, 513), at hd = 128 and with pad
-   tails longer than one tile of keys, at the stage-1 clause batch
-   [300, 12, 60, 64] with most rows all pads and the DANN batch
-   [32, 12, 128, 64], with an all-pad row and a row without pads, in the
-   stock and the packed layout, and require two runs to give the same
-   bits; hold the BoW backward with many duplicate indices (K4 adds the
-   corrections at the indices to G in a fixed order): bit-equal over two
-   runs and over two replays of a CUDA graph, within the BoW gate of the
-   plain version, and time what the corrections cost K4; hold the
-   embeddings' backward (K10, every index's entries added in position
-   order) at the stage-2 and stage-1 batches, with Zipf-like ids and with
-   one id in every entry: bit-equal over two runs and two graph replays,
+   upcast q and k; hold the fused BoW kernels also at ragged shapes (V = 1,003
+   with B = 5 and 200, and B = 300 at the full V, where the forward evaluates
+   its logits twice, and at the en path's V = 40,000 with B = 64 and V =
+   40,009 with B = 200, where a block owns more than one chunk of V; K3 and K4
+   also timed at both) and require two runs of each to give the same
+   bits; hold HSIC also at B = 1,000 (where the forward evaluates its Gram
+   entries again) and at every shape require two runs of K5 and of K6 to give
+   the same bits, K5 + K6 captured in one CUDA graph to replay them, and (B =
+   64) one device kernel a call of each, and print K6's registers a thread;
+   hold MMD also at B = 1,000 with 7 masked rows, with one alpha and with four
+   (the kernels' most), and at every shape require two runs of K1 and of K2 to
+   give the same bits, K1 + K2 captured in one CUDA graph to replay them, and
+   (B = 64) one device kernel a call of each; hold the flash attention kernels
+   K7-K9 against their plain version in fp32 (CUDA-core kernels) and bf16
+   (tensor-core kernels), at the training and the inference shape, at a ragged
+   tiny one, at L over one block's rows (200, 513), at hd = 128 and with pad
+   tails longer than one tile of keys, at the stage-1 clause batch [300, 12,
+   60, 64] with most rows all pads and the DANN batch [32, 12, 128, 64], with
+   an all-pad row and a row without pads, in the stock and the packed layout,
+   and require two runs to give the same bits; hold the BoW backward with many
+   duplicate indices (K4 adds the corrections at the indices to G in a fixed
+   order): bit-equal over two runs and over two replays of a CUDA graph,
+   within the BoW gate of the plain version, and time what the corrections
+   cost K4; hold the embeddings' backward (K10, every index's entries added in
+   position order) at the stage-2 and stage-1 batches, with Zipf-like ids and
+   with one id in every entry: bit-equal over two runs and two graph replays,
    within 1e-5 normwise of index_add_; over the token types' table of two
-   rows, five runs bit-equal beside torch's embedding backward; time every kernel, its plain version
-   and, for K7-K10, the library call by CUDA events and by the profiler's
-   device time per call, and the host's cost of one launch, K7-K9 also at
-   the stage-1 and DANN shapes;
+   rows, five runs bit-equal beside torch's embedding backward; likewise at 64
+   x 128 ids over roberta-base's one-row token-type table, its 514 positions
+   and its 50,265 words, each timed; time every kernel, its plain version and,
+   for K7-K10, the library call by CUDA events and by the profiler's device
+   time per call, and the host's cost of one launch, K7-K9 also at the stage-1
+   and DANN shapes;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights, batch and noise, under
    the flagship's MMD (with the default and the flash attention), ec_hsic,
@@ -99,6 +105,16 @@ an error:
      times a step; the running statistics move, the gradient reversal
      sends the domain head's gradient back to the features as -lambda
      times itself, and three steps from one state repeat their bits;
+   - en_newsplit over a roberta-base-shaped encoder (12L/768H, vocab
+     50,265, 514 positions, one token type, eps 1e-5, pad id 1) loaded
+     through models/hf_port.py from a local HF checkpoint written here
+     (config.json and a pytorch_model.bin of random weights from seed 0),
+     at b64 x s128 with BoW V 40,000, as the flagship path above (K1-K4 and
+     K10 on every step, one self-training iteration with the random
+     strategy); init_state must load the checkpoint bit-equal, and the
+     loaded encoder in fp32 on the card must give the CPU's pooled output
+     for a fixed batch within 1e-4 normwise; then the captured step takes
+     three timed epochs and one profiled;
 6. capture: each of the five step variants at full width, from one initial
    state, as the paths run it: one epoch of the eager per-step loop
    (prefetched, as --no_scan_epoch runs it) and one through the captured
@@ -117,7 +133,8 @@ an error:
 
 Then one line a variant and kind compares its step with the captured
 flagship's: device ms/step, kernels/step, wall ms/step with the device's
-busy share, peak memory; and one line each for the stage-1 and DANN paths:
+busy share, peak memory; one line for the en path's captured step; and
+one line each for the stage-1 and DANN paths:
 wall and device ms/step, kernels/step, documents/s or clauses/s, peak
 memory.
 
@@ -286,6 +303,67 @@ def phase_device() -> str:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     return line
+
+
+HOST_LIBRARIES = ("tokenizers", "transformers", "safetensors", "sklearn",
+                  "jieba")
+
+
+def phase_host() -> None:
+    """Which optional host libraries import here and whether the C ingest
+    extension builds; then zh tokenization of a synthetic corpus of pair
+    strings through the C path and through the Python loop, timed on the
+    host (the arrays must be equal)."""
+    import importlib
+
+    from carel_tpu_torch.data.tokenizer import BaseTokenizer, ZhCharTokenizer
+    from carel_tpu_torch.native import build as native_build
+    from carel_tpu_torch.native.fast_tokenizer import native_encode_batch
+
+    found = {}
+    for name in HOST_LIBRARIES:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    t0 = time.perf_counter()
+    built = native_build.load_fastingest() is not None
+    print(f"host libraries: {json.dumps(found)}; C ingest extension built: "
+          f"{built} in {time.perf_counter() - t0:.2f} s"
+          + ("" if built else f" ({native_build.last_error})"), flush=True)
+    rng = np.random.default_rng(0)
+    chars = np.asarray(ZH_CHARS[:3000])
+    n, max_len = 20000, 96
+    texts = ["".join(chars[rng.integers(0, len(chars), rng.integers(8, 40))])
+             + "[SEP]"
+             + "".join(chars[rng.integers(0, len(chars), rng.integers(8, 40))])
+             for _ in range(n)]
+    tok = ZhCharTokenizer.from_corpus(texts)
+    times = {}
+    for name, fn in (("python", lambda: BaseTokenizer.encode_batch(
+            tok, texts, max_len)),
+                     ("c", lambda: native_encode_batch(tok, texts, max_len))):
+        if name == "c" and not built:
+            continue
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            runs.append(time.perf_counter() - t0)
+        times[name] = (min(runs), out)
+    line = (f"ingest: {n} zh pair strings tokenized to {max_len} ids on the "
+            f"host: Python loop {times['python'][0]:.4f} s")
+    if "c" in times:
+        want = times["python"][1]
+        got = times["c"][1]
+        if not (np.array_equal(got[0], want.input_ids)
+                and np.array_equal(got[1], want.attention_mask)):
+            fail("ingest: the C path's arrays differ from the Python loop's")
+        line += (f", C path {times['c'][0]:.4f} s "
+                 f"({times['python'][0] / times['c'][0]:.1f}x), arrays "
+                 f"equal")
+    print(line + " (best of 3)", flush=True)
 
 
 def phase_build() -> None:
@@ -694,20 +772,16 @@ def bow_case(B: int, V: int, masked: int):
     return abs(vk - vp), err_g, (val_p, leaves_p)
 
 
-def phase_bow(records: dict) -> None:
+def bow_times(B: int, V: int, val_p=None, leaves_p=None) -> dict:
+    """K3 and K4 timed at (B, V) beside the plain version, with their
+    bounds."""
     from carel_tpu_torch.ops import cuda_bow as cb
 
-    # the training shape, then ragged ones: V no multiple of anything with a
-    # few and with many rows, and more rows than the forward keeps on chip
-    err_v, err_g, (val_p, leaves_p) = bow_case(64, 23808, 4)
-    for B, V in ((5, 1003), (200, 1003), (300, 23808)):
-        ev, eg, _ = bow_case(B, V, 1)
-        err_v, err_g = max(err_v, ev), max(err_g, eg)
-
-    h, W, b, idx, wts, mask = bow_inputs()
-    B, D = h.shape
-    V = W.shape[0]
-    T = idx.shape[1]
+    h, W, b, idx, wts, mask = bow_inputs(B=B, V=V)
+    if val_p is None:
+        leaves_p = [t.clone().requires_grad_(True) for t in (h, W, b)]
+        val_p = cb.fused_bow_loss_plain(*leaves_p, idx, wts, 0.1, mask)
+    D, T = h.shape[1], idx.shape[1]
     rowp = bow_rowp(cb.bow_forward_kernel(h, W, b), mask, V)
     safe, corr = bow_corrections(idx)
     t = {
@@ -729,16 +803,40 @@ def phase_bow(records: dict) -> None:
     # the backward also reads the corrections and their indices once
     bwd_b = bound_ms(2 * w_bytes + 2 * 4 * B * D + 4 * 5 * B + 12 * B * T,
                      3 * zflops + 10 * B * V)
-    for name, line, bnd, key in (("bow_fwd", 52, fwd_b, "fwd"),
-                                 ("bow_bwd", 119, bwd_b, "bwd")):
+    for key, bnd in (("fwd", fwd_b), ("bwd", bwd_b)):
+        t[key].update(B=B, V=V, bound_ms=bnd[0], bound_by=bnd[1])
+    return t
+
+
+# the en vocabulary of the roberta-base path: 40,000 columns are 157 chunks
+# of 256 on 132 SMs, so a block owns more than one chunk
+EN_BOW_V = 40000
+
+
+def phase_bow(records: dict) -> None:
+    # the training shape, then ragged ones: V no multiple of anything with a
+    # few and with many rows, and more rows than the forward keeps on chip;
+    # then the en path's vocabulary and a ragged V past it
+    err_v, err_g, (val_p, leaves_p) = bow_case(64, 23808, 4)
+    for B, V in ((5, 1003), (200, 1003), (300, 23808), (64, EN_BOW_V),
+                 (200, EN_BOW_V + 9)):
+        ev, eg, _ = bow_case(B, V, 1 if B != 64 else 4)
+        err_v, err_g = max(err_v, ev), max(err_g, eg)
+
+    t = bow_times(64, 23808, val_p, leaves_p)
+    t_en = {(B, V): bow_times(B, V) for B, V in ((64, EN_BOW_V),
+                                                 (200, EN_BOW_V + 9))}
+    for name, line, key in (("bow_fwd", 52, "fwd"), ("bow_bwd", 119, "bwd")):
         records[name] = {
             "name": name, "route": "cuda",
             "source": "carel_tpu_torch/csrc/bow.cu",
             "replaces": f"carel_tpu/ops/pallas_bow.py:{line}",
             "launches": 0,
             "max_abs_err": err_v if key == "fwd" else err_g, **t[key],
-            "bound_ms": bnd[0], "bound_by": bnd[1]}
+            "en_vocab": [r[key] for r in t_en.values()]}
         print_times(name, records[name])
+        for (B, V), r in t_en.items():
+            print_times(f"{name} at B={B} V={V}", r[key])
 
 
 def dup_bow_inputs(words: int, B=64, T=128, seed=9):
@@ -936,15 +1034,84 @@ def phase_embedding(records: dict) -> None:
               f"{t['plain_device_ms']:.4f}); by events {t['ms']:.4f} ms "
               f"(torch's {t['plain_ms']:.4f}); bound {t['bound_ms']:.6f} ms",
               flush=True)
+    roberta, err_r = roberta_tables()
     t = times[64 * 96]
     records["emb_bwd"] = {
         "name": "emb_bwd", "route": "cuda",
         "source": "carel_tpu_torch/csrc/embedding.cu",
         "replaces": "carel_tpu/models/encoder.py:132, :134, :140 (nn.Embed; XLA's "
                     "scatter-add of its gather, no Pallas kernel)",
-        "launches": 0, "max_abs_err": err, **t,
-        "stage1_batch": times[300 * 60]}
+        "launches": 0, "max_abs_err": max(err, err_r), **t,
+        "stage1_batch": times[300 * 60], "roberta_tables": roberta}
     print_times("emb_bwd", records["emb_bwd"])
+
+
+# roberta-base's tables (config.json of the model card): the token types'
+# single row, the 514 positions and the 50,265 words
+ROBERTA_ROWS = {"token_type": 1, "position": 514, "word": 50265}
+
+
+def roberta_tables():
+    """K10 at the en path's batch (64 x 128 ids) over each of roberta-base's
+    tables, with the ids the encoder gives it: all 0 for the one-row
+    token-type table (one run across every chunk), RoBERTa's positions
+    (cumsum of the mask, offset by the pad id 1) and Zipf-like words. Two
+    runs and two graph replays bit-equal and within 1e-5 normwise of
+    index_add_, as at the zh shapes; each timed beside torch's embedding
+    backward, with its bound. Returns ({table: times}, the largest absolute
+    error)."""
+    import torch.nn.functional as F
+
+    from carel_tpu_torch.ops import cuda_embedding as ce
+
+    B, L, D = 64, 128, 768
+    n = B * L
+    out, err = {}, 0.0
+    for table, rows in ROBERTA_ROWS.items():
+        rng = np.random.default_rng(rows)
+        if table == "token_type":
+            ids = np.zeros(n, np.int64)
+        elif table == "position":
+            mask = (np.arange(L)[None, :]
+                    < rng.integers(16, L + 1, B)[:, None])
+            ids = (np.cumsum(mask, axis=1) * mask + 1).reshape(-1)
+        else:
+            ids = np.minimum(rng.zipf(1.3, n) - 1, rows - 1)
+        ids = torch.tensor(ids, dtype=torch.long, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(rows)
+        g = torch.randn(n, D, device="cuda", generator=gen)
+        first = ce.embedding_backward_kernel(ids, g, rows)
+        if not torch.equal(first, ce.embedding_backward_kernel(ids, g, rows)):
+            fail(f"embedding backward over the {rows}-row {table} table: "
+                 "two runs differ")
+        if not replays_bit_equal(
+                lambda: (ce.embedding_backward_kernel(ids, g, rows),)):
+            fail(f"embedding backward over the {rows}-row {table} table: "
+                 "graph replays differ")
+        want = torch.zeros(rows, D, device="cuda").index_add_(0, ids, g)
+        rel = relnorm(first, want)
+        err = max(err, float((first - want).abs().max()))
+        if not rel <= 1e-5:
+            fail(f"embedding backward over the {rows}-row {table} table off "
+                 f"index_add_ by {rel:.2e}")
+        w = torch.randn(rows, D, device="cuda", requires_grad=True)
+        emb = F.embedding(ids, w)
+
+        def torch_backward():
+            return torch.autograd.grad(emb, w, g, retain_graph=True)
+
+        t = out[table] = timed(
+            lambda: ce.embedding_backward_kernel(ids, g, rows),
+            torch_backward, torch_backward)
+        t["rows"], t["ids"] = rows, n
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            8 * n + 4 * n * D + 4 * rows * D, n * D)
+        print(f"emb_bwd over roberta-base's {table} table ({rows} rows, {n} "
+              f"ids, {int(torch.bincount(ids).max())} entries at most an "
+              f"id): two runs and two graph replays bit-equal, vs index_add_ "
+              f"normwise {rel:.2e}", flush=True)
+        print_times(f"emb_bwd ({table}, {rows} rows)", t)
+    return out, err
 
 
 def phase_scores() -> None:
@@ -1476,6 +1643,10 @@ PATH_KERNELS = {
     "ec_gan": STEP_KERNELS,
     "ec_vi_final": STEP_KERNELS,
 }
+ZH_PATHS = tuple(PATH_KERNELS)
+# the en path: the MMD step of the flagship over a roberta-base encoder
+EN_PRESET = "en_newsplit"
+PATH_KERNELS[EN_PRESET] = PATH_KERNELS[FLAGSHIP]
 # device kernels a wrapper call launches, where it is not one: K10 counts,
 # ranks, places, sums chunks and combines them
 KERNELS_A_CALL = {"emb_bwd": 5}
@@ -1510,14 +1681,19 @@ def probabilities(p: np.ndarray, n: int) -> bool:
 
 
 def phase_path(records: dict, preset: str, iterations: int,
-               strategy: str) -> dict:
+               strategy: str, cfg=None, on_init=None,
+               timed_epochs: bool = False) -> dict:
     """The preset at full width: one base epoch, then ``iterations``
     self-training iterations of one epoch with ``strategy``, all through the
     default, captured epoch step: one capture must serve them all, and every
     path kernel must launch on every step (a replay launches the captured
     step's kernels). The disc params must move under gan only, the club
     params under vi only, the frozen latent heads under neither. Returns the
-    run's peak memory in GiB and the K3 launches a step."""
+    run's peak memory in GiB and the K3 launches a step. ``cfg`` replaces
+    the preset's full-width zh config (its self-training fields are set
+    here), ``on_init(state)`` looks at the state init_state made, and with
+    ``timed_epochs`` the captured step then takes three more epochs timed
+    and one profiled (time_epochs), whose numbers join the result."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.config import SelfStrategy
     from carel_tpu_torch.pipeline import init_state
@@ -1529,9 +1705,11 @@ def phase_path(records: dict, preset: str, iterations: int,
     from carel_tpu_torch.train.steps import make_eval_step
 
     n_train, n_test, unpred = 1024, 512, 10
-    cfg = full_width_config(preset, preset, self_iteration=iterations,
-                            self_epochs=1,
-                            self_strategy=SelfStrategy(strategy))
+    selftrain = dict(self_iteration=iterations, self_epochs=1,
+                     self_strategy=SelfStrategy(strategy))
+    cfg = (full_width_config(preset, preset, **selftrain) if cfg is None
+           else dataclasses.replace(cfg, train=dataclasses.replace(
+               cfg.train, **selftrain)))
     enc, B, L = cfg.model.encoder, cfg.train.batch_size, cfg.data.max_len
     V = cfg.model.bow_dim
     tag = f"{preset} path"
@@ -1546,6 +1724,8 @@ def phase_path(records: dict, preset: str, iterations: int,
     print(f"{tag}: init_state {time.perf_counter() - t0:.1f} s, "
           f"{n_params} params; {len(test_pairs)} test pairs in "
           f"{len(test_pairs.docs_pair_size)} documents", flush=True)
+    if on_init is not None:
+        on_init(state)
     counted_step, eval_step = CountedEpochStep(cfg), make_eval_step()
     aux = {n: p.detach().clone() for n, p in state.model.named_parameters()
            if state.labels[n] in (DISC, CLUB, FROZEN)}
@@ -1666,7 +1846,152 @@ def phase_path(records: dict, preset: str, iterations: int,
         fail(f"{tag}: the reload from disk differs from the checkpoint")
     print(f"{tag}: best checkpoint saved, reloaded from memory and from "
           "disk, equal to the saved state_dict", flush=True)
-    return dict(peak_gib=peak_gib, bow_per_step=counts["bow_fwd"] / steps)
+    out = dict(peak_gib=peak_gib, bow_per_step=counts["bow_fwd"] / steps)
+    if timed_epochs:
+        torch.cuda.reset_peak_memory_stats()
+        nb = -(-len(train) // B)
+        out["step"] = time_epochs(
+            tag, "captured", captured_epoch, counted_step, state, train, B,
+            nb, path_kernel_calls(preset, enc.attention_impl))
+        out["step"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        counted_step.check(tag, counted_step.steps)
+    return out
+
+
+# roberta-base's published shape (the model card's config.json)
+ROBERTA_BASE = dict(
+    model_type="roberta", architectures=["RobertaForMaskedLM"],
+    vocab_size=50265, hidden_size=768, num_hidden_layers=12,
+    num_attention_heads=12, intermediate_size=3072,
+    max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5,
+    pad_token_id=1, bos_token_id=0, eos_token_id=2, hidden_act="gelu",
+    hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+
+
+def write_roberta_checkpoint(path: str) -> None:
+    """A local HF checkpoint dir of roberta-base's shape: its config.json
+    and a pytorch_model.bin of random weights from seed 0 (normal, std
+    0.02; LayerNorm scales 1) under HF's key names, written with
+    torch.save, so that no transformers is needed."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(ROBERTA_BASE, f)
+    gen = torch.Generator().manual_seed(0)
+    c = ROBERTA_BASE
+    H, inner = c["hidden_size"], c["intermediate_size"]
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    sd = {}
+
+    def dense(name, n_out, n_in):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = (normal(n_out, n_in),
+                                                    normal(n_out))
+
+    def norm(name):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = torch.ones(H), normal(H)
+
+    e = "roberta.embeddings."
+    sd[e + "word_embeddings.weight"] = normal(c["vocab_size"], H)
+    sd[e + "position_embeddings.weight"] = normal(
+        c["max_position_embeddings"], H)
+    sd[e + "token_type_embeddings.weight"] = normal(c["type_vocab_size"], H)
+    norm(e + "LayerNorm")
+    for i in range(c["num_hidden_layers"]):
+        p = f"roberta.encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            dense(p + f"attention.self.{n}", H, H)
+        dense(p + "attention.output.dense", H, H)
+        norm(p + "attention.output.LayerNorm")
+        dense(p + "intermediate.dense", inner, H)
+        dense(p + "output.dense", H, inner)
+        norm(p + "output.LayerNorm")
+    dense("roberta.pooler.dense", H, H)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+
+
+def en_config(ckpt: str):
+    """en_newsplit at full width over the HF checkpoint at ``ckpt``: the
+    encoder's shape from its config.json in bf16 (as build_pipeline sets it
+    for --hf_encoder), BoW V 40,000, b64 x s128 (the reference's fixed
+    window, fit_max_len's cap), one base epoch."""
+    from carel_tpu_torch.config import PRESETS
+    from carel_tpu_torch.models.hf_port import encoder_config_from_hf
+
+    base = PRESETS[EN_PRESET]
+    return dataclasses.replace(
+        base,
+        model=dataclasses.replace(
+            base.model, encoder=encoder_config_from_hf(ckpt, "bfloat16"),
+            bow_dim=EN_BOW_V, pretrained_encoder=ckpt),
+        data=dataclasses.replace(base.data, max_len=128, tokenizer=ckpt),
+        train=dataclasses.replace(
+            base.train, batch_size=64, epochs=1,
+            checkpoint_dir=os.path.join(RUN_DIR, "ckpt", EN_PRESET)))
+
+
+def en_encoder_check(ckpt: str):
+    """A check for phase_path's on_init: init_state must have put the
+    checkpoint's weights into the encoder (bit-equal to hf_port's own
+    load), and the loaded encoder in fp32 on the card (TF32 off) must give
+    the pooled output the same weights give on the CPU in fp32, for a
+    fixed batch of 8 x 128 ids with ragged pads, within the 1e-4 the tiny
+    card-vs-CPU step holds its metrics to (normwise)."""
+    from carel_tpu_torch.models.encoder import TransformerEncoder
+    from carel_tpu_torch.models.hf_port import load_pretrained_encoder
+
+    def check(state):
+        t0 = time.perf_counter()
+        cfg, sd = load_pretrained_encoder(ckpt, dtype="float32")
+        got = state.model.encoder.state_dict()
+        if got.keys() != sd.keys() or not all(
+                torch.equal(got[k].cpu(), sd[k]) for k in sd):
+            fail("en path: init_state did not load the HF checkpoint's "
+                 "weights into the encoder")
+        rng = np.random.default_rng(5)
+        B, L = 8, 128
+        mask = (np.arange(L)[None, :]
+                < rng.integers(16, L + 1, B)[:, None]).astype(np.int64)
+        ids = np.where(mask == 1, rng.integers(3, cfg.vocab_size, (B, L)),
+                       cfg.pad_token_id)
+        ids[:, 0] = 0  # <s>
+        pooled = {}
+        for dev in ("cpu", "cuda"):
+            enc = TransformerEncoder(cfg)
+            enc.load_state_dict(sd)
+            enc.to(dev).eval()
+            with torch.no_grad():
+                pooled[dev] = enc(torch.tensor(ids, device=dev),
+                                  torch.tensor(mask, device=dev))[1].cpu()
+            del enc
+        rel = relnorm(pooled["cuda"], pooled["cpu"])
+        print(f"en path: init_state loaded the roberta-base-shaped "
+              f"checkpoint ({sum(v.numel() for v in sd.values())} encoder "
+              f"params) bit-equal; fp32 pooled output {B}x{L}, card vs "
+              f"CPU: normwise rel {rel:.2e}, max abs "
+              f"{float((pooled['cuda'] - pooled['cpu']).abs().max()):.2e} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not (torch.isfinite(pooled["cuda"]).all() and rel <= 1e-4):
+            fail(f"en path: the loaded encoder's pooled output on the card "
+                 f"is off the CPU's by {rel:.2e} normwise (> 1e-4)")
+    return check
+
+
+def phase_en(records: dict) -> dict:
+    """en_newsplit at full width with a roberta-base-shaped encoder loaded
+    through hf_port from a checkpoint written here: phase_path (one base
+    epoch, evaluation, one self-training iteration with the preset's random
+    strategy, the best saved and reloaded; K1-K4 and K10 on every step),
+    the encoder check of en_encoder_check, and the captured step timed."""
+    ckpt = os.path.join(RUN_DIR, "roberta_base_random")
+    t0 = time.perf_counter()
+    write_roberta_checkpoint(ckpt)
+    print(f"en path: wrote a roberta-base-shaped HF checkpoint "
+          f"({os.path.getsize(os.path.join(ckpt, 'pytorch_model.bin'))} "
+          f"bytes) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return phase_path(records, EN_PRESET, 1, "random", cfg=en_config(ckpt),
+                      on_init=en_encoder_check(ckpt), timed_epochs=True)
 
 
 # synthetic zh clauses for the raw-text scorer (document 1: clause 3 holds
@@ -2644,6 +2969,7 @@ def phase_dann(records: dict) -> dict:
 def main() -> int:
     phase_device()
     sys.path.insert(0, ROOT)
+    phase_host()
     phase_build()
     records: dict = {}
     phase_mmd(records)
@@ -2653,7 +2979,7 @@ def main() -> int:
     phase_embedding(records)
     phase_scores()
     phase_flash(records)
-    for preset in PATH_KERNELS:
+    for preset in ZH_PATHS:
         phase_reference(preset)
     phase_reference(FLAGSHIP, "flash")
     phase_reference_stage1()
@@ -2665,6 +2991,8 @@ def main() -> int:
         paths[preset] = phase_path(records, preset, iterations, strategy)
         torch.cuda.empty_cache()
     paths["flash"] = phase_serve(records)
+    torch.cuda.empty_cache()
+    paths[EN_PRESET] = phase_en(records)
     torch.cuda.empty_cache()
     clause_paths = {}
     for mixer, impl, carried in STAGE1_RUNS:
@@ -2695,6 +3023,16 @@ def main() -> int:
               f"memory {path['peak_gib']:.2f} GiB"
               + (f", K3/K4 {path['bow_per_step']:.0f} a step"
                  if "bow_per_step" in path else ""), flush=True)
+    en = paths[EN_PRESET]["step"]
+    print(f"step b64xs128, {EN_PRESET} over roberta-base's shape "
+          f"(captured): device {en['device_ms']:.2f} ms/step "
+          f"({en['device_ms'] - flag['device_ms']:+.2f} against the captured "
+          f"flagship at b64xs96), {en['kernels']:.1f} kernels/step, wall "
+          f"{en['wall_ms']:.2f} ms/step (device busy "
+          f"{en['device_ms'] / en['wall_ms']:.3f}), peak memory "
+          f"{en['peak_gib']:.2f} GiB; path peak memory "
+          f"{paths[EN_PRESET]['peak_gib']:.2f} GiB, K3/K4 "
+          f"{paths[EN_PRESET]['bow_per_step']:.0f} a step", flush=True)
     for name, p in clause_paths.items():
         print(f"path {name} (eager): device {p['device_ms']:.2f} ms/step, "
               f"{p['kernels']:.1f} kernels/step, wall {p['wall_ms']:.2f} "

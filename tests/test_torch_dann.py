@@ -374,6 +374,11 @@ def test_dann_verb_runs_on_cpu(tmp_path, capsys):
     events = [json.loads(line)["event"] for line in logs[0].read_text()
               .splitlines()]
     assert events.count("dann_epoch") == 2 and "dann_selftrain" in events
-    with pytest.raises(NotImplementedError, match="language"):
-        main(["dann", "--data_root", str(tmp_path), "--device", "cpu",
-              "--language", "en"])
+    # an orbax encoder dir (no config.json) still raises; --language en
+    # and an HF --hf_encoder run (tests/test_torch_en.py)
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        main(["dann", "--data_root", str(tmp_path / "corpus"), "--encoder",
+              "tiny", "--device", "cpu", "--hf_encoder",
+              str(tmp_path / "orbax"), "--cache_dir", str(tmp_path / "cache"),
+              "--log_dir", str(tmp_path / "logs")])

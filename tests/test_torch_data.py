@@ -32,10 +32,29 @@ def _clause_text(rng) -> str:
     return (" " if rng.random() < 0.7 else "").join(words)
 
 
-def synth_docs(seed: int, n_docs: int, predicted: bool = False):
+# English clauses: capitals, accents, apostrophes, punctuation glued to
+# words, digits and commas (which cut the reference's clause field 3)
+EN_WORDS = ["She", "was", "very", "happy", "because", "the", "exam", "went",
+            "well", "teacher", "praised", "him", "Parents", "felt", "proud",
+            "sad", "angry", "afraid", "surprised", "café", "naïve", "Résumé",
+            "didn't", "won't", "children's", "school,", "homework!", "why?",
+            "friends", "together", "home.", "dinner", "mother", "cried",
+            "laughed", "ill", "failed", "succeeded", "1999", "twenty-one",
+            "(again)", "\"no\"", "rain;", "Über", "façade", "it's"]
+
+
+def _en_clause_text(rng) -> str:
+    n = int(rng.integers(3, 12))
+    return " ".join(EN_WORDS[i] for i in rng.integers(0, len(EN_WORDS), n))
+
+
+def synth_docs(seed: int, n_docs: int, predicted: bool = False,
+               language: str = "zh"):
     """Documents with one or two gold pairs each. ``predicted`` mimics a
     stage-1 file: some gold emotion clauses are predicted null (forced
-    misses) and some null clauses are predicted as emotions."""
+    misses) and some null clauses are predicted as emotions. en documents
+    carry English clauses and their emotions as words, as the en corpora
+    do."""
     rng = np.random.default_rng(seed)
     docs = []
     for d in range(n_docs):
@@ -57,11 +76,16 @@ def synth_docs(seed: int, n_docs: int, predicted: bool = False):
                     emotion[extra] = int(rng.integers(0, 6))
         clauses = []
         for s in range(1, n + 1):
-            text = _clause_text(rng)
+            if language == "zh":
+                text, raw = _clause_text(rng), str(emotion[s])
+            else:
+                text = _en_clause_text(rng)
+                raw = tdata.ecpe_format.CODE_TO_EMOTION[emotion[s]]
             clauses.append(tdata.Clause(
                 sen_id=s, emotion=emotion[s], cause=-1 if predicted else 6,
-                text=text, emotion_raw=str(emotion[s]),
-                cause_raw="-1" if predicted else "6", text_field3=text))
+                text=text, emotion_raw=raw,
+                cause_raw="-1" if predicted else "6",
+                text_field3=text.split(",")[0]))
         docs.append(tdata.Document(doc_id=str(d + 1), pairs=pairs,
                                    clauses=clauses))
     return docs
@@ -106,6 +130,38 @@ def write_oldsplit_corpus(root: str, seed: int = 0, n_train: int = 24,
         path = os.path.join(root, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tdata.write_ecpe_file(path, docs)
+
+
+def write_en_corpus(root: str, seed: int = 0, n_train: int = 24,
+                    n_test: int = 16) -> None:
+    """The en layouts that pipeline.resolve_paths expects: en_newsplit
+    (enecpe_num -> the stage-1-predicted reccon_test, with its BoW file),
+    drl_en (history_num -> pair_data/emotion/war_new, with its BoW file),
+    and domains/Englishnovel_multiple/{home,education}.txt for the stage1
+    verb's --language en (and the dann verb's --doc_dir)."""
+    def en(s, n, predicted=False):
+        return synth_docs(s, n, predicted, language="en")
+
+    train = en(seed, n_train)
+    paths = {
+        "domains/Englishnovel_multiple/enecpe_num.txt": train,
+        "pair_data/predicted_emotion/source_enecpe_num/reccon_test.txt":
+            en(seed + 1, n_test, predicted=True),
+        "data/ecpe_and_reccon_all_data_pair_en.txt":
+            train + en(seed + 2, n_train),
+        "domains/Englishnovel_multiple/history_num.txt": en(seed + 3,
+                                                            n_train),
+        "pair_data/emotion/war_new.txt": en(seed + 4, n_test,
+                                            predicted=True),
+        "data/all_data_pair_en.txt": en(seed + 3, n_train)
+        + en(seed + 5, n_train),
+        "domains/Englishnovel_multiple/home.txt": en(seed + 6, n_train),
+        "domains/Englishnovel_multiple/education.txt": en(seed + 7, n_test),
+    }
+    for rel, docs in paths.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tdata.write_ecpe_file(path, docs, pair_style="en")
 
 
 @pytest.fixture(scope="module")

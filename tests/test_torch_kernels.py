@@ -358,6 +358,33 @@ def test_bow_kernels_match_plain(cuda, V):
         assert _relnorm(a, c) <= 1e-4
 
 
+# the en BoW vocabulary of the roberta-base path (40,000: 157 chunks of
+# 256 columns on 132 SMs, so a block owns several chunks) at the training
+# batch, and a ragged V past it at 200 rows
+@pytest.mark.parametrize("B,V", [(64, 40000), (200, 40009)])
+def test_bow_kernels_at_the_en_vocabulary(cuda, B, V):
+    """K3 and K4 where a block owns more than one chunk of V: the value
+    within rtol 1e-5 and the gradients within 1e-4 normwise of the plain
+    version, and two runs of each kernel bit-equal."""
+    h, W, b, idx, wts, mask = _bow_problem(cuda, B=B, V=V)
+    leaves_k = [t.clone().requires_grad_() for t in (h, W, b)]
+    leaves_p = [t.clone().requires_grad_() for t in (h, W, b)]
+    vk = cuda_bow.fused_bow_loss(*leaves_k, idx, wts, 0.1, mask)
+    gk = torch.autograd.grad(vk, leaves_k)
+    vp = cuda_bow.fused_bow_loss_plain(*leaves_p, idx, wts, 0.1, mask)
+    gp = torch.autograd.grad(vp, leaves_p)
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0)
+    for a, c in zip(gk, gp):
+        assert _relnorm(a, c) <= 1e-4
+    stats = cuda_bow.bow_forward_kernel(h, W, b)
+    assert torch.equal(stats, cuda_bow.bow_forward_kernel(h, W, b))
+    rowp = _bow_rowp(h, W, b, mask)
+    safe, corr = _bow_corrections(idx)
+    first = cuda_bow.bow_backward_kernel(h, W, b, rowp, safe, corr)
+    assert all(torch.equal(u, v) for u, v in zip(
+        first, cuda_bow.bow_backward_kernel(h, W, b, rowp, safe, corr)))
+
+
 # few words (each in many rows, up to 64 times; an index may repeat in a
 # row) and the training vocabulary, at the training batch and at 100 rows
 # (two groups of K4's rows)
@@ -420,6 +447,36 @@ def test_embedding_backward_repeats_its_bits(cuda, n, case):
     _assert_replays_bit_equal(
         lambda: (cuda_embedding.embedding_backward_kernel(ids, g, V),))
     want = torch.zeros(V, D, device=cuda).index_add_(0, ids, g)
+    assert _relnorm(first, want) <= 1e-5
+
+
+# roberta-base's tables at the en path's batch of 64 x 128 ids: the one-row
+# token-type table (every entry one run across every chunk), the 514
+# positions (RoBERTa's, offset by the pad id) and the 50,265 words
+@pytest.mark.parametrize("rows", [1, 514, 50265])
+def test_embedding_backward_over_roberta_tables(cuda, rows):
+    """K10 over each table: two runs and two graph replays bit-equal,
+    within 1e-5 normwise of index_add_."""
+    from carel_tpu_torch.ops import cuda_embedding
+
+    rng = np.random.default_rng(rows)
+    B, L, D = 64, 128, 768
+    if rows == 1:
+        ids = np.zeros(B * L, np.int64)
+    elif rows == 514:
+        mask = np.arange(L)[None, :] < rng.integers(16, L + 1, B)[:, None]
+        ids = (np.cumsum(mask, axis=1) * mask + 1).reshape(-1)
+    else:
+        ids = np.minimum(rng.zipf(1.3, B * L) - 1, rows - 1)
+    ids = torch.tensor(ids, dtype=torch.long, device=cuda)
+    g = torch.tensor(rng.normal(size=(B * L, D)), dtype=torch.float32,
+                     device=cuda)
+    first = cuda_embedding.embedding_backward_kernel(ids, g, rows)
+    assert torch.equal(first, cuda_embedding.embedding_backward_kernel(
+        ids, g, rows))
+    _assert_replays_bit_equal(
+        lambda: (cuda_embedding.embedding_backward_kernel(ids, g, rows),))
+    want = torch.zeros(rows, D, device=cuda).index_add_(0, ids, g)
     assert _relnorm(first, want) <= 1e-5
 
 

@@ -198,8 +198,13 @@ def _jax_step(jcfg, jm, params, jb, reg, state=None, iteration=0):
 def _both_steps(case):
     """One step of each side from the same params and batch for ``case``
     (a regularizer, or mmd_flash)."""
-    jcfg, tcfg = _cfgs(case)
-    reg = case.partition("_")[0]
+    return run_both_steps(*_cfgs(case), case.partition("_")[0])
+
+
+def run_both_steps(jcfg, tcfg, reg):
+    """One step of each side from the same params (JAX's init, converted)
+    and batch under the configs ``jcfg`` and ``tcfg`` of regularizer
+    ``reg``; the record the tests below read."""
     batch = _batch()
     jm = JDrlModel(jcfg.model)
     params = jm.init({"params": jax.random.key(0), "sample": jax.random.key(1)},
