@@ -1,8 +1,10 @@
 """Command-line entry points of the port: ``train``, ``infer``, ``stage1``,
-``dann`` and ``presets``.
+``dann``, ``pair`` and ``presets``.
 
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
-        --data_root /path/to/corpora [--device cuda]
+        --data_root /path/to/corpora [--device cuda] \\
+        [--adapter raw|sparsemax|entmax --head_number 4] \\
+        [--optim_mu_dtype bfloat16]
     python -m carel_tpu_torch.cli train --preset ec_hsic --data_root ...
     python -m carel_tpu_torch.cli train --preset en_newsplit --data_root ... \\
         [--hf_encoder /path/to/local/roberta-base]
@@ -11,6 +13,8 @@
     python -m carel_tpu_torch.cli stage1 --data_root ... [--language en]
         [--clause_mixer transformer] [--carried_adam] [--save_dir DIR]
     python -m carel_tpu_torch.cli dann --data_root ... [--no_domain_loss]
+    python -m carel_tpu_torch.cli pair --data_root ... [--sentence_pair]
+        [--self_chain] [--self_iteration N]
     python -m carel_tpu_torch.cli presets
 
 ``train`` runs the base epochs with per-epoch evaluation and best
@@ -26,7 +30,13 @@ file in fixed-size batches and, with ``--output_dir``, writes the true/pred
 pickles. ``stage1`` trains the document-level emotion model on the source
 domain, self-trains on the target and writes the stage-1 pair file that the
 ``predicted_emotion`` presets test on; ``dann`` runs the clause-level DANN
-emotion classifier with its self-training. ``--hf_encoder`` takes a local HF
+emotion classifier with its self-training; ``pair`` trains the plain pair
+classifier (encoder pooler, dropout, one logit) with threshold
+self-training. ``--adapter`` (train and infer) reads each latent's features
+through its own attention adapter over the last hidden state, and
+``--optim_mu_dtype bfloat16`` stores the main Adam's first moment in bf16;
+``--track_memorization`` also writes ``memorization.png`` beside the log
+where matplotlib imports. ``--hf_encoder`` takes a local HF
 BERT/RoBERTa checkpoint directory: under ``train`` and ``infer`` its
 config.json sets the encoder's shape and the directory is also the
 tokenizer, under ``stage1`` and ``dann`` its weights replace the configured
@@ -47,6 +57,7 @@ from typing import Optional
 from carel_tpu_torch.config import (
     PRESETS,
     CarelConfig,
+    AdapterKind,
     EncoderConfig,
     Regularizer,
     SelfStrategy,
@@ -81,6 +92,10 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
                                    regularizer=Regularizer(args.regularizer))
     if args.mmd_loss_weight is not None:
         loss = dataclasses.replace(loss, mmd_loss_weight=args.mmd_loss_weight)
+    if args.adapter:
+        model = dataclasses.replace(model, adapter=AdapterKind(args.adapter))
+    if args.head_number:
+        model = dataclasses.replace(model, head_number=args.head_number)
     if args.hf_encoder:
         from carel_tpu_torch.models.hf_port import is_hf_dir
 
@@ -112,6 +127,8 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
     elif args.round_up:
         tkw["round_up"] = True
     # the train verb's flags; infer has none of them
+    if getattr(args, "optim_mu_dtype", None):
+        tkw["optim_mu_dtype"] = args.optim_mu_dtype
     if getattr(args, "save_state_every", 0):
         tkw["save_state_every"] = args.save_state_every
     if getattr(args, "profile_dir", ""):
@@ -159,6 +176,12 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--regularizer", default="",
                    choices=["", "none", "mmd", "hsic", "gan", "vi"])
     p.add_argument("--mmd_loss_weight", type=float, default=None)
+    p.add_argument("--adapter", default="",
+                   choices=["", "none", "raw", "sparsemax", "entmax"],
+                   help="attention adapter over the last hidden state for "
+                        "each latent (newsplit's --adapter)")
+    p.add_argument("--head_number", type=int, default=0,
+                   help="heads of the raw adapter (0 = the preset's, 4)")
     p.add_argument("--encoder", default="base",
                    help="tiny | base (bf16) | base_f32")
     p.add_argument("--hf_encoder", default="",
@@ -229,6 +252,11 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler trace of the base training "
                         "here")
+    p.add_argument("--optim_mu_dtype", choices=["float32", "bfloat16"],
+                   default=None,
+                   help="the main Adam's first-moment dtype (bfloat16 "
+                        "halves one of its three state arrays; float32 "
+                        "default)")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly (the reference's "
                         "anomaly detection); it reads values back to the "
@@ -315,6 +343,8 @@ def _train(args, cfg: CarelConfig, device) -> int:
             track_memorization=args.track_memorization,
             best_cache=best_cache,
             initial_best=best if args.self_anchor_base else None)
+        if args.track_memorization and logger.path:
+            _plot_memorization(logger, cfg.train.log_dir)
         logger.log({"event": "self_done", "p": sbest[0], "r": sbest[1],
                     "f1": sbest[2]})
         # reference-exact default: when self-training never produces a
@@ -332,6 +362,23 @@ def _train(args, cfg: CarelConfig, device) -> int:
     print(json.dumps({"model_id": pipe.model_id, "best_f1": final_best[2],
                       "base_f1": best[2]}))
     return 0
+
+
+def _plot_memorization(logger, log_dir: str) -> None:
+    """memorization.png from the run's log, logged as 'memorization_plot'
+    (carel_tpu/cli/main.py:404-414); where matplotlib does not import, the
+    event says so instead."""
+    from carel_tpu_torch.tools.memorization_plot import plot_memorization
+
+    try:
+        png = plot_memorization(logger.path, os.path.join(
+            log_dir or ".", "memorization.png"))
+    except ImportError as e:
+        logger.log({"event": "memorization_plot", "path": None,
+                    "skipped": f"matplotlib does not import: {e}"})
+        return
+    if png:
+        logger.log({"event": "memorization_plot", "path": png})
 
 
 def cmd_infer(args) -> int:
@@ -468,6 +515,73 @@ def cmd_dann(args) -> int:
     return 0
 
 
+def cmd_pair(args) -> int:
+    """Plain pair classifier (pair_classifier.py / _self_chain.py), as the
+    JAX CLI's ``pair`` verb: the preset's data, batch size, epochs and seed;
+    threshold self-training for ``--self_iteration`` iterations (default
+    0); prints {"p", "r", "f1"} of the best epoch."""
+    import random
+
+    from carel_tpu_torch.data.batching import encode_pairs
+    from carel_tpu_torch.data.bow import BowVocab
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.data.pairs import build_pairs
+    from carel_tpu_torch.data.self_chain import build_pairs_self_chain
+    from carel_tpu_torch.data.tokenizer import build_tokenizer
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.pipeline import fit_max_len, resolve_paths
+    from carel_tpu_torch.train.logging import JsonlLogger
+    from carel_tpu_torch.train.pair_trainer import (PairTrainerConfig,
+                                                    train_pair_classifier)
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(PRESETS[args.preset], args)
+    train_path, test_path, _ = resolve_paths(cfg)
+    train_docs = parse_ecpe_file(train_path)
+    test_docs = parse_ecpe_file(test_path)
+    if args.max_train_docs:
+        train_docs = train_docs[: args.max_train_docs]
+    if args.max_test_docs:
+        test_docs = test_docs[: args.max_test_docs]
+    builder = build_pairs_self_chain if args.self_chain else build_pairs
+    train_pairs = builder(train_docs, test=False,
+                          rng=random.Random(cfg.data.seed))
+    test_pairs = builder(test_docs, test=True)
+
+    corpus = [c.text for d in train_docs + test_docs for c in d.clauses]
+    os.makedirs(args.cache_dir, exist_ok=True)
+    tok = build_tokenizer(
+        cfg.data.language, corpus,
+        os.path.join(args.cache_dir, f"tokenizer_{cfg.data.language}.json"))
+    bow = BowVocab.from_words([], cfg.data.language)  # unused by this model
+    max_len = cfg.data.max_len or fit_max_len(
+        tok, train_pairs.pairs + test_pairs.pairs)
+
+    def enc_arrays(pair_set):
+        return encode_pairs(pair_set, tok, bow, max_len,
+                            sentence_pair=args.sentence_pair)
+
+    pcfg = PairTrainerConfig(
+        max_len=max_len,
+        batch_size=cfg.train.batch_size,
+        epochs=cfg.train.epochs,
+        self_epochs=cfg.train.self_epochs,
+        self_iteration=(args.self_iteration
+                        if args.self_iteration is not None else 0),
+        self_strategy=SelfStrategy.THRESHOLD,
+        seed=cfg.train.seed)
+    enc = dataclasses.replace(_encoder_preset(args.encoder, cfg.data.language),
+                              vocab_size=tok.vocab_size)
+    logger = JsonlLogger(cfg.train.log_dir, "pair")
+    _, best = train_pair_classifier(
+        pcfg, enc, enc_arrays(train_pairs), enc_arrays(test_pairs),
+        test_pairs.num_unpred_emotions, test_pairs, enc_arrays, logger,
+        device=device)
+    logger.close()
+    print(json.dumps({"p": best[0], "r": best[1], "f1": best[2]}))
+    return 0
+
+
 def cmd_presets(_args) -> int:
     for name, cfg in sorted(PRESETS.items()):
         print(f"{name}: regularizer={cfg.loss.regularizer.value}, "
@@ -515,6 +629,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="drop the adversarial domain term, exactly "
                              "like the reference's shipped train loop")
     p_dann.set_defaults(fn=cmd_dann)
+    p_pair = sub.add_parser("pair", help="plain (non-VAE) pair classifier")
+    _add_common_args(p_pair)
+    p_pair.add_argument("--sentence_pair", action="store_true",
+                        help="two-segment encoding (self-chain variant)")
+    p_pair.set_defaults(fn=cmd_pair)
     p_pre = sub.add_parser("presets", help="list presets")
     p_pre.set_defaults(fn=cmd_presets)
     return parser

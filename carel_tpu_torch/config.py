@@ -9,8 +9,8 @@ drl_classifier_ec_mmd_final_mul_newsplit_emnlp.py:30-70 for the newsplit extras)
 The dataclasses and presets are kept field for field with the JAX package so a
 preset means the same run in both. The port reads scan_epoch (a captured
 CUDA-graph step replayed over the stacked epoch, train/scan_epoch.py),
-save_state_every, profile_dir and debug_nans (the ``train`` verb). Fields
-that only the JAX package reads (remat, rng_impl, optim_mu_dtype, donate,
+save_state_every, profile_dir, debug_nans and optim_mu_dtype (the ``train``
+verb). Fields that only the JAX package reads (remat, rng_impl, donate,
 num_devices, mesh_shape) are carried but ignored here.
 """
 

@@ -1,5 +1,6 @@
-"""JAX params -> this package's ``state_dict``: DrlModel, the stage-1
-DocEmotionModel and the clause-level ClauseEmotionDANN.
+"""JAX params -> this package's ``state_dict``: DrlModel (with or without
+attention adapters), the plain PairClassifier, the stage-1 DocEmotionModel
+and the clause-level ClauseEmotionDANN.
 
 The JAX params arrive as a nested dict of numpy arrays (e.g. the Flax tree
 passed through ``np.asarray``). Layouts (carel_tpu/models/hf_port.py:10-14
@@ -15,6 +16,10 @@ and Flax's own modules):
 - Dense kernel [in, out] -> weight [out, in];
 - Embed ``embedding`` -> weight; LayerNorm and BatchNorm ``scale`` ->
   weight;
+- the attention adapters (``emotion_adapter``, ``cause_adapter``): their
+  ``query`` param [1, 1, D] as it is; the raw kind's ``mha`` holds
+  ``query``, ``key``, ``value`` and ``out`` as above, the sparse kinds'
+  ``q_proj``, ``k_proj`` and ``v_proj`` are Dense;
 - the stage-1 BiLSTM: Flax names its cells ``OptimizedLSTMCell_0``
   (forward) and ``OptimizedLSTMCell_1`` (backward) under ``mixer``, each
   with input kernels ``ii, if, ig, io`` [in, h] (no bias) and hidden
@@ -107,6 +112,8 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             key = "bias"
         elif leaf in ("embedding", "scale"):
             key = "weight"
+        elif leaf == "query" and mod[-1].endswith("_adapter"):
+            key = "query"  # an attention adapter's learnt query [1, 1, D]
         else:
             raise KeyError(f"unexpected JAX param {'/'.join(path)}")
         state[f"{name}.{key}"] = torch.tensor(arr)

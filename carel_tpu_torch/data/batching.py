@@ -9,6 +9,7 @@ and masked out of every loss/metric, so every step sees the same shapes.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -48,10 +49,23 @@ def encode_pairs(
     bow: BowVocab,
     max_len: int = 128,
     bow_max_terms: int = BOW_MAX_TERMS,
+    sentence_pair: bool = False,
 ) -> PairArrays:
-    """Tokenize + featurize a pair set (one [SEP]-joined string per pair)."""
+    """Tokenize + featurize a pair set.
+
+    sentence_pair=True encodes the two clauses as separate segments with
+    token_type_ids (the reference's pair_classifier_self_chain encoding)
+    instead of one [SEP]-joined string.
+    """
     texts = pair_set.pairs
-    enc = tokenizer.encode_batch(texts, max_len)
+    if sentence_pair:
+        split = [re.split(r"\s*\[SEP\]\s*", str(t), maxsplit=1)
+                 for t in texts]
+        a = [s[0] for s in split]
+        b = [s[1] if len(s) > 1 else "" for s in split]
+        enc = tokenizer.encode_sentence_pair_batch(a, b, max_len)
+    else:
+        enc = tokenizer.encode_batch(texts, max_len)
     bow_idx, bow_w = bow.batch_sparse(texts, bow_max_terms)
     return PairArrays(
         input_ids=enc.input_ids,

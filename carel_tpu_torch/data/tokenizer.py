@@ -87,6 +87,33 @@ class BaseTokenizer:
             types[i] = e["token_type_ids"]
         return Encoded(ids, mask, types)
 
+    def encode_sentence_pair_batch(
+        self, texts_a: Sequence[str], texts_b: Sequence[str], max_len: int
+    ) -> Encoded:
+        """Two-segment encoding: [CLS] a [SEP] b [SEP] with token_type_ids
+        1 on the second segment — the reference's tokenizer(emo, cau) path
+        (pair_classifier_self_chain.py's sentence-pair encoding). Every
+        tokenizer class takes it through its ``tokenize_to_ids``."""
+        n = len(texts_a)
+        ids = np.full((n, max_len), self.pad_id, np.int32)
+        mask = np.zeros((n, max_len), np.int32)
+        types = np.zeros((n, max_len), np.int32)
+        for i, (a, b) in enumerate(zip(texts_a, texts_b)):
+            a_ids = self.tokenize_to_ids(str(a))
+            b_ids = self.tokenize_to_ids(str(b))
+            row = [self.cls_id] + a_ids + [self.sep_id]
+            seg = [0] * len(row)
+            row += b_ids + [self.sep_id]
+            seg += [1] * (len(b_ids) + 1)
+            if len(row) > max_len:
+                row = row[: max_len - 1] + [self.sep_id]
+                seg = seg[: max_len]
+            k = len(row)
+            ids[i, :k] = row
+            types[i, :k] = seg[:k]
+            mask[i, :k] = 1
+        return Encoded(ids, mask, types)
+
     def decode(self, ids: Sequence[int],
                skip_special_tokens: bool = True) -> str:
         raise NotImplementedError

@@ -1,1 +1,2 @@
-"""Models: encoder, VAE heads, discriminators and the DrlModel."""
+"""Models: encoder, VAE heads and attention adapters, discriminators, the
+DrlModel and the plain pair classifier."""

@@ -1,7 +1,11 @@
 """DrlModel: the two-latent disentangled VAE pair classifier, port of
 carel_tpu/models/drl.py (the reference's DrlClassifier, flagship :149-343).
 
-One module covers the variants; the regularizer-specific sub-networks (GAN
+One module covers the variants. With ``cfg.adapter`` other than none, each
+latent reads its own attention adapter over the last hidden state
+(``emotion_adapter``, ``cause_adapter``; newsplit :357-376) and the pooled
+output is not computed; without one both read the pooled output. The
+regularizer-specific sub-networks (GAN
 discriminators, CLUB net) are always present, so every checkpoint has one
 shape, but the forward never runs them: the gan train step adds the
 discriminator outputs (``gan_outputs``) and the vi step the CLUB outputs
@@ -24,24 +28,43 @@ from torch import nn
 from carel_tpu_torch.config import AdapterKind, ModelConfig
 from carel_tpu_torch.models.discriminators import ClubNet, LinearDiscriminator
 from carel_tpu_torch.models.encoder import TransformerEncoder
-from carel_tpu_torch.models.heads import VaeHeads, sample_prior
+from carel_tpu_torch.models.heads import (AttentionAdapter, VaeHeads,
+                                          sample_prior)
 
 
 class DrlModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.adapter != AdapterKind.NONE:
-            raise NotImplementedError(
-                f"adapter {cfg.adapter.value!r} is not ported yet (ROADMAP "
-                "Queue 1: adapters); carel_tpu_torch runs adapter=none")
         self.cfg = cfg
         self.encoder = TransformerEncoder(cfg.encoder)
         self.heads = VaeHeads(cfg)
+        if cfg.adapter != AdapterKind.NONE:
+            d = cfg.encoder.hidden_dim
+            self.emotion_adapter = AttentionAdapter(d, cfg.head_number,
+                                                    cfg.adapter)
+            self.cause_adapter = AttentionAdapter(d, cfg.head_number,
+                                                  cfg.adapter)
         # GAN cross adversaries (ec_gan :168-169) and the CLUB net
         # (vi_final :153-161)
         self.ec_disc = LinearDiscriminator(cfg.ec_dim, 1, cfg.dropout)
         self.ce_disc = LinearDiscriminator(cfg.ec_dim, 1, cfg.dropout)
         self.club = ClubNet(cfg.ec_dim)
+
+    def features(self, input_ids, attention_mask, token_type_ids,
+                 deterministic: bool = True):
+        """Emotion and cause feature vectors from the encoder: both the
+        pooled output without adapters (flagship :202-206), each latent's
+        own adapter over the last hidden state with them (newsplit
+        :357-376); the pooler then does not run."""
+        plain = self.cfg.adapter == AdapterKind.NONE
+        hidden, pooled = self.encoder(input_ids, attention_mask,
+                                      token_type_ids,
+                                      deterministic=deterministic,
+                                      pool=plain)
+        if plain:
+            return pooled, pooled
+        return (self.emotion_adapter(hidden, attention_mask),
+                self.cause_adapter(hidden, attention_mask))
 
     def forward(
         self,
@@ -59,10 +82,13 @@ class DrlModel(nn.Module):
         the decoder product: the fused BoW loss consumes generative_emb and
         the decoder weights directly."""
         cfg = self.cfg
-        _, pooled = self.encoder(input_ids, attention_mask, token_type_ids,
-                                 deterministic=deterministic)
-        feat = pooled.float()
-        e_mu, e_lv, c_mu, c_lv = self.heads.latent_params(feat, feat)
+        e_feat, c_feat = self.features(input_ids, attention_mask,
+                                       token_type_ids, deterministic)
+        e_feat = e_feat.float()
+        # without adapters both latents read the one pooled output
+        c_feat = e_feat if self.cfg.adapter == AdapterKind.NONE \
+            else c_feat.float()
+        e_mu, e_lv, c_mu, c_lv = self.heads.latent_params(e_feat, c_feat)
 
         if sample:
             eps_e, eps_c = eps if eps is not None else (None, None)

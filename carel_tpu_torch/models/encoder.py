@@ -52,7 +52,8 @@ _TRUNC_STD = 0.87962566103423978
 def init_flax_(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise every Linear, Embedding and LayerNorm under ``module`` as
     Flax does: lecun-normal (truncated) Dense kernels and zero biases, the
-    nn.Embed default N(0, 1/features), LayerNorm ones and zeros."""
+    nn.Embed default N(0, 1/features), LayerNorm ones and zeros; a module
+    with parameters of its own initialises them in ``init_flax_own_``."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
@@ -66,6 +67,10 @@ def init_flax_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        # a module's parameters of its own (an adapter's query)
+        own = getattr(m, "init_flax_own_", None)
+        if own is not None:
+            own(generator)
 
 
 def scores_upcast(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -183,7 +188,11 @@ class TransformerEncoder(nn.Module):
         attention_mask: torch.Tensor,  # [B, L] int/float
         token_type_ids: Optional[torch.Tensor] = None,  # [B, L] int
         deterministic: bool = True,
+        pool: bool = True,
     ):
+        """(last hidden state [B, L, D], pooled output [B, D]); with
+        ``pool=False`` the pooler does not run and the second is None (the
+        adapters read the hidden states only)."""
         cfg = self.cfg
         bf16 = cfg.dtype == "bfloat16"
         dtype = torch.bfloat16 if bf16 else torch.float32
@@ -221,7 +230,7 @@ class TransformerEncoder(nn.Module):
                 bias = bias[:, None, None, :]
             for layer in self.layers:
                 x = layer(x, bias, deterministic, dtype)
-            pooled = torch.tanh(self.pooler(x[:, 0]))
+            pooled = torch.tanh(self.pooler(x[:, 0])) if pool else None
         return x, pooled
 
 

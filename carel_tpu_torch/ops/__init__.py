@@ -11,6 +11,9 @@ kernels that replace the JAX package's Pallas kernels.
   (forward), K8 (dK, dV) and K9 (dQ), behind ``attention_impl="flash"``;
 - ``cuda_embedding``: the encoder's embedding lookups with a backward that
   adds in a fixed order, kernel K10;
+- ``entmax``: sparsemax and entmax15 for the sparse attention adapters
+  (plain ops on every device: the JAX package has no Pallas kernel for
+  them);
 - ``native``: builds ``csrc/*.cu`` with nvcc at first use and loads it.
 """
 

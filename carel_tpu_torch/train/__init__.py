@@ -1,1 +1,2 @@
-"""Training: optimizer state, steps, loop, metrics, logging, checkpoints."""
+"""Training: optimizer state, steps, loop, metrics, logging, checkpoints,
+and the plain pair classifier's trainer."""

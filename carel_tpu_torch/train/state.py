@@ -21,7 +21,15 @@ their lr as a 0-d device tensor, so that a step captured in a CUDA graph
 (train/scan_epoch.py) reads the lr that ``set_lr`` writes in place; on the
 CPU, where capturable Adam does not run, they take a float lr. The eager
 step uses the same optimizers, so eager and captured steps run the same
-update.
+update. With ``optim_mu_dtype="bfloat16"`` the main Adam is ``MuDtypeAdam``
+(optax.adam's ``mu_dtype``: the first moment stored in bf16); the club Adam
+keeps fp32 moments, as in JAX.
+
+The attention adapters' params are ``main``. Under an adapter the pooler
+gets no gradient, and neither does the sparse adapters' ``v_proj``: JAX
+hands them zero gradients, after which Adam leaves them where they were;
+here their ``.grad`` stays None on every step, so both Adams skip them and
+never create their state, and one capture serves every step.
 
 Parity quirk: the reference's main optimizer NEVER includes the four latent
 projection layers (emotion/cause mu/log_var are absent from get_params,
@@ -97,6 +105,109 @@ class DiscRMSprop(torch.optim.Optimizer):
             torch._foreach_add_(params, scale, alpha=-group["lr"])
 
 
+# entries of the denominators MuDtypeAdam holds at once (64 MB in fp32)
+DENOM_CHUNK = 1 << 24
+
+
+def _chunks(tensors, numel: int):
+    """(lo, hi) ranges of ``tensors`` holding at most ``numel`` entries
+    each, or one tensor that alone holds more."""
+    lo = total = 0
+    for i, t in enumerate(tensors):
+        if total and total + t.numel() > numel:
+            yield lo, i
+            lo, total = i, 0
+        total += t.numel()
+    if lo < len(tensors):
+        yield lo, len(tensors)
+
+
+class MuDtypeAdam(torch.optim.Optimizer):
+    """optax.adam(lr, b1, b2, eps, mu_dtype=...): Adam whose first moment is
+    stored in ``mu_dtype`` (bf16 halves it), the update optax's:
+
+        mu = (1 - b1) g + b1' mu       (fp32; b1' is b1 rounded to mu's
+                                        dtype, as optax's weak-typed b1 * mu
+                                        takes it, 0.8984375 in bf16; under
+                                        jit XLA keeps the product in fp32)
+        nu = b2 nu + (1 - b2) g^2      (fp32)
+        p -= lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+
+    with mu the fp32 value before it is stored back in ``mu_dtype``
+    (rounded to nearest even). The state of a parameter is ``exp_avg``
+    (mu), ``exp_avg_sq`` (nu) and ``step``, a 0-d fp32 tensor on the
+    parameter's device, so train/checkpoint.py, scan_epoch's ``_Snapshot``
+    and ``capture_key`` see it as they see torch's Adam. ``lr`` may be a 0-d
+    device tensor (``set_lr`` writes it in place). The update is
+    ``torch._foreach_*`` ops with no value read back to the host, so it
+    captures in a CUDA graph. It works in the gradients' storage: after
+    ``step`` a parameter's ``.grad`` holds the update it took (the train
+    step clears every ``.grad`` before the next backward), and its only
+    temporary is a chunk of denominators, so that its step needs less
+    memory than fused fp32 Adam's state alone saves."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps: float = 1e-8,
+                 mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("MuDtypeAdam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            grads = [p.grad for p in params]
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32,
+                                                device=p.device)
+                    state["exp_avg"] = torch.zeros_like(
+                        p, dtype=self.mu_dtype)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+            steps = [self.state[p]["step"] for p in params]
+            mus = [self.state[p]["exp_avg"] for p in params]
+            nus = [self.state[p]["exp_avg_sq"] for p in params]
+            torch._foreach_add_(steps, 1.0)
+            # the bias corrections 1 - b^t, in fp32
+            bc1 = torch._foreach_pow(b1, steps)
+            bc2 = torch._foreach_pow(b2, steps)
+            for bc in (bc1, bc2):
+                torch._foreach_neg_(bc)
+                torch._foreach_add_(bc, 1.0)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+            # mu in fp32, in the gradients' storage
+            torch._foreach_mul_(grads, 1.0 - b1)
+            torch._foreach_add_(grads, mus, alpha=float(
+                torch.tensor(b1).to(self.mu_dtype)))
+            torch._foreach_copy_(mus, grads)
+            # the update; its one temporary, the denominators, is made a
+            # chunk of parameters at a time, so that it never holds more
+            # than DENOM_CHUNK entries (or one parameter)
+            torch._foreach_div_(grads, bc1)
+            for lo, hi in _chunks(nus, DENOM_CHUNK):
+                denom = torch._foreach_div(nus[lo:hi], bc2[lo:hi])
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, group["eps"])
+                torch._foreach_div_(grads[lo:hi], denom)
+                del denom
+            torch._foreach_mul_(grads, group["lr"])
+            torch._foreach_sub_(params, grads)
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch's load casts every state tensor to its param's dtype; the
+        first moments go back to ``mu_dtype``."""
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            if "exp_avg" in state:
+                state["exp_avg"] = state["exp_avg"].to(self.mu_dtype)
+
+
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Set the lr of every group: a 0-d tensor lr is written in place, so a
     captured step replays with the new value; a float lr is replaced (the
@@ -116,6 +227,27 @@ def dropout_generator(device: torch.device) -> torch.Generator:
             index = torch.cuda.current_device()
         return torch.cuda.default_generators[index]
     return torch.default_generator
+
+
+def device_lr(lr: float, device: torch.device):
+    """An optimizer's lr: a 0-d fp32 tensor on a CUDA device (a captured
+    step reads it, ``set_lr`` writes it in place), a float on the CPU."""
+    if device.type == "cuda":
+        return torch.tensor(lr, dtype=torch.float32, device=device)
+    return lr
+
+
+def adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
+    """torch's Adam(lr, betas (0.9, 0.999), eps 1e-8), optax.adam's update:
+    on CUDA fused and capturable (the whole update in a few multi-tensor
+    launches; the capturable foreach update forms its bias corrections with
+    a launch per parameter, +340 launches a step at full width), on the CPU
+    the default."""
+    if device.type == "cuda":
+        return torch.optim.Adam(params, lr=device_lr(lr, device),
+                                betas=(0.9, 0.999), eps=1e-8,
+                                capturable=True, fused=True)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 @dataclass
@@ -145,23 +277,19 @@ def create_train_state(cfg: CarelConfig, model: nn.Module,
             groups[labels[name]].append(p)
     tc = cfg.train
     device = next(model.parameters()).device
-    cuda = device.type == "cuda"
-
-    def adam(params, lr: float) -> torch.optim.Adam:
-        if cuda:
-            # fused: the whole update in a few multi-tensor launches; the
-            # capturable foreach update forms its bias corrections with a
-            # launch per parameter (+340 launches a step at full width)
-            return torch.optim.Adam(
-                params, lr=torch.tensor(lr, dtype=torch.float32,
-                                        device=device),
-                betas=(0.9, 0.999), eps=1e-8, capturable=True, fused=True)
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-
+    if tc.optim_mu_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"optim_mu_dtype {tc.optim_mu_dtype!r}: use "
+                         "float32 or bfloat16")
+    if tc.optim_mu_dtype == "bfloat16":
+        main = MuDtypeAdam(groups[MAIN], lr=device_lr(tc.vae_lr, device),
+                           betas=(0.9, 0.999), eps=1e-8,
+                           mu_dtype=torch.bfloat16)
+    else:
+        main = adam(groups[MAIN], tc.vae_lr, device)
     return TrainState(
         model=model,
-        optimizer=adam(groups[MAIN], tc.vae_lr),
+        optimizer=main,
         disc_optimizer=DiscRMSprop(groups[DISC], lr=tc.adv_lr, decay=0.99,
                                    eps=1e-8),
-        club_optimizer=adam(groups[CLUB], tc.aprx_lr),
+        club_optimizer=adam(groups[CLUB], tc.aprx_lr, device),
         generator=generator, labels=labels)

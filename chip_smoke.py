@@ -52,8 +52,12 @@ an error:
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights, batch and noise, under
    the flagship's MMD (with the default and the flash attention), ec_hsic,
-   ec_gan and ec_vi_final (with the same batch permutation and vi_beta);
-   loss, gradients and updated weights of every group must agree; likewise
+   ec_gan and ec_vi_final (with the same batch permutation and vi_beta),
+   and under the flagship with each attention adapter (raw, sparsemax,
+   entmax15; the batch's padded rows are all-masked attention rows, the
+   adapters' key biases, whose gradient is 0 in exact arithmetic, held to
+   the 2 lr bound only); loss, gradients and updated weights of every group
+   must agree; likewise
    a stage-1 step under each clause mixer (the BiLSTM on cuDNN) and a DANN
    step (params and the batch norm's running statistics);
 5. main paths, each at full width (12L/768H encoder, vocab 21,128, ec_dim
@@ -105,6 +109,21 @@ an error:
      times a step; the running statistics move, the gradient reversal
      sends the domain head's gradient back to the features as -lambda
      times itself, and three steps from one state repeat their bits;
+   - the flagship with each attention adapter (--adapter raw with 4 heads,
+     sparsemax, entmax), as the flagship path above (K1-K4 and K10 on
+     every step, one capture), then the captured step timed; each
+     adapter's query and weights must move, the pooler (which no adapter
+     path reads) and the sparse kinds' v_proj (whose output is never used)
+     stay bit-unchanged, as do the frozen latent heads;
+   - the flagship with --optim_mu_dtype bfloat16 (the main Adam's first
+     moment in bf16, MuDtypeAdam) likewise, timed;
+   - the plain pair classifier (the pair verb's train_pair_classifier) at
+     12L/768H, vocab 21,128, bf16, attention_impl="flash", b64 x s96 on
+     the zh paths' synthetic pairs: a base epoch of 16 eager steps, its
+     evaluation of 514 pairs, one threshold self-training iteration; K7
+     once a layer on every forward, K8/K9 once a layer and K10 three times
+     on every training step; finite probabilities in [0, 1]; 16 steps
+     timed and profiled;
    - en_newsplit over a roberta-base-shaped encoder (12L/768H, vocab
      50,265, 514 positions, one token type, eps 1e-5, pad id 1) loaded
      through models/hf_port.py from a local HF checkpoint written here
@@ -129,10 +148,17 @@ an error:
    once a step, K7-K9 once a layer), with each run's peak memory; and the
    sensitivity case: the tiny flagship and vi with kl_ann_iterations 4,
    vi_beta 0 then 0.5 and the lr halved between two epochs, captured
-   against eager as above.
+   against eager as above; the bit checks: for the entmax adapter and for
+   bf16 mu, from one state (save_state, then load_state before each run),
+   eager, captured, eager and captured epochs at full width give the same
+   losses, params and main-Adam state bit for bit, the main Adam's first
+   moments are in the configured dtype and the club Adam is torch's (fp32
+   moments); for bf16 mu a snapshot saved and resumed gives the bits of the
+   epoch it repeats.
 
 Then one line a variant and kind compares its step with the captured
-flagship's: device ms/step, kernels/step, wall ms/step with the device's
+flagship's (the adapter and bf16-mu paths' captured steps too, and the
+pair classifier's eager step): device ms/step, kernels/step, wall ms/step with the device's
 busy share, peak memory; one line for the en path's captured step; and
 one line each for the stage-1 and DANN paths:
 wall and device ms/step, kernels/step, documents/s or clauses/s, peak
@@ -1440,9 +1466,12 @@ def phase_flash(records: dict) -> None:
                   flush=True)
 
 
-def tiny_config(preset: str, attention_impl: str = "xla"):
-    """The preset's loss and model options at tiny widths, dropout 0."""
-    from carel_tpu_torch.config import PRESETS, DataConfig, TrainConfig
+def tiny_config(preset: str, attention_impl: str = "xla",
+                adapter: str = "none"):
+    """The preset's loss and model options at tiny widths, dropout 0, with
+    the attention adapter ``adapter`` (4 heads)."""
+    from carel_tpu_torch.config import (PRESETS, AdapterKind, DataConfig,
+                                        TrainConfig)
     from carel_tpu_torch.models.encoder import tiny_encoder_config
 
     base = PRESETS[preset]
@@ -1451,23 +1480,35 @@ def tiny_config(preset: str, attention_impl: str = "xla"):
         model=dataclasses.replace(
             base.model, encoder=tiny_encoder_config(
                 vocab_size=256, dropout=0.0, attention_impl=attention_impl),
-            ec_dim=24, bow_dim=3000, dropout=0.0),
+            ec_dim=24, bow_dim=3000, dropout=0.0,
+            adapter=AdapterKind(adapter), head_number=4),
         data=DataConfig(max_len=32),
         train=TrainConfig(batch_size=16, vae_lr=1e-3))
 
 
-def phase_reference(preset: str, attention_impl: str = "xla") -> None:
+# the attention adapters' key biases: the score of every key moves by the
+# same q . b, which softmax, sparsemax and entmax15 ignore, so their
+# gradient is 0 in exact arithmetic and rounding noise on either device
+SHIFT_INVARIANT = ("mha.key.bias", "k_proj.bias")
+
+
+def phase_reference(preset: str, attention_impl: str = "xla",
+                    adapter: str = "none") -> None:
     """A tiny fp32 model takes one training step on the card (kernels) and on
     the CPU (plain versions) from the same weights, batch, (zero) noise and,
-    under vi, batch permutation and vi_beta."""
+    under vi, batch permutation and vi_beta; with ``adapter``, each latent
+    reads its attention adapter (the batch's two padded rows are all-masked
+    attention rows). The adapters' key biases (SHIFT_INVARIANT) are held to
+    the 2 lr bound only."""
     from carel_tpu_torch.config import Regularizer
     from carel_tpu_torch.data.batching import cut_batch
     from carel_tpu_torch.pipeline import init_state
     from carel_tpu_torch.train.state import CLUB, DISC, MAIN
     from carel_tpu_torch.train.steps import batch_to_device, make_train_step
 
-    cfg = tiny_config(preset, attention_impl)
-    preset = f"{preset} ({attention_impl} attention)"
+    cfg = tiny_config(preset, attention_impl, adapter)
+    preset = f"{preset} ({attention_impl} attention" + (
+        f", {adapter} adapter)" if adapter != "none" else ")")
     arrays = synth_pair_arrays(np.random.default_rng(3), 16, 32, 256, 3000,
                                min_len=8)
     host = cut_batch(arrays, np.arange(14), 16).as_dict()  # 2 padded rows
@@ -1497,6 +1538,7 @@ def phase_reference(preset: str, attention_impl: str = "xla") -> None:
                 labels[n] == CLUB for n in g_c):
         fail(f"card and CPU leave gradients on other parameters ({preset})")
     worst_m = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30) for k in m_c)
+    g_c = {n: g for n, g in g_c.items() if not n.endswith(SHIFT_INVARIANT)}
     worst_g = max(relnorm(g_g[n], g_c[n]) for n in g_c)
     # each group's params within Adam's sign-flip bound 2 * its lr
     lrs = {MAIN: cfg.train.vae_lr, DISC: cfg.train.adv_lr,
@@ -1682,7 +1724,8 @@ def probabilities(p: np.ndarray, n: int) -> bool:
 
 def phase_path(records: dict, preset: str, iterations: int,
                strategy: str, cfg=None, on_init=None,
-               timed_epochs: bool = False) -> dict:
+               timed_epochs: bool = False, name: str = "",
+               still=(), moving=()) -> dict:
     """The preset at full width: one base epoch, then ``iterations``
     self-training iterations of one epoch with ``strategy``, all through the
     default, captured epoch step: one capture must serve them all, and every
@@ -1693,7 +1736,11 @@ def phase_path(records: dict, preset: str, iterations: int,
     the preset's full-width zh config (its self-training fields are set
     here), ``on_init(state)`` looks at the state init_state made, and with
     ``timed_epochs`` the captured step then takes three more epochs timed
-    and one profiled (time_epochs), whose numbers join the result."""
+    and one profiled (time_epochs), whose numbers join the result.
+    ``name`` (default the preset) names the path in the output and in the
+    kernels' launches_by_path; every param whose name starts with one of
+    ``still`` must end bit-unchanged, and every one in ``moving`` must
+    move."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.config import SelfStrategy
     from carel_tpu_torch.pipeline import init_state
@@ -1712,7 +1759,8 @@ def phase_path(records: dict, preset: str, iterations: int,
                cfg.train, **selftrain)))
     enc, B, L = cfg.model.encoder, cfg.train.batch_size, cfg.data.max_len
     V = cfg.model.bow_dim
-    tag = f"{preset} path"
+    name = name or preset
+    tag = f"{name} path"
     rng = np.random.default_rng(0)
     train = synth_pair_arrays(rng, n_train, L, enc.vocab_size, V)
     test_pairs, test, encode = synth_target_domain(rng, n_test, L,
@@ -1729,6 +1777,9 @@ def phase_path(records: dict, preset: str, iterations: int,
     counted_step, eval_step = CountedEpochStep(cfg), make_eval_step()
     aux = {n: p.detach().clone() for n, p in state.model.named_parameters()
            if state.labels[n] in (DISC, CLUB, FROZEN)}
+    watched = {n: p.detach().clone() for n, p in
+               state.model.named_parameters()
+               if n.startswith(tuple(still) + tuple(moving))}
 
     # the run's own record of its evaluations and pseudo sets
     prob_ranges, pseudo_sizes = [], []
@@ -1808,15 +1859,15 @@ def phase_path(records: dict, preset: str, iterations: int,
     if steps <= base_steps:
         fail(f"{tag}: self-training took no training step")
     counted_step.check(tag, steps)
-    for name, n in counts.items():
-        want = (steps * CALLS_A_STEP.get(name, 1)
-                if name in PATH_KERNELS[preset] else 0)
+    for kernel, n in counts.items():
+        want = (steps * CALLS_A_STEP.get(kernel, 1)
+                if kernel in PATH_KERNELS[preset] else 0)
         if n != want:
-            fail(f"{tag}: kernel {name} launched {n} times in {steps} "
+            fail(f"{tag}: kernel {kernel} launched {n} times in {steps} "
                  f"training steps (want {want})")
-        records[name].setdefault("launches_by_path", {})[preset] = n
-        records[name]["launches"] = sum(
-            records[name]["launches_by_path"].values())
+        records[kernel].setdefault("launches_by_path", {})[name] = n
+        records[kernel]["launches"] = sum(
+            records[kernel]["launches_by_path"].values())
     if not any(r["event"] == "best" for r in logger.records):
         fail(f"{tag}: no best checkpoint was saved")
     moved = {DISC: False, CLUB: False, FROZEN: False}
@@ -1829,6 +1880,19 @@ def phase_path(records: dict, preset: str, iterations: int,
     if moved != want_moved:
         fail(f"{tag}: the disc, club and frozen params moved as {moved} "
              f"(want {want_moved})")
+    params = dict(state.model.named_parameters())
+    moved_by_name = {n: not torch.equal(params[n].detach(), p)
+                     for n, p in watched.items()}
+    wrong = sorted(n for n, m in moved_by_name.items()
+                   if m == n.startswith(tuple(still)))
+    if watched:
+        print(f"{tag}: {sum(moved_by_name.values())} of {len(watched)} "
+              f"watched params moved; bit-unchanged: "
+              f"{sorted(n for n, m in moved_by_name.items() if not m)}",
+              flush=True)
+    if wrong:
+        fail(f"{tag}: {wrong} moved where they must stay, or stayed where "
+             f"they must move (still {still}, moving {moving})")
     saved = ckpt.load_best(cfg.train.checkpoint_dir, preset,
                            torch.device("cuda"))
     if not (same_state(saved, best_cache["state_dict"])
@@ -1859,6 +1923,281 @@ def phase_path(records: dict, preset: str, iterations: int,
 
 
 # roberta-base's published shape (the model card's config.json)
+ADAPTER_KINDS = ("raw", "sparsemax", "entmax")
+
+
+def adapter_config(kind: str):
+    """The flagship at full width with the ``kind`` attention adapter over
+    the last hidden state for each latent (4 heads for raw)."""
+    from carel_tpu_torch.config import AdapterKind
+
+    cfg = full_width_config(FLAGSHIP, f"adapter_{kind}")
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, adapter=AdapterKind(kind), head_number=4))
+
+
+def mu_bf16_config():
+    """The flagship at full width with the main Adam's first moment in
+    bf16 (--optim_mu_dtype bfloat16)."""
+    return full_width_config(FLAGSHIP, "mu_bf16", optim_mu_dtype="bfloat16")
+
+
+def phase_adapter(records: dict, kind: str) -> dict:
+    """phase_path for the flagship with the ``kind`` adapter: one base
+    epoch, evaluation, one temporal_order_modification self-training
+    iteration, all captured (one capture; K1-K4 and K10 on every step), the
+    best saved and reloaded, then the captured step timed. Each adapter's
+    query and weights must move; the pooler, which no adapter path reads,
+    and (sparse kinds) v_proj, whose output is never used, must stay
+    bit-unchanged, as must the frozen latent heads."""
+    sparse = kind != "raw"
+    weights = (("q_proj", "k_proj") if sparse
+               else ("mha.query", "mha.key", "mha.value", "mha.out"))
+    moving = tuple(f"{a}_adapter.{w}" for a in ("emotion", "cause")
+                   for w in ("query",) + tuple(f"{x}.weight"
+                                               for x in weights))
+    still = ("encoder.pooler.",) + (
+        ("emotion_adapter.v_proj.", "cause_adapter.v_proj.") if sparse
+        else ())
+    return phase_path(records, FLAGSHIP, 1, "temporal_order_modification",
+                      cfg=adapter_config(kind), timed_epochs=True,
+                      name=f"adapter {kind}", still=still, moving=moving)
+
+
+def phase_bits(name: str, cfg, resume: bool = False) -> None:
+    """From one state (init_state, saved with save_state and restored with
+    load_state before each run), one epoch of the eager per-step loop, one
+    of the captured epoch step, then each again: losses, params and the
+    main Adam's state must be bit-equal across all four. The main Adam's
+    first moments must be in the config's optim_mu_dtype and the club Adam
+    torch's (fp32 moments). With ``resume``: a snapshot saved after the
+    runs, one more captured epoch, then the snapshot loaded and that epoch
+    again: the same bits (a stale capture is captured again)."""
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step
+    from carel_tpu_torch.train.steps import make_train_step
+
+    tag = f"bits {name}"
+    enc, B, L = cfg.model.encoder, cfg.train.batch_size, cfg.data.max_len
+    train = synth_pair_arrays(np.random.default_rng(0), 1024, L,
+                              enc.vocab_size, cfg.model.bow_dim)
+    ckpt_dir = cfg.train.checkpoint_dir
+    state = init_state(cfg, "cuda")
+    ckpt.save_state(ckpt_dir, "start", state)
+    mu_dtype = {"float32": torch.float32,
+                "bfloat16": torch.bfloat16}[cfg.train.optim_mu_dtype]
+
+    def record(losses):
+        opt = state.optimizer
+        moments = [t.detach().clone() for p in state.model.parameters()
+                   for t in opt.state.get(p, {}).values()]
+        return dict(losses=losses.cpu(), params=[
+            p.detach().clone() for p in state.model.parameters()],
+            moments=moments)
+
+    def same(a, b) -> bool:
+        return torch.equal(a["losses"], b["losses"]) and all(
+            torch.equal(x, y) for k in ("params", "moments")
+            for x, y in zip(a[k], b[k]))
+
+    runs = []
+    t0 = time.perf_counter()
+    for kind in ("eager", "captured", "eager", "captured"):
+        ckpt.load_state(ckpt_dir, "start", state)
+        if kind == "eager":
+            runs.append(record(eager_epoch(make_train_step(cfg), state,
+                                           train, B, 1, 0.0)))
+        else:
+            step = make_epoch_step(cfg)
+            runs.append(record(captured_epoch(step, state, train, B, 1,
+                                              0.0)))
+    mus = {state.optimizer.state[p]["exp_avg"].dtype
+           for p in state.model.parameters() if p in state.optimizer.state}
+    alike = [same(r, runs[0]) for r in runs[1:]]
+    print(f"{tag}: eager, captured, eager, captured epochs from one state "
+          f"({len(runs[0]['losses'])} steps each, {time.perf_counter() - t0:.1f} "
+          f"s): bit-equal to the first {alike}; main Adam "
+          f"{type(state.optimizer).__name__} with first moments in {mus}, "
+          f"club Adam {type(state.club_optimizer).__name__}", flush=True)
+    if not all(alike):
+        fail(f"{tag}: eager and captured epochs from one state give other "
+             f"bits ({alike})")
+    if mus != {mu_dtype}:
+        fail(f"{tag}: the main Adam's first moments are {mus} (want "
+             f"{mu_dtype})")
+    if type(state.club_optimizer) is not torch.optim.Adam:
+        fail(f"{tag}: the club Adam is {type(state.club_optimizer)}")
+    if not resume:
+        return
+    ckpt.save_state(ckpt_dir, "mid", state)
+    again = []
+    for _ in range(2):
+        again.append(record(captured_epoch(step, state, train, B, 2, 0.0)))
+        ckpt.load_state(ckpt_dir, "mid", state)
+    print(f"{tag}: a snapshot saved and resumed gives the next epoch's bits: "
+          f"{same(again[0], again[1])} ({step.captures} captures)",
+          flush=True)
+    if not same(again[0], again[1]) or step.captures != 2:
+        fail(f"{tag}: the resumed epoch differs from the one it repeats, or "
+             f"it did not capture again ({step.captures} captures)")
+
+
+def phase_adam() -> None:
+    """The main Adam's step alone at full width, on one flagship model's
+    main params (~103 M) with gradients from a seed set once: torch's fused
+    capturable fp32 Adam (the default) and MuDtypeAdam (--optim_mu_dtype
+    bfloat16, foreach ops), each by CUDA events (median of 30 steps) and
+    by the profiler (device ms and kernels a step), with its state's size
+    and its bound: the bytes a step must move (params and both moments
+    read and written, gradients read) over 3.35 TB/s. MuDtypeAdam writes
+    its update into .grad, so its later steps read those; the time does not
+    depend on the values."""
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train.state import create_train_state
+
+    model = init_state(full_width_config(FLAGSHIP, "adam"), "cuda").model
+    for name, cfg in (("fused fp32 Adam", full_width_config(
+            FLAGSHIP, "adam")), ("MuDtypeAdam, bf16 mu", mu_bf16_config())):
+        opt = create_train_state(cfg, model, torch.Generator()).optimizer
+        params = [p for g in opt.param_groups for p in g["params"]]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen,
+                                 device="cuda") * 1e-3
+        # what the first step (its state and temporaries) adds to the
+        # params and gradients already held
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        opt.step()
+        torch.cuda.synchronize()
+        step_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+        n = sum(p.numel() for p in params)
+        state_bytes = sum(t.nbytes for st in opt.state.values()
+                          for t in st.values())
+        mu_bytes = 2 if cfg.train.optim_mu_dtype == "bfloat16" else 4
+        moved = n * (4 + 4 + 4 + 2 * mu_bytes + 4 + 4)
+        ms = median_ms(opt.step)
+        dev, kernels = device_profile(opt.step)
+        print(f"adam step, {name}, {n} params: {ms:.4f} ms by events, "
+              f"device {dev:.4f} ms in {kernels:.1f} kernels, bound "
+              f"{bound_ms(moved, 0.0)[0]:.4f} ms ({moved} bytes), state "
+              f"{state_bytes / 2**30:.3f} GiB, first step's peak over the "
+              f"params and gradients {step_gib:.3f} GiB", flush=True)
+        del opt, params
+        torch.cuda.empty_cache()
+
+
+def phase_pair(records: dict) -> dict:
+    """The plain pair classifier (the pair verb's train_pair_classifier) at
+    full width (12L/768H, vocab 21,128, bf16, attention_impl="flash") on
+    the synthetic pairs of the zh paths at b64 x s96, the classifier's
+    bias centred on the median logit of the test pairs (random weights put
+    every pair on one side of 0.5): a base epoch of 16 steps, its
+    evaluation of 514 test pairs, one threshold self-training
+    iteration (prediction with the best params, fine-tune, evaluation).
+    K7 must launch once a layer on every forward, K8/K9 once a layer and
+    K10 three times on every training step; the probabilities must be
+    finite values in [0, 1]. Then 16 more eager steps timed and profiled.
+    Returns wall and device ms/step, kernels/step and peak memory."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.config import EncoderConfig
+    from carel_tpu_torch.data.batching import iter_batches
+    from carel_tpu_torch.train.pair_trainer import (PairTrainerConfig,
+                                                    _predict,
+                                                    build_pair_trainer,
+                                                    train_pair_classifier)
+    from carel_tpu_torch.train.steps import batch_to_device
+
+    tag = "pair path"
+    enc = EncoderConfig(arch="bert", dtype="bfloat16", attention_impl="flash")
+    B, L, layers = 64, 96, enc.num_layers
+    pcfg = PairTrainerConfig(max_len=L, batch_size=B, epochs=1,
+                             self_epochs=1, self_iteration=1)
+    # the zh paths' synthetic data (its BoW columns go unread): 1,024
+    # train pairs, a target domain of 514 pairs from this seed
+    rng = np.random.default_rng(0)
+    train = synth_pair_arrays(rng, 1024, L, enc.vocab_size, 23808)
+    test_pairs, test, encode = synth_target_domain(rng, 512, L,
+                                                   enc.vocab_size, 23808)
+    logger = _Records()
+    # random weights give every pair nearly the same logit, all on one side
+    # of 0.5, and then the threshold strategy finds no document with pairs
+    # on both sides: the classifier's bias is centred on the median logit
+    # of the test pairs, so that a random model's predictions split
+    model, _, _, eval_step = build_pair_trainer(pcfg, enc, "cuda")
+    p = torch.from_numpy(_predict(eval_step, test, pcfg.eval_batch_size,
+                                  "cuda")).double()
+    with torch.no_grad():
+        model.classifier.bias -= float(torch.logit(p).median())
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, eval_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    best_params, best = train_pair_classifier(
+        pcfg, enc, train, test, 10, test_pairs, encode, logger,
+        device="cuda", params=init)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    evals = [r for r in logger.records if r["event"] == "pair_eval"]
+    forwards = (len(evals) + pcfg.self_iteration) * -(
+        -len(test) // pcfg.eval_batch_size)
+    n = sum(r["steps"] for r in evals)
+    print(f"{tag}: {n} training steps ({len(train) // B} base), "
+          f"{len(evals)} evaluations of {len(test)} pairs, best {best}, in "
+          f"{wall:.2f} s; launches {counts}", flush=True)
+    if n <= len(train) // B:
+        fail(f"{tag}: self-training took no training step")
+    want = {"flash_fwd": layers * (n + forwards), "flash_bwd_dkv": layers * n,
+            "flash_bwd_dq": layers * n, "emb_bwd": CALLS_A_STEP["emb_bwd"] * n}
+    for kernel, got in counts.items():
+        if got != want.get(kernel, 0):
+            fail(f"{tag}: kernel {kernel} launched {got} times in {n} "
+                 f"training steps and {forwards} evaluation batches (want "
+                 f"{want.get(kernel, 0)})")
+        records[kernel].setdefault("launches_by_path", {})["pair"] = got
+        records[kernel]["launches"] = sum(
+            records[kernel]["launches_by_path"].values())
+    for p in best:
+        if not 0.0 <= p <= 1.0:
+            fail(f"{tag}: metric out of range: {p}")
+
+    # the best params again, then 16 eager steps timed and 16 profiled
+    _, _, train_step, eval_step = build_pair_trainer(pcfg, enc, "cuda",
+                                                     best_params)
+    probs = _predict(eval_step, test, pcfg.eval_batch_size, "cuda")
+    if not probabilities(probs, len(test)):
+        fail(f"{tag}: probabilities are not finite values in [0, 1]")
+    batches = [batch_to_device(b.as_dict(), torch.device("cuda"))
+               for b in iter_batches(train, B, rng=np.random.default_rng(3))]
+
+    def epoch():
+        return torch.stack([train_step(b) for b in batches])
+
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = epoch().cpu()
+    wall_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    if not torch.isfinite(losses).all():
+        fail(f"{tag}: a timed loss is not finite")
+    device_ms, kernels, per_kernel = profile_epoch(epoch, len(batches))
+    calls = kernel_calls_by_wrapper(per_kernel, len(batches))
+    out = dict(wall_ms=wall_ms, device_ms=device_ms, kernels=kernels,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"{tag} (eager) b{B}xs{L}: wall {wall_ms:.2f} ms/step "
+          f"({B / wall_ms * 1e3:.1f} pairs/s), device {device_ms:.2f} "
+          f"ms/step (busy {device_ms / wall_ms:.3f}), {kernels:.1f} "
+          f"kernels/step, path kernels a step "
+          f"{ {k: c for k, c in calls.items() if c} }, peak memory "
+          f"{out['peak_gib']:.2f} GiB", flush=True)
+    return out
+
+
 ROBERTA_BASE = dict(
     model_type="roberta", architectures=["RobertaForMaskedLM"],
     vocab_size=50265, hidden_size=768, num_hidden_layers=12,
@@ -2966,6 +3305,15 @@ def phase_dann(records: dict) -> dict:
     return dict(per_step, pred_wall_ms=pred["wall_ms"], peak_gib=peak)
 
 
+# device memory still allocated after each main-path phase (GiB): what a
+# phase leaves held raises every later phase's peak
+HELD: dict = {}
+
+
+def held_after(phase: str) -> None:
+    HELD[phase] = round(torch.cuda.memory_allocated() / 2**30, 3)
+
+
 def main() -> int:
     phase_device()
     sys.path.insert(0, ROOT)
@@ -2982,6 +3330,8 @@ def main() -> int:
     for preset in ZH_PATHS:
         phase_reference(preset)
     phase_reference(FLAGSHIP, "flash")
+    for kind in ADAPTER_KINDS:
+        phase_reference(FLAGSHIP, adapter=kind)
     phase_reference_stage1()
     paths = {}
     for preset, iterations, strategy in (
@@ -2990,8 +3340,22 @@ def main() -> int:
             ("ec_vi_final", 1, "random")):
         paths[preset] = phase_path(records, preset, iterations, strategy)
         torch.cuda.empty_cache()
+        held_after(preset)
+    for kind in ADAPTER_KINDS:
+        paths[f"adapter {kind}"] = phase_adapter(records, kind)
+        torch.cuda.empty_cache()
+        held_after(f"adapter {kind}")
+    paths["bf16 mu"] = phase_path(
+        records, FLAGSHIP, 1, "temporal_order_modification",
+        cfg=mu_bf16_config(), timed_epochs=True, name="bf16 mu")
+    torch.cuda.empty_cache()
+    held_after("bf16 mu")
     paths["flash"] = phase_serve(records)
     torch.cuda.empty_cache()
+    held_after("flash")
+    pair = phase_pair(records)
+    torch.cuda.empty_cache()
+    held_after("pair")
     paths[EN_PRESET] = phase_en(records)
     torch.cuda.empty_cache()
     clause_paths = {}
@@ -3007,7 +3371,12 @@ def main() -> int:
                                                                     impl)
     for preset in (FLAGSHIP, "ec_vi_final"):
         phase_sensitivity(preset)
+    phase_bits("entmax adapter", adapter_config("entmax"))
+    phase_bits("bf16 mu", mu_bf16_config(), resume=True)
+    phase_adam()
     flag = steps[FLAGSHIP]["captured"]
+    print(f"memory held between phases (allocated, GiB): {HELD}",
+          flush=True)
     for name, by_kind in steps.items():
         for kind in ("eager", "captured"):
             p = by_kind[kind]
@@ -3033,6 +3402,28 @@ def main() -> int:
           f"{en['peak_gib']:.2f} GiB; path peak memory "
           f"{paths[EN_PRESET]['peak_gib']:.2f} GiB, K3/K4 "
           f"{paths[EN_PRESET]['bow_per_step']:.0f} a step", flush=True)
+    for name in [f"adapter {kind}" for kind in ADAPTER_KINDS] + ["bf16 mu"]:
+        p = paths[name]["step"]
+        print(f"step b64xs96, {name} (captured): device "
+              f"{p['device_ms']:.2f} ms/step "
+              f"({p['device_ms'] - flag['device_ms']:+.2f} against the "
+              f"captured flagship), {p['kernels']:.1f} kernels/step "
+              f"({p['kernels'] - flag['kernels']:+.1f}), wall "
+              f"{p['wall_ms']:.2f} ms/step (device busy "
+              f"{p['device_ms'] / p['wall_ms']:.3f}), peak memory over the "
+              f"timed epochs {p['peak_gib']:.2f} GiB; path peak memory "
+              f"{paths[name]['peak_gib']:.2f} GiB "
+              f"({paths[name]['peak_gib'] - paths[FLAGSHIP]['peak_gib']:+.3f} "
+              f"against the flagship path), K3/K4 "
+              f"{paths[name]['bow_per_step']:.0f} a step", flush=True)
+    print(f"step b64xs96, pair classifier (eager, flash): device "
+          f"{pair['device_ms']:.2f} ms/step "
+          f"({pair['device_ms'] - flag['device_ms']:+.2f} against the "
+          f"captured flagship), {pair['kernels']:.1f} kernels/step, wall "
+          f"{pair['wall_ms']:.2f} ms/step (device busy "
+          f"{pair['device_ms'] / pair['wall_ms']:.3f}; "
+          f"{64 / pair['wall_ms'] * 1e3:.1f} pairs/s), peak memory "
+          f"{pair['peak_gib']:.2f} GiB", flush=True)
     for name, p in clause_paths.items():
         print(f"path {name} (eager): device {p['device_ms']:.2f} ms/step, "
               f"{p['kernels']:.1f} kernels/step, wall {p['wall_ms']:.2f} "

@@ -70,3 +70,16 @@ def test_importing_the_port_loads_no_jax_package_module():
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# modules of the adapter, bf16-mu and pair slice: the scan above must reach
+# them (it walks the package, so a module moved out of it would drop out)
+SLICE_MODULES = ("ops/entmax.py", "models/pair_classifier.py",
+                 "train/pair_trainer.py", "tools/memorization_plot.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_scan_covers_the_slice_modules(rel):
+    path = PORT / rel
+    assert path in SOURCES, rel
+    assert not [mod for _, mod in _imports(path) if _forbidden(mod)]

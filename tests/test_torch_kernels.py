@@ -1120,3 +1120,101 @@ def test_stale_capture_is_captured_again(cuda, tmp_path):
     want = _eager_epoch(cfg, eager, epoch[2], 0.0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     _assert_states_agree(state, eager, cfg, 6)
+
+
+def test_entmax_on_the_card_matches_the_cpu_and_replays(cuda):
+    """sparsemax and entmax15 (ops/entmax.py: torch.sort over the last axis,
+    no value read back) on the card: the forward and the VJP within 1e-6 of
+    the CPU's on masked rows (-1e9) and an all-masked one, and the two
+    captured in one CUDA graph replay the same bits."""
+    from carel_tpu_torch.ops.entmax import entmax15, sparsemax
+
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn(64, 1, 96, generator=gen) * 3
+    lengths = torch.randint(1, 97, (64,), generator=gen)
+    lengths[0] = 0  # a padded batch row
+    z = torch.where(torch.arange(96)[None, None, :] < lengths[:, None, None],
+                    z, torch.tensor(-1e9))
+    g = torch.randn(z.shape, generator=gen)
+    for fn in (sparsemax, entmax15):
+        outs = []
+        for dev in ("cpu", cuda):
+            zz = z.to(dev).clone().requires_grad_(True)
+            p = fn(zz)
+            p.backward(g.to(dev))
+            outs.append((p.detach().cpu(), zz.grad.cpu()))
+        for want, got in zip(*outs):
+            assert float((got - want).abs().max()) <= 1e-6, fn.__name__
+        zc = z.to(cuda)
+        want = fn(zc).clone()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn(zc)
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+
+
+def test_mu_dtype_adam_captured_equals_eager(cuda):
+    """MuDtypeAdam (train/state.py, --optim_mu_dtype bfloat16) with a 0-d
+    device lr: three eager steps and three replays of one captured step
+    from the same params and gradients give the same bits (params, bf16
+    first moments, fp32 second moments), and set_lr reaches the replay."""
+    from carel_tpu_torch.train.state import MuDtypeAdam, set_lr
+
+    gen = torch.Generator().manual_seed(1)
+    shapes = ((768, 768), (768,), (21128, 768), (3,))
+    p0 = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen).to(cuda) for s in shapes]
+             for _ in range(3)]
+    runs = []
+    for captured in (False, True):
+        params = [torch.nn.Parameter(p.to(cuda)) for p in p0]
+        opt = MuDtypeAdam(params, lr=torch.tensor(1e-3, device=cuda))
+        if captured:
+            for p, g in zip(params, grads[0]):
+                p.grad = g.clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                # the first step creates the state; it is rolled back
+                saved = [p.detach().clone() for p in params]
+                opt.step()
+                with torch.no_grad():
+                    for p, s in zip(params, saved):
+                        p.copy_(s)
+                for st in opt.state.values():
+                    for t in st.values():
+                        t.zero_()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                opt.step()
+            # the capture ran nothing: roll it back again
+            with torch.no_grad():
+                for p, s in zip(params, saved):
+                    p.copy_(s)
+            for st in opt.state.values():
+                for t in st.values():
+                    t.zero_()
+        for i, gs in enumerate(grads):
+            if i == 2:
+                set_lr(opt, 5e-4)
+            for p, g in zip(params, gs):
+                if captured:
+                    p.grad.copy_(g)
+                else:
+                    p.grad = g.clone()
+            graph.replay() if captured else opt.step()
+        torch.cuda.synchronize()
+        runs.append(([p.detach().clone() for p in params],
+                     [{k: t.clone() for k, t in opt.state[p].items()}
+                      for p in params]))
+    (pe, se), (pc, sc) = runs
+    assert all(torch.equal(a, b) for a, b in zip(pe, pc))
+    for a, b in zip(se, sc):
+        assert a["exp_avg"].dtype == torch.bfloat16
+        assert a["exp_avg_sq"].dtype == torch.float32
+        assert all(torch.equal(a[k], b[k]) for k in a)
