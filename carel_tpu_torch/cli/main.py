@@ -1,5 +1,5 @@
 """Command-line entry points of the port: ``train``, ``infer``, ``stage1``,
-``dann``, ``pair`` and ``presets``.
+``dann``, ``pair``, ``embed``, ``cit``, ``original`` and ``presets``.
 
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
         --data_root /path/to/corpora [--device cuda] \\
@@ -15,6 +15,11 @@
     python -m carel_tpu_torch.cli dann --data_root ... [--no_domain_loss]
     python -m carel_tpu_torch.cli pair --data_root ... [--sentence_pair]
         [--self_chain] [--self_iteration N]
+    python -m carel_tpu_torch.cli embed --files a.txt b.txt --out ENC_DIR \
+        [--level doc|clause] [--dump_embeddings emb.npz]
+    python -m carel_tpu_torch.cli cit --data_root ... --pred_pkl P --true_pkl T
+        [--hf_encoder ENC_DIR]
+    python -m carel_tpu_torch.cli original --data_root ... [--bow_loss]
     python -m carel_tpu_torch.cli presets
 
 ``train`` runs the base epochs with per-epoch evaluation and best
@@ -32,15 +37,21 @@ domain, self-trains on the target and writes the stage-1 pair file that the
 ``predicted_emotion`` presets test on; ``dann`` runs the clause-level DANN
 emotion classifier with its self-training; ``pair`` trains the plain pair
 classifier (encoder pooler, dropout, one logit) with threshold
-self-training. ``--adapter`` (train and infer) reads each latent's features
+self-training. ``embed`` fine-tunes the encoder with the batch-all
+triplet loss on domain labels and writes it as the port's encoder dir
+(``encoder.pt``, pretrain/mlm.py); ``cit`` trains the CIT triple classifier
+as a filter over ``infer --output_dir``'s predictions; ``original`` runs the
+original 3-latent DRL trainer (society -> finance). ``--adapter`` (train and infer) reads each latent's features
 through its own attention adapter over the last hidden state, and
 ``--optim_mu_dtype bfloat16`` stores the main Adam's first moment in bf16;
 ``--track_memorization`` also writes ``memorization.png`` beside the log
 where matplotlib imports. ``--hf_encoder`` takes a local HF
 BERT/RoBERTa checkpoint directory: under ``train`` and ``infer`` its
 config.json sets the encoder's shape and the directory is also the
-tokenizer, under ``stage1`` and ``dann`` its weights replace the configured
-encoder's, as in the JAX CLI. All of them run on the GPU
+tokenizer, under ``stage1``, ``dann``, ``embed``, ``cit`` and ``original``
+its weights replace the configured encoder's, as in the JAX CLI; every verb
+that takes it also reads the port's encoder dir that ``embed`` writes (the
+configured encoder and the corpus tokenizer take its weights). All of them run on the GPU
 unless ``--device cpu`` is given, and raise when no GPU is there. The last
 line of each is the JSON summary the JAX CLI prints.
 """
@@ -100,8 +111,9 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
         from carel_tpu_torch.models.hf_port import is_hf_dir
 
         model = dataclasses.replace(model, pretrained_encoder=args.hf_encoder)
-        # an HF checkpoint dir also supplies the tokenizer; an orbax dir
-        # keeps the corpus-built one (and raises at init_state)
+        # an HF checkpoint dir also supplies the tokenizer; the port's
+        # encoder dir keeps the corpus-built one (an orbax dir too, and
+        # raises at init_state)
         if is_hf_dir(args.hf_encoder):
             data = dataclasses.replace(data, tokenizer=args.hf_encoder)
     tkw = {f: getattr(args, f) for f in
@@ -582,6 +594,200 @@ def cmd_pair(args) -> int:
     return 0
 
 
+def cmd_embed(args) -> int:
+    """Contrastive domain-embedder fine-tuning (the sentence-transformer
+    scripts: chi/en[_ec]_sentence_transformer.py): batch-all triplet loss on
+    domain labels over whole docs (--level doc) or single clauses (--level
+    clause); writes the fine-tuned encoder as the port's encoder dir
+    (--out), which --hf_encoder takes wherever it is accepted, and
+    optionally dumps the corpus embeddings."""
+    import numpy as np
+
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.data.tokenizer import build_tokenizer
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.embeddings import (EmbedderTrainConfig,
+                                            EncoderEmbedder,
+                                            load_domain_docs,
+                                            save_embeddings,
+                                            train_domain_embedder)
+    from carel_tpu_torch.models.hf_port import load_encoder_checkpoint
+    from carel_tpu_torch.pretrain import save_encoder
+    from carel_tpu_torch.train.logging import JsonlLogger
+
+    device = resolve_device(args.device)
+    language = args.language or "zh"
+    paths = {os.path.splitext(os.path.basename(p))[0]: p
+             for p in args.files}
+    if args.level == "doc":
+        texts, labels = load_domain_docs(paths)
+    else:  # clause-level (the _ec_ script variants)
+        texts, labels = [], []
+        for label, (name, p) in enumerate(sorted(paths.items())):
+            for doc in parse_ecpe_file(p):
+                for cl in doc.clauses:
+                    texts.append(
+                        (cl.text_field3 or cl.text).replace(" ", "")
+                        if language == "zh" else (cl.text_field3 or cl.text))
+                    labels.append(label)
+    if args.max_texts:
+        texts, labels = texts[: args.max_texts], labels[: args.max_texts]
+
+    os.makedirs(args.cache_dir, exist_ok=True)
+    tok = build_tokenizer(
+        language, texts,
+        os.path.join(args.cache_dir, f"tokenizer_{language}.json"))
+    enc = dataclasses.replace(_encoder_preset(args.encoder, language),
+                              vocab_size=tok.vocab_size)
+    ecfg = EmbedderTrainConfig(
+        batch_size=args.batch_size or 32,
+        epochs=args.epochs if args.epochs is not None else 9,
+        max_len=args.max_len or 200)
+    logger = JsonlLogger(args.log_dir or "result_logs", "embed")
+    init_params = None
+    if args.hf_encoder:
+        enc, init_params = load_encoder_checkpoint(args.hf_encoder, enc)
+    params = train_domain_embedder(ecfg, enc, tok, texts, labels,
+                                   init_params=init_params, logger=logger,
+                                   device=device)
+    out = save_encoder(args.out, params)
+    emb_path = ""
+    if args.dump_embeddings:
+        embedder = EncoderEmbedder(enc, params, tok, max_len=ecfg.max_len,
+                                   device=device)
+        emb_path = save_embeddings(args.dump_embeddings, embedder(texts),
+                                   np.asarray(labels))
+    logger.close()
+    print(json.dumps({"encoder_ckpt": out, "texts": len(texts),
+                      "embeddings": emb_path}))
+    return 0
+
+
+def cmd_cit(args) -> int:
+    """CIT triple classifier chained onto pair-inference outputs
+    (mc_classifier.py:442-547): gold triples with KNN negatives from the
+    source domain, prediction-filtering evaluation on the target candidates,
+    per-document KNN self-training. Reads ``infer --output_dir``'s pickles
+    (pandas is imported here)."""
+    import random
+
+    import numpy as np
+    import pandas as pd
+
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.data.pairs import build_pairs
+    from carel_tpu_torch.data.tokenizer import build_tokenizer
+    from carel_tpu_torch.data.triples import build_cit_triples
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.embeddings import EncoderEmbedder
+    from carel_tpu_torch.models.hf_port import load_encoder_checkpoint
+    from carel_tpu_torch.pipeline import _spaced_sep, fit_max_len, resolve_paths
+    from carel_tpu_torch.train.cit_trainer import CitConfig, run_cit
+    from carel_tpu_torch.train.logging import JsonlLogger
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(PRESETS[args.preset], args)
+    train_path, test_path, _ = resolve_paths(cfg)
+    train_docs = parse_ecpe_file(train_path)
+    test_docs = parse_ecpe_file(test_path)
+    if args.max_train_docs:
+        train_docs = train_docs[: args.max_train_docs]
+    if args.max_test_docs:
+        test_docs = test_docs[: args.max_test_docs]
+    test_pairs = build_pairs(test_docs, test=True,
+                             spaced_sep=_spaced_sep(cfg),
+                             rng=random.Random(cfg.data.seed))
+
+    # prediction/true tables from `infer --output_dir` (the reference reads
+    # pair_data/ec_pair/{id}_{true,pred}.pkl, mc_classifier.py:462-470)
+    pred_df = pd.read_pickle(args.pred_pkl)
+    true_df = pd.read_pickle(args.true_pkl)
+    pair_texts = [str(t) for t in pred_df["pair"]]
+    pred_labels = np.asarray(pred_df["label"], np.float32)
+    true_labels = np.asarray(true_df["label"], np.float32)
+    if len(pred_labels) != sum(test_pairs.docs_pair_size):
+        raise SystemExit(
+            f"prediction table has {len(pred_labels)} rows but the test "
+            f"candidate enumeration has {sum(test_pairs.docs_pair_size)}: "
+            "pass the same --preset/--test_file/--max_test_docs used for "
+            "`infer`")
+
+    corpus = [c.text for d in train_docs + test_docs for c in d.clauses]
+    os.makedirs(args.cache_dir, exist_ok=True)
+    tok = build_tokenizer(
+        cfg.data.language, corpus,
+        os.path.join(args.cache_dir, f"tokenizer_{cfg.data.language}.json"))
+    enc = dataclasses.replace(_encoder_preset(args.encoder, cfg.data.language),
+                              vocab_size=tok.vocab_size)
+
+    # embedder for the KNN negatives: the port's encoder (the checkpoint's
+    # when given, else random weights from seed 0) in place of the
+    # reference's downloaded SimCSE (mc_classifier.py:120-144)
+    enc_params = None
+    if args.hf_encoder:
+        enc, enc_params = load_encoder_checkpoint(args.hf_encoder, enc)
+    embedder = EncoderEmbedder(enc, enc_params, tok, max_len=64,
+                               device=device)
+
+    max_len = cfg.data.max_len or fit_max_len(tok, pair_texts)
+    ccfg = CitConfig(
+        max_len=max_len,
+        batch_size=args.batch_size or 32,
+        epochs=args.epochs if args.epochs is not None else 1,
+        self_epochs=(args.self_epochs
+                     if args.self_epochs is not None else 5),
+        self_iteration=(args.self_iteration
+                        if args.self_iteration is not None else 10),
+        learning_rate=args.vae_lr if args.vae_lr is not None else 1e-5,
+        seed=cfg.train.seed)
+    logger = JsonlLogger(args.log_dir or "result_logs", "cit")
+    train_triples = build_cit_triples(train_docs, embedder)
+    res = run_cit(ccfg, enc, tok, train_triples, test_docs,
+                  test_pairs.docs_pair_size, pair_texts, pred_labels,
+                  true_labels, embedder, logger, encoder_params=enc_params,
+                  device=device)
+    logger.close()
+    print(json.dumps({"base": res["base"], "best": res["best"]}))
+    return 0
+
+
+def cmd_original(args) -> int:
+    """Original 3-latent DRL trainer end to end (drl_classifier.py:802-1041;
+    --bow_loss = drl_classifier_bow_loss.py's learned BoW re-weighting), on
+    the old split's zh defaults (society -> pair_data/emotion/finance.txt,
+    drl_classifier.py:995-999)."""
+    import uuid
+
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.train.logging import JsonlLogger
+    from carel_tpu_torch.train.original_driver import run_original
+    from carel_tpu_torch.train.steps_original import OriginalLossConfig
+
+    device = resolve_device(args.device)
+    base = PRESETS["ec_mmd_final_mul"]
+    base = dataclasses.replace(base, data=dataclasses.replace(
+        base.data, source_domain="society", target_domain="finance"))
+    cfg = _apply_overrides(base, args)
+    loss_cfg = OriginalLossConfig(
+        learned_bow_weights=args.bow_loss,
+        con_mul_loss_weight=args.con_mul_loss_weight,
+        pair_mul_loss_weight=args.pair_mul_loss_weight,
+        vae_lr=cfg.train.vae_lr,
+    )
+    enc = _encoder_preset(args.encoder, cfg.data.language)
+    model_id = str(uuid.uuid4())
+    logger = JsonlLogger(cfg.train.log_dir, f"drl_original_{model_id[:8]}")
+    _, base_best, self_best = run_original(
+        cfg, loss_cfg, enc, model_id, cache_dir=args.cache_dir,
+        logger=logger, max_train_docs=args.max_train_docs,
+        max_test_docs=args.max_test_docs, device=device)
+    logger.close()
+    final = self_best if self_best[2] > 0.0 else base_best
+    print(json.dumps({"model_id": model_id, "best_f1": final[2],
+                      "base_f1": base_best[2]}))
+    return 0
+
+
 def cmd_presets(_args) -> int:
     for name, cfg in sorted(PRESETS.items()):
         print(f"{name}: regularizer={cfg.loss.regularizer.value}, "
@@ -634,6 +840,46 @@ def build_parser() -> argparse.ArgumentParser:
     p_pair.add_argument("--sentence_pair", action="store_true",
                         help="two-segment encoding (self-chain variant)")
     p_pair.set_defaults(fn=cmd_pair)
+    p_emb = sub.add_parser(
+        "embed", help="contrastive domain-embedder fine-tuning "
+                      "(sentence-transformer scripts)")
+    _add_common_args(p_emb)
+    p_emb.add_argument("--files", required=True, nargs="+",
+                       help="ECPE domain files; each file = one domain label")
+    p_emb.add_argument("--level", default="doc", choices=["doc", "clause"],
+                       help="doc = chi/en_sentence_transformer, clause = "
+                            "the _ec_ variants")
+    p_emb.add_argument("--out", required=True,
+                       help="output dir for the fine-tuned encoder "
+                            "(encoder.pt)")
+    p_emb.add_argument("--dump_embeddings", default="",
+                       help="optional .npz path for the corpus embeddings")
+    p_emb.add_argument("--max_texts", type=int, default=0)
+    p_emb.set_defaults(fn=cmd_embed)
+    p_cit = sub.add_parser(
+        "cit", help="CIT triple classifier over pair-inference outputs "
+                    "(mc_classifier.py)")
+    _add_common_args(p_cit)
+    p_cit.add_argument("--pred_pkl", required=True,
+                       help="{id}_pred.pkl from `infer --output_dir`")
+    p_cit.add_argument("--true_pkl", required=True,
+                       help="{id}_true.pkl from `infer --output_dir`")
+    p_cit.set_defaults(fn=cmd_cit)
+    p_orig = sub.add_parser(
+        "original", help="original 3-latent DRL trainer (drl_classifier.py; "
+                         "--bow_loss = drl_classifier_bow_loss.py)")
+    _add_common_args(p_orig)
+    p_orig.add_argument("--bow_loss", action="store_true",
+                        help="learned BoW re-weighting (content classifier "
+                             "sigmoid as detached per-word BCE weights)")
+    p_orig.add_argument("--con_mul_loss_weight", type=float, default=3.0,
+                        help="content multitask loss weight "
+                             "(drl_classifier.py:46; sweep axis of the "
+                             "bow_loss variant)")
+    p_orig.add_argument("--pair_mul_loss_weight", type=float, default=30.0,
+                        help="pair loss weight (the weights=[...] sweep at "
+                             "drl_classifier.py:966)")
+    p_orig.set_defaults(fn=cmd_original)
     p_pre = sub.add_parser("presets", help="list presets")
     p_pre.set_defaults(fn=cmd_presets)
     return parser

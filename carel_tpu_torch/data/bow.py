@@ -87,9 +87,13 @@ class BowVocab:
         """Sparse term counts for one pair string.
 
         zh mode mirrors flagship :100-117 (CJK filter + jieba);
-        en mode mirrors newsplit :139 (bow_tokenize).
+        en mode mirrors newsplit :139 (bow_tokenize). An empty vocabulary
+        (the pair and CIT classifiers', which read no BoW) counts nothing,
+        so it tokenizes nothing: jieba is not needed there.
         """
         idx_map = self.index
+        if not idx_map:
+            return (np.zeros(0, np.int32), np.zeros(0, np.float32))
         hits = {}
         for tok in self.tokenize(text):
             j = idx_map.get(tok)

@@ -32,6 +32,7 @@ import torch
 
 from carel_tpu_torch.config import EncoderConfig
 from carel_tpu_torch.convert import jax_params_to_state_dict
+from carel_tpu_torch.pretrain import is_encoder_dir, load_encoder
 
 
 def is_hf_dir(path: str) -> bool:
@@ -168,18 +169,23 @@ def load_encoder_checkpoint(path: str, cfg: EncoderConfig
                             ) -> Tuple[EncoderConfig,
                                        Dict[str, torch.Tensor]]:
     """(``cfg`` sized to the checkpoint's tables, the encoder's state_dict)
-    from an HF checkpoint dir, laid out by ``cfg``'s heads and layers. The
-    tables' sizes (vocab, positions and, where ``cfg`` has them, token
+    from an HF checkpoint dir, laid out by ``cfg``'s heads and layers, or
+    from the port's own encoder dir (``pretrain.save_encoder``: encoder.pt).
+    The tables' sizes (vocab, positions and, where ``cfg`` has them, token
     types) come from the checkpoint: the JAX package puts its tables into a
     model built from the configured encoder, and a torch module must be
-    built with the sizes it loads. An orbax dir raises."""
-    if not is_hf_dir(path):
+    built with the sizes it loads. A JAX orbax dir (neither config.json nor
+    encoder.pt) raises."""
+    if is_hf_dir(path):
+        state = port_hf_encoder(path, cfg)
+    elif is_encoder_dir(path):
+        state = load_encoder(path)
+    else:
         raise NotImplementedError(
-            f"{path}: an encoder directory without config.json is an orbax "
-            "checkpoint of carel_tpu.pretrain, which carel_tpu_torch does not "
-            "read: it waits for the port of pretraining (ROADMAP Queue 1 "
-            "item 7)")
-    state = port_hf_encoder(path, cfg)
+            f"{path}: an encoder directory with neither config.json nor "
+            "encoder.pt is an orbax checkpoint of carel_tpu.pretrain, which "
+            "carel_tpu_torch does not read: it waits for the port of "
+            "pretraining (ROADMAP Queue 1 item 7)")
     kw = dict(vocab_size=state["word_embeddings.weight"].shape[0],
               max_position=state["position_embeddings.weight"].shape[0])
     if cfg.type_vocab_size > 0:

@@ -7,8 +7,10 @@ newsplit :1205-1227 for the new split + predicted-emotion test files), builds
 the tokenizer/BoW/arrays, and sizes the model config to them: zh and en,
 the self-chain pair construction, and a local HF checkpoint as the
 encoder (its config.json sets the encoder's shape, its weights replace the
-random ones in ``init_state``). An orbax encoder directory (the JAX
-package's pretraining output) raises: the port has no pretraining yet.
+random ones in ``init_state``), or the port's own encoder directory
+(``pretrain.save_encoder``, which the ``embed`` verb writes: the configured
+encoder takes its weights). An orbax encoder directory (the JAX package's
+pretraining output) raises: the port has no pretraining yet.
 """
 
 from __future__ import annotations
@@ -199,8 +201,8 @@ def init_state(cfg: CarelConfig, device="cuda",
     (so they do not depend on the device), dropout draws from the device's
     default generator (seeded here), and the sampling noise from a generator
     on the device seeded with seed + 1. When ``cfg.model.pretrained_encoder``
-    is an HF checkpoint dir, its weights then replace the encoder's; an
-    orbax dir raises.
+    is an HF checkpoint dir or the port's encoder dir, its weights then
+    replace the encoder's; an orbax dir raises.
     """
     device = resolve_device(device)
     seed = cfg.train.seed

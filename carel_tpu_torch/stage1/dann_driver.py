@@ -90,10 +90,10 @@ def build_dann_model(cfg: DannConfig, encoder_cfg: EncoderConfig,
     """The model with Flax-style random init from ``cfg.seed`` (a CPU
     generator) on ``device``; seeds the device's default generator, which
     dropout draws from. ``dropout`` is the model's (the reference's
-    0.1). With ``encoder_ckpt`` (a local HF checkpoint dir) the encoder
-    then takes its weights and the sizes of its tables, keeping
-    ``encoder_cfg``'s other fields, as the JAX driver does; an orbax dir
-    raises."""
+    0.1). With ``encoder_ckpt`` (a local HF checkpoint dir, or the port's
+    encoder dir) the encoder then takes its weights and the sizes of its
+    tables, keeping ``encoder_cfg``'s other fields, as the JAX driver does;
+    an orbax dir raises."""
     device = resolve_device(device)
     enc_state = None
     if encoder_ckpt:

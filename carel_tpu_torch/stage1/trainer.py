@@ -207,8 +207,8 @@ def build_stage1_model(cfg: Stage1Config, encoder_cfg: EncoderConfig,
     """The model with Flax-style random init from ``cfg.seed`` (a CPU
     generator, so it does not depend on the device) on ``device``; seeds
     the device's default generator, which dropout draws from. With
-    ``encoder_ckpt`` (a local HF checkpoint dir) the encoder then takes its
-    weights and the sizes of its tables, keeping ``encoder_cfg``'s other
+    ``encoder_ckpt`` (a local HF checkpoint dir, or the port's encoder
+    dir) the encoder then takes its weights and the sizes of its tables, keeping ``encoder_cfg``'s other
     fields, as the JAX trainer does (devin :265 downloads hub BERT); an
     orbax dir raises."""
     device = resolve_device(device)

@@ -33,7 +33,8 @@ an error:
    (tensor-core kernels), at the training and the inference shape, at a ragged
    tiny one, at L over one block's rows (200, 513), at hd = 128 and with pad
    tails longer than one tile of keys, at the stage-1 clause batch [300, 12,
-   60, 64] with most rows all pads and the DANN batch [32, 12, 128, 64], with
+   60, 64] with most rows all pads, the DANN batch [32, 12, 128, 64] and the
+   embed path's [32, 12, 200, 64] (a partly empty last tile), with
    an all-pad row and a row without pads, in the stock and the packed layout,
    and require two runs to give the same bits; hold the BoW backward with many
    duplicate indices (K4 adds the corrections at the indices to G in a fixed
@@ -47,8 +48,8 @@ an error:
    x 128 ids over roberta-base's one-row token-type table, its 514 positions
    and its 50,265 words, each timed; time every kernel, its plain version and,
    for K7-K10, the library call by CUDA events and by the profiler's device
-   time per call, and the host's cost of one launch, K7-K9 also at the stage-1
-   and DANN shapes;
+   time per call, and the host's cost of one launch, K7-K9 also at the stage-1,
+   DANN and embed shapes;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights, batch and noise, under
    the flagship's MMD (with the default and the flash attention), ec_hsic,
@@ -59,7 +60,10 @@ an error:
    the 2 lr bound only); loss, gradients and updated weights of every group
    must agree; likewise
    a stage-1 step under each clause mixer (the BiLSTM on cuDNN) and a DANN
-   step (params and the batch norm's running statistics);
+   step (params and the batch norm's running statistics); and a tiny
+   original 3-latent DRL step (one backward, the main Adam and the
+   adversaries' RMSprop; the latent heads unchanged, the adversaries
+   moved);
 5. main paths, each at full width (12L/768H encoder, vocab 21,128, ec_dim
    24, BoW vocab 23,808, max_len 96, batch 64) on random weights from a
    seed, on a synthetic target domain (documents of 3-12 clauses with all
@@ -117,6 +121,32 @@ an error:
      stay bit-unchanged, as do the frozen latent heads;
    - the flagship with --optim_mu_dtype bfloat16 (the main Adam's first
      moment in bf16, MuDtypeAdam) likewise, timed;
+   - the embed verb's trainer (train_domain_embedder) at 12L/768H bf16
+     with attention_impl="flash", b32 x s200, over synthetic documents of
+     four domain labels read by load_domain_docs (16 steps), then
+     EncoderEmbedder over the 512 texts at batch 256: K7 once a layer on
+     every forward, K8/K9 once a layer and K10 three times on every step;
+     the encoder dir (save_encoder) read back by load_encoder_checkpoint
+     bit-equal; a step timed and profiled;
+   - the cit verb's pieces: the flash path's served model scores 64
+     synthetic target documents through run_pair_inference (its pair
+     bias centred on the median logit), build_cit_triples over 256 source
+     documents with the embed path's encoder as the embedder (max_len 64),
+     then run_cit at CitConfig's defaults (s128, b32, default attention;
+     the encoder started from the embed path's) for a base epoch of 16
+     steps and one self-training iteration, the predictions passed in
+     memory: K7 once a layer on every inference and embedder batch, K10
+     three times a step; refined predictions in {0, 1}, P/R/F1 in [0, 1];
+     a step timed and profiled;
+   - the original verb's pieces (train_original) at b64 x s96, BoW V
+     23,808: a base epoch of 16 eager steps, the evaluation of 514 pairs,
+     the best saved and reloaded, one self-training iteration, then 4
+     steps of the --bow_loss variant: K10 three times a step and nothing
+     else; the six latent heads bit-unchanged, the five adversaries moved;
+     a step timed and profiled;
+   - the clustering tool: 4,096 synthetic clauses embedded by the embed
+     path's encoder, train_idec (5 pretraining epochs, 20 refinement
+     steps), emotion_cluster_chi2; profiled once;
    - the plain pair classifier (the pair verb's train_pair_classifier) at
      12L/768H, vocab 21,128, bf16, attention_impl="flash", b64 x s96 on
      the zh paths' synthetic pairs: a base epoch of 16 eager steps, its
@@ -159,8 +189,10 @@ an error:
 Then one line a variant and kind compares its step with the captured
 flagship's (the adapter and bf16-mu paths' captured steps too, and the
 pair classifier's eager step): device ms/step, kernels/step, wall ms/step with the device's
-busy share, peak memory; one line for the en path's captured step; and
-one line each for the stage-1 and DANN paths:
+busy share, peak memory; one line for the en path's captured step; one
+line each for the embed, cit, original and clustering paths (with the
+nvidia-smi name and power limit); and one line each for the stage-1 and
+DANN paths:
 wall and device ms/step, kernels/step, documents/s or clauses/s, peak
 memory.
 
@@ -260,6 +292,28 @@ def device_profile(fn, iters: int = 30, warmup: int = 5):
         print(f"device_profile: the profiler recorded no device time in "
               f"window {window} of 3", flush=True)
     fail("device_profile: the profiler recorded no device time")
+
+
+def device_kernel_names(fn) -> list:
+    """The names, cut to 120 characters, of the device kernels one call of
+    fn launches, as torch.profiler records them (which backend a library
+    call picked); a window with no device event is profiled again, up to
+    three in all, as in device_profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name[:120] for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)})
+        if names:
+            return names
+    return ["(the profiler recorded no device event)"]
 
 
 def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
@@ -1307,8 +1361,13 @@ def flash_work(mask: torch.Tensor, h: int, hd: int, element_size: int):
 # so that the tensor-core kernels' ring of 4 tiles of 32 rows wraps;
 # hd = 128; pad tails longer than one tile, where every key of a tile is
 # masked for a row; the stage-1 clause batch (4 documents x 75 clauses of
-# 60 tokens, L no multiple of 16, most rows padded clauses) and the DANN
-# batch (32 clauses of 128 tokens, L past the one-block regime of L <= 96)
+# 60 tokens, L no multiple of 16, most rows padded clauses), the DANN
+# batch (32 clauses of 128 tokens, L past the one-block regime of L <= 96),
+# the embed path's batch (32 texts of 200 tokens: 200 is no multiple of
+# the 64-row tile, so the last tile is partly empty) and EncoderEmbedder's
+# forward-only batches: 256 texts of 200 tokens on the embed path, 256
+# clauses of 64 tokens on the clustering path, and one document's dozen
+# clauses of 64 tokens, with long pad tails, on the cit path
 FLASH_CASES = (((64, 12, 96, 64), True, 0, 0.0),
                ((512, 12, 96, 64), False, 0, 0.0),
                ((5, 4, 37, 16), True, 0, 0.0),
@@ -1317,11 +1376,19 @@ FLASH_CASES = (((64, 12, 96, 64), True, 0, 0.0),
                ((2, 2, 96, 128), True, 0, 0.0),
                ((4, 2, 160, 64), True, 48, 0.0),
                ((300, 12, 60, 64), True, 0, 0.8),
-               ((32, 12, 128, 64), True, 0, 0.0))
-# the shapes of the stage-1 and DANN paths, timed beside the training shape:
+               ((32, 12, 128, 64), True, 0, 0.0),
+               ((32, 12, 200, 64), True, 0, 0.0),
+               ((256, 12, 200, 64), False, 0, 0.0),
+               ((256, 12, 64, 64), False, 0, 0.0),
+               ((12, 12, 64, 64), True, 24, 0.0))
+# the shapes of the stage-1, DANN and embed paths and of EncoderEmbedder's
+# batches at L = 200 and 64, timed beside the training shape:
 # (tag, shape, share of all-pad rows)
 FLASH_PATH_SHAPES = (("stage1", (300, 12, 60, 64), 0.8),
-                     ("dann", (32, 12, 128, 64), 0.0))
+                     ("dann", (32, 12, 128, 64), 0.0),
+                     ("embed", (32, 12, 200, 64), 0.0),
+                     ("embedder s200", (256, 12, 200, 64), 0.0),
+                     ("embedder s64", (256, 12, 64, 64), 0.0))
 
 
 def flash_calls(B: int, h: int, L: int, hd: int, seed: int,
@@ -1447,9 +1514,14 @@ def phase_flash(records: dict) -> None:
                 for key in ("", "plain_", "library_")),
               rec["bound_ms_b512"]), flush=True)
 
-    # K7-K9 at the shapes of the stage-1 and DANN paths
+    # K7-K9 at the shapes of the other paths; which of its backends the
+    # library's forward picked, by the names of the kernels it launched
     for tag, shape, pad_rows in FLASH_PATH_SHAPES:
         calls, work = flash_calls(*shape, seed=3, pad_rows=pad_rows)
+        sdpa = device_kernel_names(calls["flash_fwd"][2])
+        records["flash_fwd"].setdefault("library_kernels", {})[tag] = sdpa
+        print(f"scaled_dot_product_attention at bf16 {list(shape)} ({tag} "
+              f"path) launched: {'; '.join(sdpa)}", flush=True)
         for name in FLASH_KERNELS:
             kernel, plain, library = calls[name]
             bnd = bound_ms(*work[name], PEAK_BF16_FLOPS)
@@ -2494,7 +2566,7 @@ def phase_serve(records: dict):
         records[name].setdefault("launches_by_path", {})["flash"] = n
         records[name]["launches"] = sum(
             records[name]["launches_by_path"].values())
-    return dict(peak_gib=peak_gib)
+    return dict(peak_gib=peak_gib, served=served)
 
 
 def same_state(a: dict, b: dict) -> bool:
@@ -3305,6 +3377,562 @@ def phase_dann(records: dict) -> dict:
     return dict(per_step, pred_wall_ms=pred["wall_ms"], peak_gib=peak)
 
 
+def phase_reference_original() -> None:
+    """A tiny fp32 original 3-latent DRL step (train/steps_original.py: one
+    backward of vae_loss + disc_losses, the main Adam and the adversaries'
+    RMSprop) on the card and on the CPU from the same weights, batch and
+    noise: losses within rel 1e-4, gradients within 1e-3 normwise, every
+    parameter within 2 lr of its group (an entry whose gradient is rounding
+    noise moves by up to ~lr either way) and within 1e-3 lr where its
+    gradient is over 1e-3 of its tensor's largest (Adam's first step moves
+    such an entry by about lr * sign(g), so only there does the step show
+    the gradient), the six latent heads bit-unchanged and the five
+    adversaries moved on both devices; K10 three times on the card."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.data.batching import cut_batch
+    from carel_tpu_torch.models.drl_original import (ADVERSARIES,
+                                                     LATENT_HEADS,
+                                                     DrlOriginalModel,
+                                                     OriginalModelConfig)
+    from carel_tpu_torch.models.encoder import init_flax_, tiny_encoder_config
+    from carel_tpu_torch.train.steps import batch_to_device
+    from carel_tpu_torch.train.steps_original import (
+        DISC, FROZEN, OriginalLossConfig, create_original_state,
+        make_original_train_step)
+
+    tag = "reference step original (tiny fp32, card vs CPU)"
+    mcfg = OriginalModelConfig(
+        encoder=tiny_encoder_config(vocab_size=256, dropout=0.0), ec_dim=24,
+        con_dim=384, bow_dim=3000, dropout=0.0)
+    lcfg = OriginalLossConfig(vae_lr=1e-3)
+    model = DrlOriginalModel(mcfg)
+    init_flax_(model, torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    arrays = synth_pair_arrays(np.random.default_rng(3), 16, 32, 256, 3000,
+                               min_len=8)
+    host = cut_batch(arrays, np.arange(14), 16).as_dict()  # 2 padded rows
+    gen = torch.Generator().manual_seed(4)
+    eps = [torch.randn(d, generator=gen) for d in (384, 24, 24)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = DrlOriginalModel(mcfg)
+        m.load_state_dict(init)
+        m.to(dev)
+        state = create_original_state(lcfg, m, torch.Generator(device=dev))
+        ops.reset_launch_counts()
+        metrics = make_original_train_step(lcfg)(
+            state, batch_to_device(host, torch.device(dev)), 0,
+            eps=[e.to(dev) for e in eps])
+        # neither optimizer clears .grad: the step's one backward is left
+        # there (None on the frozen heads)
+        runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                     {k: v.detach().cpu() for k, v in m.state_dict().items()},
+                     {n: p.grad.cpu() for n, p in m.named_parameters()
+                      if p.grad is not None},
+                     ops.launch_counts(), state.labels)
+    (m_c, p_c, g_c, _, labels), (m_g, p_g, g_g, counts, _) = (runs["cpu"],
+                                                             runs["cuda"])
+    if g_c.keys() != g_g.keys() or any(labels[n] == FROZEN for n in g_c):
+        fail(f"{tag}: card and CPU leave gradients on other parameters")
+    worst_m = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
+                  for k in m_c)
+    worst_g = max(relnorm(g_g[n], g_c[n]) for n in g_c)
+    lrs = {DISC: lcfg.adv_lr}
+    worst_p = max(float((p_g[n] - p_c[n]).abs().max())
+                  / lrs.get(label, lcfg.vae_lr) for n, label in labels.items())
+    safe = {n: g_c[n].abs() > 1e-3 * g_c[n].abs().max() for n in g_c}
+    worst_safe = max(float((p_g[n] - p_c[n])[safe[n]].abs().max())
+                     / lrs.get(labels[n], lcfg.vae_lr) for n in g_c)
+    frozen = all(torch.equal(p[f"{h}.{w}"], init[f"{h}.{w}"])
+                 for p in (p_c, p_g) for h in LATENT_HEADS
+                 for w in ("weight", "bias"))
+    moved = all(not torch.equal(p[f"{a}.weight"], init[f"{a}.weight"])
+                for p in (p_c, p_g) for a in ADVERSARIES)
+    print(f"{tag}: vae loss {m_g['vae_loss']:.6f} vs {m_c['vae_loss']:.6f}, "
+          f"disc loss {m_g['disc_loss']:.6f} vs {m_c['disc_loss']:.6f}; "
+          f"worst metric rel {worst_m:.2e}, grad normwise rel "
+          f"{worst_g:.2e}, param abs {worst_p:.2e} lr ({worst_safe:.2e} lr "
+          f"where |g| > 1e-3 max|g|); latent heads unchanged {frozen}, "
+          f"adversaries moved {moved}; launches {counts}", flush=True)
+    if not (worst_m <= 1e-4 and worst_g <= 1e-3 and worst_p <= 2
+            and worst_safe <= 1e-3 and frozen and moved):
+        fail(f"{tag}: card and CPU disagree")
+    if counts["emb_bwd"] != 3 or sum(counts.values()) != 3:
+        fail(f"{tag}: launches {counts} (want K10 three times, nothing "
+             "else)")
+
+
+def path_line(tag: str, nums: dict, peak_gib: float, smi: str,
+              per: str = "step") -> str:
+    """Wall and device ms a step, kernels a step, busy share and peak
+    memory, with the card's name and power limit."""
+    return (f"{tag}: wall {nums['wall_ms']:.2f} ms/{per}, device "
+            f"{nums['device_ms']:.2f} ms/{per} (busy "
+            f"{nums['device_ms'] / nums['wall_ms']:.3f}), "
+            f"{nums['kernels']:.1f} kernels/{per}, peak memory "
+            f"{peak_gib:.2f} GiB ({smi})")
+
+
+EMBED_DOMAINS = 4
+
+
+def phase_embed(records: dict, smi: str) -> dict:
+    """The embed verb's trainer at full width (12L/768H, vocab 21,128, bf16,
+    attention_impl="flash") at b32 x s200 over synthetic documents of four
+    domain labels (load_domain_docs over four files: 512 texts, one epoch
+    of 16 steps), then EncoderEmbedder over the 512 texts at batch 256.
+    K7 must launch once a layer on every forward, K8/K9 once a layer and
+    K10 three times on every step; the loss and the embeddings must be
+    finite; save_encoder then load_encoder_checkpoint must give the same
+    bits and the same config. Then a step is timed and profiled. Returns
+    the numbers, the encoder's config and its trained params."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.config import EncoderConfig
+    from carel_tpu_torch.data.ecpe_format import write_ecpe_file
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.embeddings import (EmbedderTrainConfig,
+                                            EncoderEmbedder,
+                                            load_domain_docs,
+                                            make_embedder_step,
+                                            train_domain_embedder)
+    from carel_tpu_torch.models.encoder import TransformerEncoder
+    from carel_tpu_torch.models.hf_port import load_encoder_checkpoint
+    from carel_tpu_torch.pretrain import save_encoder
+    from carel_tpu_torch.train.state import adam
+
+    tag = "embed path (flash attention)"
+    enc = EncoderConfig(arch="bert", dtype="bfloat16", attention_impl="flash")
+    cfg = EmbedderTrainConfig(epochs=1)
+    B, L, layers, steps = cfg.batch_size, cfg.max_len, enc.num_layers, 16
+    rng = np.random.default_rng(11)
+    paths = {}
+    for d in range(EMBED_DOMAINS):
+        path = os.path.join(RUN_DIR, "embed", f"domain{d}.txt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_ecpe_file(path, synth_docs(rng, B * steps // EMBED_DOMAINS,
+                                         20))
+        paths[f"domain{d}"] = path
+    texts, labels = load_domain_docs(paths)
+    tok = ZhCharTokenizer(ZH_CHARS)
+    lengths = tok.encode_batch(texts, L).attention_mask.sum(1)
+    logger = _Records()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = train_domain_embedder(cfg, enc, tok, texts, labels,
+                                   logger=logger, device="cuda")
+    embedder = EncoderEmbedder(enc, params, tok, max_len=L, batch_size=256,
+                               device="cuda")
+    emb = embedder(texts)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = [r["loss"] for r in logger.records]
+    forwards = -(-len(texts) // 256)
+    print(f"{tag}: {len(texts)} texts of {EMBED_DOMAINS} domains (tokens "
+          f"{int(lengths.min())}-{int(lengths.max())} of {L}), {steps} steps "
+          f"and the embeddings in {wall:.2f} s; epoch losses {losses}; "
+          f"embeddings {emb.shape}; launches {counts}", flush=True)
+    if len(texts) != B * steps or not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: {len(texts)} texts, or a loss not finite")
+    if emb.shape != (len(texts), enc.hidden_dim) or not np.all(
+            np.isfinite(emb)):
+        fail(f"{tag}: embeddings of shape {emb.shape}, or not finite")
+    count_path_launches(records, "embed", counts, {
+        "flash_fwd": layers * (steps + forwards),
+        "flash_bwd_dkv": layers * steps, "flash_bwd_dq": layers * steps,
+        "emb_bwd": CALLS_A_STEP["emb_bwd"] * steps})
+
+    # the encoder dir: written, read back bit for bit with the same shape
+    enc_dir = save_encoder(os.path.join(RUN_DIR, "embed", "encoder"), params)
+    loaded_cfg, loaded = load_encoder_checkpoint(enc_dir, enc)
+    same = loaded_cfg == enc and loaded.keys() == params.keys() and all(
+        torch.equal(loaded[k], params[k].cpu()) for k in params)
+    print(f"{tag}: save_encoder -> load_encoder_checkpoint bit-equal, same "
+          f"config: {same}", flush=True)
+    if not same:
+        fail(f"{tag}: the encoder dir does not give back the trained bits")
+
+    # a step timed and profiled, from the trained params
+    model = TransformerEncoder(enc)
+    model.load_state_dict(params)
+    model.cuda().train()
+    step = make_embedder_step(cfg, model, adam(list(model.parameters()),
+                                               cfg.learning_rate,
+                                               torch.device("cuda")))
+    e = tok.encode_batch(texts[:B], L)
+    batch = [torch.from_numpy(np.asarray(a)).cuda() for a in (
+        e.input_ids, e.attention_mask, e.token_type_ids,
+        np.asarray(labels[:B], np.int32))]
+    nums = step_numbers(lambda: step(*batch))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(path_line(f"{tag} b{B}xs{L}", nums, peak, smi)
+          + f"; {B / nums['wall_ms'] * 1e3:.1f} texts/s", flush=True)
+    del model, step, embedder
+    return dict(nums, peak_gib=peak, enc=enc, params=params)
+
+
+def cit_target(rng, n_docs: int):
+    """Target documents as a stage-1 file gives them: one predicted
+    emotion clause each (the gold one), so every document has one
+    candidate pair a clause."""
+    docs = synth_docs(rng, n_docs, 12)
+    for d in docs:
+        emo = d.pairs[0][0]
+        for c in d.clauses:
+            if c.sen_id != emo:
+                c.emotion, c.emotion_raw = 6, "6"
+            elif c.emotion == 6:
+                c.emotion, c.emotion_raw = 0, "0"
+    return docs
+
+
+def cit_classifier(ccfg, enc, encoder_params: dict, arrays) -> dict:
+    """The CIT classifier's initial state_dict: the encoder's params, the
+    classifier's weight along the first principal direction of the pooled
+    outputs of ``arrays`` (scaled to logits of std 2) and its bias at their
+    median logit. Its forwards use the default attention: no port kernel."""
+    from carel_tpu_torch.train.pair_trainer import (PairTrainerConfig,
+                                                    build_pair_trainer)
+
+    model, _, _, _ = build_pair_trainer(
+        PairTrainerConfig(max_len=ccfg.max_len, seed=ccfg.seed), enc, "cuda")
+    model.encoder.load_state_dict(encoder_params)
+    with torch.no_grad():
+        pooled = torch.cat([model.encoder(*(torch.from_numpy(np.asarray(
+            getattr(arrays, k)[s: s + 256])).cuda() for k in (
+                "input_ids", "attention_mask", "token_type_ids")))[1].float()
+            for s in range(0, len(arrays), 256)])
+        v = torch.linalg.svd(pooled - pooled.mean(0),
+                             full_matrices=False).Vh[0]
+        w = v * (2.0 / (pooled @ v).std())
+        model.classifier.weight.copy_(w[None])
+        model.classifier.bias.fill_(-float((pooled @ w).median()))
+    return {k: t.clone() for k, t in model.state_dict().items()}
+
+
+def phase_cit(records: dict, served, embed: dict, smi: str) -> dict:
+    """The cit verb's pieces at full width: the serving path's model (flash
+    attention) scores the candidate pairs of 64 synthetic target documents
+    through run_pair_inference (its pair classifier's bias centred on the
+    median logit of those pairs first, so that the predictions split), and
+    the CIT filter takes those predictions in memory (the GPU machine has no
+    pandas for infer's pickles): build_cit_triples over 256 source documents
+    with the embed path's encoder as the embedder (max_len 64), then run_cit
+    at CitConfig's defaults (12L/768H bf16, default attention, s128, b32),
+    its encoder started from the embed path's (as cit --hf_encoder), a base
+    epoch of 16 steps and one self-training iteration. A random classifier
+    gives every triple nearly the same logit, all on one side of 0.5, and
+    then no predicted pair is left to self-train on: its weight is set
+    along the first principal direction of the evaluation triples' pooled
+    outputs (logits of std 2) and its bias at their median logit, so that
+    its predictions split. K7 once a layer on
+    every inference and embedder batch, K10 three times on every step,
+    nothing else; the refined predictions must be 0 or 1 and P/R/F1 in
+    [0, 1]. Then a CIT step is timed and profiled."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.config import EncoderConfig
+    from carel_tpu_torch.data.batching import encode_pairs, iter_batches
+    from carel_tpu_torch.data.bow import BowVocab
+    from carel_tpu_torch.data.pairs import build_pairs
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.data.triples import build_cit_triples
+    from carel_tpu_torch.embeddings import EncoderEmbedder
+    from carel_tpu_torch.infer import run_pair_inference
+    from carel_tpu_torch.train.cit_trainer import (CitConfig,
+                                                   predicted_pair_triples,
+                                                   run_cit)
+    from carel_tpu_torch.train.pair_trainer import (PairTrainerConfig,
+                                                    build_pair_trainer)
+    from carel_tpu_torch.train.steps import batch_to_device, make_eval_step
+
+    tag = "cit path"
+    rng = np.random.default_rng(13)
+    source, target = synth_docs(rng, 256, 12), cit_target(rng, 64)
+    tok = ZhCharTokenizer(ZH_CHARS)
+    bow = BowVocab.from_words([], "zh")
+    test_pairs = build_pairs(target, test=True)
+    arrays = encode_pairs(test_pairs, tok, bow, 96)
+    eval_step = make_eval_step()
+    with torch.no_grad():
+        probe = run_pair_inference(eval_step, served, test_pairs, arrays)
+        served.heads.pair_classifier.bias -= float(torch.logit(
+            torch.from_numpy(probe.probs).double()).median())
+    ccfg = CitConfig(epochs=1, self_epochs=1, self_iteration=1)
+    enc = EncoderConfig(arch="bert", dtype="bfloat16")
+    layers = embed["enc"].num_layers
+    embedder = EncoderEmbedder(embed["enc"], embed["params"], tok,
+                               max_len=64, device="cuda")
+    calls = []
+
+    def counted(texts):
+        calls.append(-(-len(texts) // embedder.batch_size))
+        return embedder(texts)
+
+    logger = _Records()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    inference = run_pair_inference(eval_step, served, test_pairs, arrays)
+    init = cit_classifier(ccfg, enc, embed["params"], encode_pairs(
+        predicted_pair_triples(test_pairs.pairs, inference.preds)[0], tok,
+        bow, ccfg.max_len))
+    triples = build_cit_triples(source, counted)
+    res = run_cit(ccfg, enc, tok, triples, target, test_pairs.docs_pair_size,
+                  test_pairs.pairs, inference.preds, test_pairs.labels,
+                  counted, logger, encoder_params=embed["params"],
+                  device="cuda", params=init)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    evals = [r for r in logger.records if r["event"].endswith("_eval")]
+    steps = sum(r["steps"] for r in evals)
+    base_steps = evals[0]["steps"]
+    infer_batches = -(-len(arrays) // 512)
+    events = [r["event"] for r in logger.records]
+    print(f"{tag}: {len(test_pairs)} candidate pairs of {len(target)} "
+          f"documents, {int(inference.preds.sum())} predicted positive; "
+          f"{len(triples)} train triples; {steps} steps ({base_steps} "
+          f"base), {sum(calls)} embedder batches, events {events}; base "
+          f"{res['base']}, best {res['best']}, in {wall:.2f} s; launches "
+          f"{counts}", flush=True)
+    if base_steps != 16 or steps <= base_steps or "cit_selftrain" not in \
+            events:
+        fail(f"{tag}: {base_steps} base steps (want 16) or no "
+             "self-training step")
+    if not set(np.unique(res["predictions"])) <= {0.0, 1.0}:
+        fail(f"{tag}: refined predictions other than 0 and 1")
+    if not all(0.0 <= v <= 1.0 for r in (res["base"], res["best"])
+               for v in r.values()):
+        fail(f"{tag}: a metric out of [0, 1]")
+    count_path_launches(records, "cit", counts, {
+        "flash_fwd": layers * (infer_batches + sum(calls)),
+        "emb_bwd": CALLS_A_STEP["emb_bwd"] * steps})
+
+    # a CIT step timed and profiled, from the best params
+    pcfg = PairTrainerConfig(max_len=ccfg.max_len,
+                             batch_size=ccfg.batch_size,
+                             learning_rate=ccfg.learning_rate,
+                             dropout=ccfg.dropout)
+    _, _, train_step, _ = build_pair_trainer(pcfg, enc, "cuda",
+                                             res["params"])
+    batch = batch_to_device(next(iter_batches(
+        encode_pairs(triples, tok, bow, ccfg.max_len), ccfg.batch_size,
+        rng=np.random.default_rng(0))).as_dict(), torch.device("cuda"))
+    nums = step_numbers(lambda: train_step(batch))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(path_line(f"{tag} b{ccfg.batch_size}xs{ccfg.max_len} (eager)",
+                    nums, peak, smi)
+          + f"; {ccfg.batch_size / nums['wall_ms'] * 1e3:.1f} triples/s",
+          flush=True)
+    return dict(nums, peak_gib=peak)
+
+
+def phase_original(records: dict, smi: str) -> dict:
+    """The original verb's pieces at full width (12L/768H bf16 encoder,
+    content 384, emotion and cause 24, BoW V 23,808) at b64 x s96 on the zh
+    paths' synthetic data: train_original's base epoch of 16 eager steps,
+    its evaluation of the 514 target pairs, the best saved and reloaded,
+    one self-training iteration (random strategy) from the best, then 4
+    steps of the --bow_loss variant. The pair classifier's bias is centred
+    on the median logit of the test pairs first, so that the random model's
+    predictions split and a best F1 above 0 is saved. K10 three times a
+    step and nothing else; the six latent heads bit-unchanged and all five
+    adversaries moved; finite losses; probabilities in [0, 1]; after
+    train_original the model holds the saved best. Then a step is timed
+    and profiled."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.config import SelfStrategy
+    from carel_tpu_torch.data.batching import iter_batches
+    from carel_tpu_torch.models.drl_original import (ADVERSARIES,
+                                                     LATENT_HEADS,
+                                                     OriginalModelConfig)
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.loop import evaluate
+    from carel_tpu_torch.train.original_driver import (build_original_state,
+                                                       train_original)
+    from carel_tpu_torch.train.steps import batch_to_device, make_eval_step
+    from carel_tpu_torch.train.steps_original import (
+        OriginalLossConfig, make_original_train_step)
+
+    tag, model_id = "original path", "original"
+    cfg = full_width_config("ec_mmd_final_mul", model_id, self_iteration=1,
+                            self_epochs=1,
+                            self_strategy=SelfStrategy.RANDOM)
+    enc, B, L = cfg.model.encoder, cfg.train.batch_size, cfg.data.max_len
+    V, unpred = cfg.model.bow_dim, 10
+    rng = np.random.default_rng(0)
+    train = synth_pair_arrays(rng, 1024, L, enc.vocab_size, V)
+    test_pairs, test, encode = synth_target_domain(rng, 512, L,
+                                                   enc.vocab_size, V)
+    loss_cfg = OriginalLossConfig(vae_lr=cfg.train.vae_lr)
+    state = build_original_state(cfg, loss_cfg, OriginalModelConfig(
+        encoder=enc, bow_dim=V, ec_num_class=1), "cuda")
+    model, device = state.model, torch.device("cuda")
+    eval_step = make_eval_step()
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        p = evaluate(eval_step, model, test, unpred, gen).probs
+        model.pair_classifier.bias -= float(torch.logit(
+            torch.from_numpy(p).double()).median())
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    plain = make_original_train_step(loss_cfg)
+    losses = []
+
+    def step(state, batch, it):
+        metrics = plain(state, batch, it)
+        losses.append(torch.stack([metrics["vae_loss"],
+                                   metrics["disc_loss"]]))
+        return metrics
+
+    logger = _Records()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, base_best, self_best = train_original(
+        cfg, state, step, train, test, test_pairs, unpred, encode, model_id,
+        logger)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    saved = ckpt.load_best(cfg.train.checkpoint_dir, model_id, device)
+    reloaded = same_state(model.state_dict(), saved)
+    bow_step = make_original_train_step(dataclasses.replace(
+        loss_cfg, learned_bow_weights=True))
+    for it, batch in enumerate(iter_batches(
+            train, B, rng=np.random.default_rng(1))):
+        if it == 4:
+            break
+        metrics = bow_step(state, batch_to_device(batch.as_dict(), device),
+                           it)
+        losses.append(torch.stack([metrics["vae_loss"],
+                                   metrics["disc_loss"]]))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    flat = torch.stack(losses).cpu()
+    events = [r["event"] for r in logger.records]
+    n = len(losses)
+    print(f"{tag}: {n} steps ({n - 4} train_original, 4 --bow_loss) in "
+          f"{t_train:.2f} s with their evaluations; events {events}; base "
+          f"{base_best}, self {self_best}; the best reloaded: {reloaded}; "
+          f"launches {counts}", flush=True)
+    print(f"{tag}: vae and disc losses (every step) "
+          f"{[[round(x, 4) for x in row] for row in flat.tolist()]}",
+          flush=True)
+    if not bool(torch.isfinite(flat).all()):
+        fail(f"{tag}: a loss is not finite")
+    if "selftrain_iter" not in events or n <= 16 + 4:
+        fail(f"{tag}: no self-training step")
+    if "best" not in events or not reloaded:
+        fail(f"{tag}: no best saved, or the model does not hold it")
+    count_path_launches(records, "original", counts,
+                  {"emb_bwd": CALLS_A_STEP["emb_bwd"] * n})
+    now = model.state_dict()
+    frozen = all(torch.equal(now[f"{h}.{w}"], init[f"{h}.{w}"])
+                 for h in LATENT_HEADS for w in ("weight", "bias"))
+    moved = {a: float((now[f"{a}.weight"] - init[f"{a}.weight"])
+                      .abs().max()) for a in ADVERSARIES}
+    probs = evaluate(eval_step, model, test, unpred, gen).probs
+    print(f"{tag}: latent heads bit-unchanged {frozen}; adversaries moved "
+          f"by (max abs) {moved}", flush=True)
+    if not frozen or not all(m > 0.0 for m in moved.values()):
+        fail(f"{tag}: a latent head moved or an adversary did not")
+    if not probabilities(probs, len(test)):
+        fail(f"{tag}: probabilities are not finite values in [0, 1]")
+
+    batch = batch_to_device(next(iter_batches(
+        train, B, rng=np.random.default_rng(2))).as_dict(), device)
+    nums = step_numbers(lambda: plain(state, batch, 0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(path_line(f"{tag} b{B}xs{L} (eager)", nums, peak, smi)
+          + f"; {B / nums['wall_ms'] * 1e3:.1f} pairs/s", flush=True)
+    return dict(nums, peak_gib=peak)
+
+
+CLUSTER_TEXTS = 4096
+
+
+def phase_cluster(records: dict, embed: dict, smi: str) -> dict:
+    """The clustering tool at its real size: 4,096 synthetic clauses
+    embedded by the embed path's encoder (flash, max_len 64, batches of
+    256: K7 once a layer a batch) and standardized per feature (a nearly
+    random encoder's pooled outputs differ little between texts, and IDEC
+    then puts every clause in one cluster), then train_idec (the [500, 500,
+    2000] autoencoder, z 10, 25 clusters, 5 pretraining epochs of 16
+    batches and 20 refinement steps over all 4,096 x 768) and
+    emotion_cluster_chi2 of the assignments against the clauses' emotion
+    codes. The port's kernels launch only in the embedder; the assignments
+    must use more than one cluster and the soft assignments and the test
+    must be well formed. The whole train_idec is then profiled once, its
+    K-means on the host included."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.embeddings import EncoderEmbedder
+    from carel_tpu_torch.tools.clustering import (IdecConfig,
+                                                  emotion_cluster_chi2,
+                                                  train_idec)
+
+    tag = "clustering path"
+    rng = np.random.default_rng(17)
+    clauses = [c for d in synth_docs(rng, 900, 12) for c in d.clauses][
+        :CLUSTER_TEXTS]
+    texts = [c.text for c in clauses]
+    emotions = np.asarray([c.emotion for c in clauses])
+    embedder = EncoderEmbedder(embed["enc"], embed["params"],
+                               ZhCharTokenizer(ZH_CHARS), max_len=64,
+                               device="cuda")
+    cfg = IdecConfig(pretrain_epochs=5, refine_steps=20)
+    steps = cfg.pretrain_epochs * -(-len(texts) // cfg.batch_size) \
+        + cfg.refine_steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb = embedder(texts)
+    data = (emb - emb.mean(0)) / (emb.std(0) + 1e-6)
+    t_embed = time.perf_counter() - t0
+    assign, art = train_idec(data, cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    res = emotion_cluster_chi2(assign, emotions)
+    q = art["q"]
+    print(f"{tag}: {len(texts)} clauses embedded to {data.shape} in "
+          f"{t_embed:.2f} s, train_idec ({steps} steps) in "
+          f"{wall - t_embed:.2f} s; {len(np.unique(assign))} clusters used; "
+          f"chi2 {res['chi2']:.2f}, p {res['p_value']:.4f}, dof "
+          f"{res['dof']}; launches {counts}", flush=True)
+    if data.shape != (len(texts), embed["enc"].hidden_dim) or not np.all(
+            np.isfinite(data)):
+        fail(f"{tag}: embeddings of shape {data.shape}, or not finite")
+    if not (assign.shape == (len(texts),) and len(np.unique(assign)) > 1
+            and assign.min() >= 0
+            and assign.max() < cfg.n_clusters and np.all(np.isfinite(q))
+            and np.allclose(q.sum(1), 1.0, atol=1e-4)):
+        fail(f"{tag}: assignments or soft assignments not well formed")
+    if not (math.isfinite(res["chi2"]) and res["dof"] > 0
+            and 0.0 <= res["p_value"] <= 1.0):
+        fail(f"{tag}: the chi-squared test is not well formed: {res}")
+    count_path_launches(records, "cluster", counts, {
+        "flash_fwd": embed["enc"].num_layers * -(-len(texts)
+                                                 // embedder.batch_size)})
+
+    def run():
+        train_idec(data, cfg, device="cuda")
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    device_ms, kernels = device_profile(run, iters=1, warmup=0)
+    nums = dict(wall_ms=wall_ms, device_ms=device_ms / steps,
+                kernels=kernels / steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(path_line(f"{tag} train_idec over {len(texts)} x "
+                    f"{data.shape[1]}", nums, peak, smi), flush=True)
+    return dict(nums, peak_gib=peak)
+
+
 # device memory still allocated after each main-path phase (GiB): what a
 # phase leaves held raises every later phase's peak
 HELD: dict = {}
@@ -3315,7 +3943,7 @@ def held_after(phase: str) -> None:
 
 
 def main() -> int:
-    phase_device()
+    smi = phase_device()
     sys.path.insert(0, ROOT)
     phase_host()
     phase_build()
@@ -3333,6 +3961,7 @@ def main() -> int:
     for kind in ADAPTER_KINDS:
         phase_reference(FLAGSHIP, adapter=kind)
     phase_reference_stage1()
+    phase_reference_original()
     paths = {}
     for preset, iterations, strategy in (
             (FLAGSHIP, 1, "temporal_order_modification"),
@@ -3350,12 +3979,27 @@ def main() -> int:
         cfg=mu_bf16_config(), timed_epochs=True, name="bf16 mu")
     torch.cuda.empty_cache()
     held_after("bf16 mu")
+    new_paths = {"embed": phase_embed(records, smi)}
+    embed = {k: new_paths["embed"].pop(k) for k in ("enc", "params")}
+    torch.cuda.empty_cache()
+    held_after("embed")
     paths["flash"] = phase_serve(records)
     torch.cuda.empty_cache()
     held_after("flash")
+    new_paths["cit"] = phase_cit(records, paths["flash"].pop("served"),
+                                 embed, smi)
+    torch.cuda.empty_cache()
+    held_after("cit")
     pair = phase_pair(records)
     torch.cuda.empty_cache()
     held_after("pair")
+    new_paths["original"] = phase_original(records, smi)
+    torch.cuda.empty_cache()
+    held_after("original")
+    new_paths["clustering"] = phase_cluster(records, embed, smi)
+    del embed
+    torch.cuda.empty_cache()
+    held_after("clustering")
     paths[EN_PRESET] = phase_en(records)
     torch.cuda.empty_cache()
     clause_paths = {}
@@ -3424,6 +4068,8 @@ def main() -> int:
           f"{pair['device_ms'] / pair['wall_ms']:.3f}; "
           f"{64 / pair['wall_ms'] * 1e3:.1f} pairs/s), peak memory "
           f"{pair['peak_gib']:.2f} GiB", flush=True)
+    for name, p in new_paths.items():
+        print(path_line(f"path {name}", p, p["peak_gib"], smi), flush=True)
     for name, p in clause_paths.items():
         print(f"path {name} (eager): device {p['device_ms']:.2f} ms/step, "
               f"{p['kernels']:.1f} kernels/step, wall {p['wall_ms']:.2f} "

@@ -115,7 +115,8 @@ def write_oldsplit_corpus(root: str, seed: int = 0, n_train: int = 24,
     old-split presets: ec_hsic, ec_none, ec_final_mul, ec_mmd_final_mul and
     ec_vi_final (society_num -> education), ec_gan (society -> education)
     and ec_mmd_self_chain (society -> entertainment, both sides from
-    THUCTC_multiple with gold emotions)."""
+    THUCTC_multiple with gold emotions); and the original verb's society ->
+    pair_data/emotion/finance.txt."""
     train = synth_docs(seed, n_train)
     paths = {
         "domains/THUCTC_multiple/society_num.txt": train,
@@ -124,6 +125,8 @@ def write_oldsplit_corpus(root: str, seed: int = 0, n_train: int = 24,
             synth_docs(seed + 3, n_test),
         "pair_data/emotion/education.txt":
             synth_docs(seed + 1, n_test, predicted=True),
+        "pair_data/emotion/finance.txt":
+            synth_docs(seed + 4, n_test, predicted=True),
         "data/all_data_pair_zh.txt": train + synth_docs(seed + 2, n_train),
     }
     for rel, docs in paths.items():

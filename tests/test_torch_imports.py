@@ -72,10 +72,15 @@ def test_importing_the_port_loads_no_jax_package_module():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# modules of the adapter, bf16-mu and pair slice: the scan above must reach
-# them (it walks the package, so a module moved out of it would drop out)
+# modules of the adapter, bf16-mu and pair slice and of the embedder, CIT
+# and original slice: the scan above must reach them (it walks the package,
+# so a module moved out of it would drop out)
 SLICE_MODULES = ("ops/entmax.py", "models/pair_classifier.py",
-                 "train/pair_trainer.py", "tools/memorization_plot.py")
+                 "train/pair_trainer.py", "tools/memorization_plot.py",
+                 "pretrain/mlm.py", "embeddings.py", "data/triples.py",
+                 "train/cit_trainer.py", "models/drl_original.py",
+                 "train/steps_original.py", "train/original_driver.py",
+                 "tools/clustering.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

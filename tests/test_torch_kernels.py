@@ -32,7 +32,10 @@ bit-equal from one CUDA graph. The captured epoch step (train/scan_epoch.py)
 at tiny widths equals the eager per-step loop from equal seeds (losses rel
 1e-5; params within 2 lr a step, the 99th percentile of every tensor within
 0.05 lr, as the CPU tests hold it against JAX) under every step variant,
-and a capture made stale by load_state is made again.
+and a capture made stale by load_state is made again. A tiny fp32 step of
+the original 3-latent DRL (train/steps_original.py) on the card equals the
+CPU's (losses rel 1e-4, params within 2 lr of their group), its latent heads
+unchanged and its adversaries moved on both.
 """
 
 import numpy as np
@@ -741,7 +744,12 @@ def _flash_problem(device, B, h, L, hd, dtype, seed=0, min_tail=0):
     # L over one block's rows, so that the tensor-core kernels' ring wraps;
     # hd = 128; pad tails longer than one tile of 32 keys
     (3, 2, 200, 64, 0), (2, 2, 513, 32, 0), (2, 2, 96, 128, 0),
-    (4, 2, 160, 64, 48)])
+    (4, 2, 160, 64, 48),
+    # the embed path's batch: 200 is no multiple of 64, so the last tile
+    # of keys is partly empty; EncoderEmbedder's batches at L = 200 and 64,
+    # and one document's dozen clauses with long pad tails (the cit path)
+    (32, 12, 200, 64, 0), (256, 12, 200, 64, 0), (256, 12, 64, 64, 0),
+    (12, 12, 64, 64, 24)])
 def test_flash_kernels_match_plain(cuda, B, h, L, hd, min_tail, dtype,
                                    tol_out, tol_grad):
     q, k, v, g, mask = _flash_problem(cuda, B, h, L, hd, dtype,
@@ -1218,3 +1226,80 @@ def test_mu_dtype_adam_captured_equals_eager(cuda):
         assert a["exp_avg"].dtype == torch.bfloat16
         assert a["exp_avg_sq"].dtype == torch.float32
         assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_original_step_on_the_card_matches_the_cpu(cuda):
+    """A tiny fp32 original 3-latent DRL step (train/steps_original.py:
+    one backward, the main Adam and the adversaries' RMSprop) on the card
+    and on the CPU from the same weights, batch and noise: losses within
+    rel 1e-4, gradients within 1e-3 normwise, every parameter within 2 lr
+    of its group (Adam and RMSprop move an entry whose gradient is rounding
+    noise by up to ~lr) and within 1e-3 lr where its gradient is over 1e-3
+    of its tensor's largest (Adam's first step moves by about lr * sign(g),
+    so only there does the step show the gradient), the latent heads
+    bit-unchanged and the five adversaries moved on both; K10 three times
+    on the card."""
+    from carel_tpu_torch.models.drl_original import (ADVERSARIES,
+                                                     LATENT_HEADS,
+                                                     DrlOriginalModel,
+                                                     OriginalModelConfig)
+    from carel_tpu_torch.models.encoder import init_flax_, tiny_encoder_config
+    from carel_tpu_torch.train.steps import batch_to_device
+    from carel_tpu_torch.train.steps_original import (
+        DISC, FROZEN, OriginalLossConfig, create_original_state,
+        make_original_train_step)
+
+    mcfg = OriginalModelConfig(
+        encoder=tiny_encoder_config(vocab_size=128, dropout=0.0), ec_dim=24,
+        con_dim=64, bow_dim=300, dropout=0.0)
+    lcfg = OriginalLossConfig(vae_lr=1e-3)
+    model = DrlOriginalModel(mcfg)
+    init_flax_(model, torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    arrays = _tiny_arrays()
+    host = {k: np.asarray(getattr(arrays, k))[:8] for k in (
+        "input_ids", "attention_mask", "token_type_ids", "pair_labels",
+        "emotion_labels", "bow_indices", "bow_weights")}
+    host["example_mask"] = np.r_[np.ones(6), np.zeros(2)].astype(np.float32)
+    eps = [torch.randn(d, generator=torch.Generator().manual_seed(d))
+           for d in (64, 24, 24)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        m = DrlOriginalModel(mcfg)
+        m.load_state_dict(init)
+        m.to(dev)
+        state = create_original_state(lcfg, m, torch.Generator(device=dev))
+        ops.reset_launch_counts()
+        metrics = make_original_train_step(lcfg)(
+            state, batch_to_device(host, torch.device(dev)), 0,
+            eps=[e.to(dev) for e in eps])
+        # neither optimizer clears .grad (None on the frozen heads)
+        runs[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                          {k: v.detach().cpu() for k, v in
+                           m.state_dict().items()},
+                          {n: p.grad.cpu() for n, p in m.named_parameters()
+                           if p.grad is not None},
+                          ops.launch_counts(), state.labels)
+    (m_c, p_c, g_c, _, labels), (m_g, p_g, g_g, counts, _) = (
+        runs["cpu"], runs[str(cuda)])
+    for k in m_c:
+        assert abs(m_g[k] - m_c[k]) <= 1e-4 * abs(m_c[k]), k
+    assert g_c.keys() == g_g.keys()
+    assert not any(labels[n] == FROZEN for n in g_c)
+    for name in g_c:
+        assert _relnorm(g_g[name], g_c[name]) <= 1e-3, name
+    for name, label in labels.items():
+        lr = lcfg.adv_lr if label == DISC else lcfg.vae_lr
+        diff = (p_g[name] - p_c[name]).abs()
+        assert float(diff.max()) <= 2 * lr, name
+        if name in g_c:
+            safe = g_c[name].abs() > 1e-3 * g_c[name].abs().max()
+            assert float(diff[safe].max()) <= 1e-3 * lr, name
+    for head in LATENT_HEADS:
+        for p in (p_c, p_g):
+            assert torch.equal(p[f"{head}.weight"], init[f"{head}.weight"])
+    for adv in ADVERSARIES:
+        for p in (p_c, p_g):
+            assert not torch.equal(p[f"{adv}.weight"], init[f"{adv}.weight"])
+    assert counts["emb_bwd"] == 3
+    assert sum(counts.values()) == 3
