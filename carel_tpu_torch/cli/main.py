@@ -1,5 +1,7 @@
 """Command-line entry points of the port: ``train``, ``infer``, ``stage1``,
-``dann``, ``pair``, ``embed``, ``cit``, ``original`` and ``presets``.
+``dann``, ``pair``, ``embed``, ``cit``, ``original``, ``pretrain``,
+``case_analysis``, ``hpo``, ``ordering``, ``convert``, ``vis`` and
+``presets``.
 
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
         --data_root /path/to/corpora [--device cuda] \\
@@ -20,6 +22,16 @@
     python -m carel_tpu_torch.cli cit --data_root ... --pred_pkl P --true_pkl T
         [--hf_encoder ENC_DIR]
     python -m carel_tpu_torch.cli original --data_root ... [--bow_loss]
+    python -m carel_tpu_torch.cli pretrain --data_root ... --out ENC_DIR \\
+        [--save_mlm MLM_DIR] [--steps N --scan_size K] [--init_encoder DIR]
+    python -m carel_tpu_torch.cli ordering --file f.txt \\
+        [--mlm_model MLM_DIR --encoder ... --cache_dir ...]
+    python -m carel_tpu_torch.cli case_analysis --data_root ... \\
+        --model_id_a A --model_id_b B [--out_csv c.csv]
+    python -m carel_tpu_torch.cli hpo --data_root ... [--n_trials N]
+    python -m carel_tpu_torch.cli convert reccon|train_to_test|json_split|\\
+        bow_concat --source ... --target ...
+    python -m carel_tpu_torch.cli vis --files a.txt b.txt [--method pca]
     python -m carel_tpu_torch.cli presets
 
 ``train`` runs the base epochs with per-epoch evaluation and best
@@ -41,7 +53,13 @@ self-training. ``embed`` fine-tunes the encoder with the batch-all
 triplet loss on domain labels and writes it as the port's encoder dir
 (``encoder.pt``, pretrain/mlm.py); ``cit`` trains the CIT triple classifier
 as a filter over ``infer --output_dir``'s predictions; ``original`` runs the
-original 3-latent DRL trainer (society -> finance). ``--adapter`` (train and infer) reads each latent's features
+original 3-latent DRL trainer (society -> finance). ``pretrain`` trains
+the encoder as a masked LM on the local corpora and writes the port's
+encoder dir (``--save_mlm``: the whole MLM too, which ``ordering
+--mlm_model`` scores with); ``case_analysis`` compares two best checkpoints
+on the test set; ``hpo`` searches the loss weights and lr; ``ordering``,
+``convert`` and ``vis`` run on the host, except the MLM scorer.
+``--adapter`` (train and infer) reads each latent's features
 through its own attention adapter over the last hidden state, and
 ``--optim_mu_dtype bfloat16`` stores the main Adam's first moment in bf16;
 ``--track_memorization`` also writes ``memorization.png`` beside the log
@@ -50,8 +68,9 @@ BERT/RoBERTa checkpoint directory: under ``train`` and ``infer`` its
 config.json sets the encoder's shape and the directory is also the
 tokenizer, under ``stage1``, ``dann``, ``embed``, ``cit`` and ``original``
 its weights replace the configured encoder's, as in the JAX CLI; every verb
-that takes it also reads the port's encoder dir that ``embed`` writes (the
-configured encoder and the corpus tokenizer take its weights). All of them run on the GPU
+that takes it also reads the port's encoder dir that ``embed`` and
+``pretrain`` write (the configured encoder and the corpus tokenizer take
+its weights). All of them run on the GPU
 unless ``--device cpu`` is given, and raise when no GPU is there. The last
 line of each is the JSON summary the JAX CLI prints.
 """
@@ -788,6 +807,272 @@ def cmd_original(args) -> int:
     return 0
 
 
+def cmd_pretrain(args) -> int:
+    """MLM pretraining (pretrain/mlm.py): an encoder from the local corpora
+    where the reference's hub downloads are impossible; ``--out`` is the
+    port's encoder dir, which every ``--hf_encoder`` reads (with the same
+    ``--cache_dir``, so the corpus tokenizer matches). ``--save_mlm`` also
+    writes the whole MLM (for ``ordering --mlm_model``) and pins its
+    tokenizer beside it as ``<dir>.tokenizer.json``."""
+    from carel_tpu_torch.data.ecpe_format import (parse_ecpe_file,
+                                                  split_raw_corpus)
+    from carel_tpu_torch.data.tokenizer import build_tokenizer
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.pipeline import resolve_paths
+    from carel_tpu_torch.pretrain import (MlmConfig, load_encoder,
+                                          pretrain_mlm, save_encoder)
+    from carel_tpu_torch.train.logging import JsonlLogger
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(PRESETS[args.preset], args)
+    _, _, bow_path = resolve_paths(cfg)
+    corpus_paths = list(args.corpus) if args.corpus else [bow_path]
+    texts = []
+    for cp in corpus_paths:
+        for d in parse_ecpe_file(cp):
+            texts.extend(c.text for c in d.clauses)
+    if cfg.data.language == "zh":
+        texts = [t.strip().replace(" ", "") for t in texts]
+    for rp in (args.raw_corpus or []):
+        texts.extend(split_raw_corpus(rp, cfg.data.language))
+    os.makedirs(args.cache_dir, exist_ok=True)
+    tok = build_tokenizer(
+        cfg.data.language, texts,
+        os.path.join(args.cache_dir, f"tokenizer_{cfg.data.language}.json"))
+    if args.save_mlm:
+        # the tokenizer the MLM was trained with, beside its dir, so that
+        # `ordering --mlm_model` never pairs it with another vocabulary
+        if os.path.dirname(args.save_mlm):
+            os.makedirs(os.path.dirname(args.save_mlm), exist_ok=True)
+        tok.save(args.save_mlm.rstrip("/") + ".tokenizer.json")
+    enc = dataclasses.replace(_encoder_preset(args.encoder,
+                                              cfg.data.language),
+                              vocab_size=tok.vocab_size)
+    logger = JsonlLogger(cfg.train.log_dir, "pretrain")
+    logger.log({"event": "pretrain_config", "corpus": corpus_paths,
+                "raw_corpus": list(args.raw_corpus or []),
+                "clauses": len(texts), "vocab": tok.vocab_size,
+                "steps": args.steps})
+    mlm_cfg = MlmConfig(batch_size=args.mlm_batch, seq_len=args.seq_len,
+                        steps=args.steps, learning_rate=args.mlm_lr,
+                        seed=cfg.train.seed, scan_size=args.scan_size,
+                        mask_prob=args.mask_prob,
+                        whole_word=args.whole_word,
+                        language=cfg.data.language,
+                        lr_decay=args.lr_decay,
+                        warmup_steps=args.warmup_steps,
+                        save_every=args.save_every, save_path=args.out,
+                        save_full_path=args.save_mlm)
+    # resume from an encoder dir of this corpus (same tokenizer, same
+    # shapes; a mismatch raises in load_state_dict)
+    init_params = load_encoder(args.init_encoder) if args.init_encoder \
+        else None
+    params = pretrain_mlm(enc, tok, texts, mlm_cfg, logger,
+                          init_params=init_params, device=device)
+    path = save_encoder(args.out, params)
+    logger.close()
+    print(json.dumps({"encoder_ckpt": path, "clauses": len(texts)}))
+    return 0
+
+
+def cmd_case_analysis(args) -> int:
+    """Two best checkpoints of one preset scored on its test set and split
+    by self-chain (mmd_wommd_case_analysis.py); writes ``--out_csv``."""
+    import torch
+
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.pipeline import (build_pipeline, init_state,
+                                          resolve_paths)
+    from carel_tpu_torch.tools.case_analysis import compare_checkpoints
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.steps import make_eval_step
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(PRESETS[args.preset], args)
+    enc = _encoder_preset(args.encoder, cfg.data.language)
+    pipe = build_pipeline(cfg, cache_dir=args.cache_dir, encoder_cfg=enc,
+                          max_test_docs=args.max_test_docs)
+    cfg = pipe.cfg
+    model = init_state(cfg, device).model
+    pa = ckpt.load_best(cfg.train.checkpoint_dir, args.model_id_a, device)
+    pb = ckpt.load_best(cfg.train.checkpoint_dir, args.model_id_b, device)
+    _, test_path, _ = resolve_paths(cfg)
+    docs = parse_ecpe_file(test_path)
+    if args.max_test_docs:
+        docs = docs[: args.max_test_docs]
+    res = compare_checkpoints(
+        make_eval_step(), model, pa, pb, pipe.test_pairs, pipe.test_arrays,
+        docs, args.out_csv, torch.Generator(device=device).manual_seed(0),
+        cfg.train.eval_batch_size)
+    print(json.dumps({
+        "model_a_f1": res.model_a_f1, "model_b_f1": res.model_b_f1,
+        "csv": res.csv_path,
+        "self_chain": res.self_chain_counts, "normal": res.normal_counts,
+        "split_f1": res.split_f1,
+    }))
+    return 0
+
+
+def hpo_objective(pipe, device, logger=None):
+    """The ``hpo`` verb's objective: a trial's config (with the pipeline's
+    model) trains from a fresh ``init_state`` through ``train_epochs`` one
+    epoch at a time, the state and the shuffle carried from epoch to
+    epoch, and reports its best pair-F1 after each epoch. (JAX's objective
+    hands every epoch the initial state again, ROADMAP Queue 3.) Each trial
+    starts without the last trial's best checkpoint."""
+    import numpy as np
+
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.loop import train_epochs
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step
+    from carel_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    def objective(cfg, report):
+        cfg = dataclasses.replace(cfg, model=pipe.cfg.model)
+        best_path = ckpt.best_path(cfg.train.checkpoint_dir, pipe.model_id)
+        if os.path.exists(best_path):
+            os.remove(best_path)
+        state = init_state(cfg, device)
+        train_step = (make_epoch_step(cfg) if cfg.train.scan_epoch
+                      else make_train_step(cfg))
+        eval_step = make_eval_step()
+        data_rng = np.random.default_rng(cfg.train.seed)
+        best_cache: dict = {}
+        best_f1 = 0.0
+        for epoch in range(cfg.train.epochs):
+            state, best = train_epochs(
+                cfg, state, train_step, eval_step, pipe.train_arrays,
+                pipe.test_arrays, pipe.num_unpred_pairs, pipe.model_id,
+                epochs=1, logger=logger, data_rng=data_rng,
+                best_f1_so_far=best_f1, best_cache=best_cache)
+            best_f1 = max(best_f1, best[2])
+            report(epoch, best_f1)
+        return best_f1
+
+    return objective
+
+
+def cmd_hpo(args) -> int:
+    """Random search with median pruning over the loss weights and vae_lr
+    (tools/hpo.py), the objective the best pair-F1 of a short training run
+    (drl_classifier_search.py's search with a working engine)."""
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.pipeline import build_pipeline
+    from carel_tpu_torch.tools.hpo import DEFAULT_SPACE, search
+    from carel_tpu_torch.train.logging import JsonlLogger
+
+    device = resolve_device(args.device)
+    base = _apply_overrides(PRESETS[args.preset], args)
+    enc = _encoder_preset(args.encoder, base.data.language)
+    pipe = build_pipeline(base, cache_dir=args.cache_dir, encoder_cfg=enc,
+                          max_train_docs=args.max_train_docs,
+                          max_test_docs=args.max_test_docs)
+    logger = JsonlLogger(base.train.log_dir or "result_logs", "hpo")
+    best, trials = search(hpo_objective(pipe, device, logger), base,
+                          DEFAULT_SPACE, args.n_trials, logger=logger)
+    logger.close()
+    print(json.dumps({"best_value": best.value if best else None,
+                      "best_params": best.params if best else None,
+                      "trials": len(trials)}))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """Dataset conversion (tools/convert.py), on the host."""
+    from carel_tpu_torch.tools import convert as cv
+
+    if args.kind == "reccon":
+        cv.reccon_to_ecpe(args.source[0], args.target,
+                          minusone=args.minusone,
+                          bow_optimize=args.bow_optimize)
+    elif args.kind == "train_to_test":
+        cv.convert_train_to_test(args.source[0], args.target,
+                                 args.bow_optimize)
+    elif args.kind == "json_split":
+        cv.json_to_ecpe_split(args.source[0], args.target)
+    elif args.kind == "bow_concat":
+        cv.concat_bow_corpus(list(args.source), args.target)
+    print(json.dumps({"written": args.target}))
+    return 0
+
+
+def cmd_ordering(args) -> int:
+    """Temporal-order statistics of a file's gold pairs and, with
+    ``--mlm_model``, the directional comparison by the MLM scorer
+    (tools/mlm_scorer.py) on ``--device`` (``--cpu`` as in JAX)."""
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.tools.ordering import ordering_probe
+
+    scorer = None
+    if args.mlm_model:
+        from carel_tpu_torch.data.tokenizer import build_tokenizer
+        from carel_tpu_torch.tools.mlm_scorer import MlmScorer
+
+        # the tokenizer must be the one the MLM was trained with: a rebuilt
+        # one can share the vocab size yet permute the ids. The copy pinned
+        # beside the dir by `pretrain --save_mlm`, else the training cache;
+        # never a rebuild
+        tok_candidates = [
+            args.mlm_model.rstrip("/") + ".tokenizer.json",
+            os.path.join(args.cache_dir, f"tokenizer_{args.language}.json"),
+        ]
+        tok_path = next((p for p in tok_candidates if os.path.exists(p)),
+                        None)
+        if tok_path is None:
+            raise SystemExit(
+                "ordering --mlm_model: no tokenizer found at "
+                f"{tok_candidates}; pass --cache_dir pointing at the cache "
+                "the MLM was pretrained with (rebuilding from the probe "
+                "file would silently mis-map token ids)")
+        tok = build_tokenizer(args.language, None, tok_path)
+        enc = dataclasses.replace(_encoder_preset(args.encoder,
+                                                  args.language),
+                                  vocab_size=tok.vocab_size)
+        scorer = MlmScorer(args.mlm_model, tok, enc,
+                           device="cpu" if args.cpu else args.device)
+
+    stats = ordering_probe(parse_ecpe_file(args.file),
+                           entailment_scorer=scorer)
+    print(json.dumps(ordering_summary(stats, scorer is not None)))
+    return 0
+
+
+def ordering_summary(stats, scored: bool) -> dict:
+    """The ordering verb's JSON of an ``OrderingStats``; ``scored`` adds
+    the directional comparison's counts."""
+    out = {
+        "total_pairs": stats.total_pairs,
+        "cause_before": stats.cause_before,
+        "cause_equal": stats.cause_equal,
+        "cause_after": stats.cause_after,
+        "temporal_order_rate": stats.temporal_order_rate,
+    }
+    if scored:
+        out.update({"scored_pairs": stats.scored_pairs,
+                    "forward_wins": stats.forward_wins,
+                    "backward_wins": stats.backward_wins})
+    return out
+
+
+def cmd_vis(args) -> int:
+    """Domain-shift scatter plot of ECPE files (tools/vis.py), one domain
+    label a file; sklearn and matplotlib are imported here."""
+    from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
+    from carel_tpu_torch.tools.vis import visualize_domain_shift
+
+    texts, labels = [], []
+    for path in args.files:
+        name = os.path.splitext(os.path.basename(path))[0]
+        for doc in parse_ecpe_file(path):
+            texts.append(" ".join(c.text.strip() for c in doc.clauses))
+            labels.append(name)
+    out = visualize_domain_shift(texts, labels, args.out, method=args.method)
+    print(json.dumps({"written": out, "docs": len(texts)}))
+    return 0
+
+
 def cmd_presets(_args) -> int:
     for name, cfg in sorted(PRESETS.items()):
         print(f"{name}: regularizer={cfg.loss.regularizer.value}, "
@@ -880,6 +1165,80 @@ def build_parser() -> argparse.ArgumentParser:
                         help="pair loss weight (the weights=[...] sweep at "
                              "drl_classifier.py:966)")
     p_orig.set_defaults(fn=cmd_original)
+    p_mlm = sub.add_parser("pretrain",
+                           help="MLM-pretrain the encoder on a corpus")
+    _add_common_args(p_mlm)
+    p_mlm.add_argument("--corpus", default="", nargs="*",
+                       help="ECPE corpus paths (default: the preset's bow "
+                            "corpus)")
+    p_mlm.add_argument("--raw_corpus", default="", nargs="*",
+                       help="plain-text corpus paths, split into sentence "
+                            "segments")
+    p_mlm.add_argument("--scan_size", type=int, default=50,
+                       help="steps a dispatch (a captured step replayed)")
+    p_mlm.add_argument("--out", required=True,
+                       help="output dir for the encoder (encoder.pt)")
+    p_mlm.add_argument("--steps", type=int, default=2000)
+    p_mlm.add_argument("--seq_len", type=int, default=64)
+    p_mlm.add_argument("--mlm_batch", type=int, default=256)
+    p_mlm.add_argument("--mlm_lr", type=float, default=1e-4)
+    p_mlm.add_argument("--mask_prob", type=float, default=0.15,
+                       help="MLM masking ratio")
+    p_mlm.add_argument("--whole_word", action="store_true",
+                       help="whole-word masking (jieba words for zh, "
+                            "WordPiece words for en)")
+    p_mlm.add_argument("--lr_decay", action="store_true",
+                       help="cosine decay to 10%% of peak over --steps")
+    p_mlm.add_argument("--warmup_steps", type=int, default=200)
+    p_mlm.add_argument("--init_encoder", default="",
+                       help="encoder dir (encoder.pt) to resume from")
+    p_mlm.add_argument("--save_every", type=int, default=0,
+                       help="snapshot the encoder every N steps")
+    p_mlm.add_argument("--save_mlm", default="",
+                       help="also save the full MLM (encoder + head) here, "
+                            "for `ordering --mlm_model`")
+    p_mlm.set_defaults(fn=cmd_pretrain)
+    p_case = sub.add_parser("case_analysis",
+                            help="compare two checkpoints (mmd vs ablation)")
+    _add_common_args(p_case)
+    p_case.add_argument("--model_id_a", required=True)
+    p_case.add_argument("--model_id_b", required=True)
+    p_case.add_argument("--out_csv", default="wommd_mmd_fin.csv")
+    p_case.set_defaults(fn=cmd_case_analysis)
+    p_hpo = sub.add_parser("hpo", help="hyperparameter search")
+    _add_common_args(p_hpo)
+    p_hpo.add_argument("--n_trials", type=int, default=20)
+    p_hpo.set_defaults(fn=cmd_hpo)
+    p_conv = sub.add_parser("convert", help="dataset conversion tools")
+    p_conv.add_argument("kind", choices=["reccon", "train_to_test",
+                                         "json_split", "bow_concat"])
+    p_conv.add_argument("--source", required=True, nargs="+")
+    p_conv.add_argument("--target", required=True)
+    p_conv.add_argument("--bow_optimize", action="store_true")
+    p_conv.add_argument("--minusone", action="store_true")
+    p_conv.set_defaults(fn=cmd_convert)
+    p_ord = sub.add_parser("ordering", help="temporal-order probe")
+    p_ord.add_argument("--file", required=True)
+    p_ord.add_argument("--mlm_model", default="",
+                       help="MLM dir (pretrain --save_mlm) enabling the "
+                            "directional entailment comparison")
+    p_ord.add_argument("--encoder", default="base")
+    p_ord.add_argument("--language", default="zh")
+    p_ord.add_argument("--cache_dir", default="cache")
+    p_ord.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="where the MLM scores (the GPU by default)")
+    p_ord.add_argument("--cpu", action="store_true",
+                       help="score on the CPU (--device cpu)")
+    p_ord.set_defaults(fn=cmd_ordering)
+    p_vis = sub.add_parser("vis", help="domain-shift visualization")
+    p_vis.add_argument("--files", required=True, nargs="+",
+                       help="ECPE files; one domain label per file")
+    p_vis.add_argument("--out", default="domains.png")
+    p_vis.add_argument("--method", default="pca",
+                       choices=["pca", "tsne", "lda"],
+                       help="lda = supervised LinearDiscriminant projection "
+                            "by domain")
+    p_vis.set_defaults(fn=cmd_vis)
     p_pre = sub.add_parser("presets", help="list presets")
     p_pre.set_defaults(fn=cmd_presets)
     return parser

@@ -3,7 +3,9 @@ attention adapters), the plain PairClassifier, the stage-1 DocEmotionModel,
 the clause-level ClauseEmotionDANN, the original 3-latent DrlOriginalModel
 (its latent heads ``content_mu`` ... ``cause_log_var``, five adversaries,
 four classifiers and ``decoder`` are Dense layers), the IDEC AutoEncoder
-(``enc_0`` ... ``out``) and a bare TransformerEncoder.
+(``enc_0`` ... ``out``), the MLM of pretraining (``encoder``, then the
+Dense ``mlm_transform`` and ``mlm_output`` and the LayerNorm ``mlm_ln``)
+and a bare TransformerEncoder.
 
 The JAX params arrive as a nested dict of numpy arrays (e.g. the Flax tree
 passed through ``np.asarray``). Layouts (carel_tpu/models/hf_port.py:10-14

@@ -177,3 +177,25 @@ def write_ecpe_file(
                 cau = cl.cause_raw if cl.cause_raw else str(cl.cause)
                 g.write(f"{cl.sen_id}, {emo}, {cau}, {cl.text}\n")
 
+
+
+def split_raw_corpus(path: str, language: str) -> List[str]:
+    """Split a plain-text (non-ECPE) file into clause-sized sentence
+    segments, the ``pretrain`` verb's ``--raw_corpus``: zh splits on CJK
+    sentence punctuation and strips spaces, keeping segments of 4 chars or
+    more; en splits on [.!?;] followed by whitespace, keeping segments of 3
+    words or more."""
+    zh = language == "zh"
+    splitter = r"[。！？；]" if zh else r"[.!?;]\s+"
+    out: List[str] = []
+    with open(path, encoding="utf-8", errors="ignore") as f:
+        for line in f:
+            for seg in re.split(splitter, line):
+                seg = seg.strip()
+                if zh:
+                    seg = seg.replace(" ", "")
+                    if len(seg) >= 4:
+                        out.append(seg)
+                elif len(seg.split()) >= 3:
+                    out.append(seg)
+    return out

@@ -170,7 +170,8 @@ def load_encoder_checkpoint(path: str, cfg: EncoderConfig
                                        Dict[str, torch.Tensor]]:
     """(``cfg`` sized to the checkpoint's tables, the encoder's state_dict)
     from an HF checkpoint dir, laid out by ``cfg``'s heads and layers, or
-    from the port's own encoder dir (``pretrain.save_encoder``: encoder.pt).
+    from the port's own encoder dir (``pretrain.save_encoder``: encoder.pt,
+    which ``pretrain --out`` and ``embed --out`` write).
     The tables' sizes (vocab, positions and, where ``cfg`` has them, token
     types) come from the checkpoint: the JAX package puts its tables into a
     model built from the configured encoder, and a torch module must be
@@ -184,8 +185,9 @@ def load_encoder_checkpoint(path: str, cfg: EncoderConfig
         raise NotImplementedError(
             f"{path}: an encoder directory with neither config.json nor "
             "encoder.pt is an orbax checkpoint of carel_tpu.pretrain, which "
-            "carel_tpu_torch does not read: it waits for the port of "
-            "pretraining (ROADMAP Queue 1 item 7)")
+            "carel_tpu_torch does not read (it imports neither orbax nor "
+            "jax); write the port's own encoder dir with `pretrain --out` "
+            "or `embed --out` (ROADMAP Queue 3)")
     kw = dict(vocab_size=state["word_embeddings.weight"].shape[0],
               max_position=state["position_embeddings.weight"].shape[0])
     if cfg.type_vocab_size > 0:

@@ -7,6 +7,8 @@ Numerics follow the reference formulas (carel_tpu/ops/pairwise.py):
 - ``mmd_statistic``: the unbiased two-sample estimator with an RBF-sum kernel
   exp(-alpha * pdist^2) over ``alphas``, diagonals removed from the
   within-sample blocks. The training loss uses the NEGATED statistic;
+- ``mmd_permutation_test``: that statistic (unmasked) and its p-value under
+  the label-permutation null;
 - ``hsic``: tr(K H L H) / (n - 1)^2 with Gaussian Grams over *squared*
   distances.
 
@@ -19,7 +21,7 @@ held against. The Gram products must run in full fp32:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -64,6 +66,54 @@ def mmd_statistic(
     return (2 * a01 * torch.sum(k_12)
             + a00 * (torch.sum(k_1) - torch.trace(k_1))
             + a00 * (torch.sum(k_2) - torch.trace(k_2)))
+
+
+def mmd_permutation_test(
+    sample_1: torch.Tensor,
+    sample_2: torch.Tensor,
+    alphas: Sequence[float] = (0.1,),
+    n_permutations: int = 1000,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mmd, p_value) under the label-permutation null (the reference's
+    MMDStatistic.pval is a stub; this is carel_tpu's working version). The
+    kernel matrix of the pooled samples is formed once, in fp32; each
+    permutation only reassigns the rows to the two samples, and all
+    ``n_permutations`` statistics come from one [P, 2B] x [2B, 2B] product.
+    The permutations are drawn from ``generator`` (seeded 0 on the samples'
+    device by default)."""
+    B = sample_1.shape[0]
+    device = sample_1.device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    sample_12 = torch.cat([sample_1, sample_2], 0).float()
+    distances = pdist(sample_12, sample_12)
+    kernels = torch.zeros_like(distances)
+    for alpha in alphas:
+        kernels = kernels + torch.exp(-alpha * distances ** 2)
+    diag = torch.diagonal(kernels)
+
+    n = float(B)
+    a00 = 1.0 / (n * (n - 1.0))
+    a01 = -1.0 / (n * n)
+
+    def stat(f: torch.Tensor) -> torch.Tensor:
+        """The statistic of each assignment f [P, 2B] (1 = sample 1)."""
+        g = 1.0 - f
+        kf = f @ kernels
+        kg = g @ kernels
+        k11 = torch.sum(kf * f, 1) - torch.sum(f * diag, 1)
+        k22 = torch.sum(kg * g, 1) - torch.sum(g * diag, 1)
+        k12 = torch.sum(kf * g, 1)
+        return 2 * a01 * k12 + a00 * k11 + a00 * k22
+
+    base = torch.cat([torch.ones(B), torch.zeros(B)]).to(device)
+    observed = stat(base[None])[0]
+    order = torch.argsort(torch.rand(n_permutations, 2 * B, device=device,
+                                     generator=generator), dim=1)
+    null = stat(base[order])
+    p_value = torch.mean((null >= observed).float())
+    return observed, p_value
 
 
 def _gaussian_gram(x: torch.Tensor, sigma: float) -> torch.Tensor:

@@ -9,8 +9,9 @@ the self-chain pair construction, and a local HF checkpoint as the
 encoder (its config.json sets the encoder's shape, its weights replace the
 random ones in ``init_state``), or the port's own encoder directory
 (``pretrain.save_encoder``, which the ``embed`` verb writes: the configured
-encoder takes its weights). An orbax encoder directory (the JAX package's
-pretraining output) raises: the port has no pretraining yet.
+encoder takes its weights; ``pretrain --out`` writes one too). An orbax
+encoder directory (the JAX package's pretraining output) raises: the port
+reads neither orbax nor jax.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Encoder checkpoints of the port: ``save_encoder`` / ``load_encoder``
-(the counterparts of carel_tpu/pretrain/mlm.py's). MLM pretraining itself
-is not ported yet."""
+"""MLM pretraining of the encoder and the port's encoder and MLM
+directories (the counterparts of carel_tpu/pretrain/mlm.py's)."""
 
-from carel_tpu_torch.pretrain.mlm import (is_encoder_dir, load_encoder,  # noqa: F401
-                                          save_encoder)
+from carel_tpu_torch.pretrain.mlm import (MlmConfig, MlmModel,  # noqa: F401
+                                          is_encoder_dir, load_encoder,
+                                          load_mlm, pretrain_mlm,
+                                          save_encoder, save_mlm)

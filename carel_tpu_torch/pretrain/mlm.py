@@ -1,24 +1,376 @@
-"""The port's encoder directory, counterpart of the orbax directory that
-carel_tpu/pretrain/mlm.py:249-263 writes and reads.
+"""Masked-language-model pretraining for the encoder, and the port's encoder
+and MLM directories; port of carel_tpu/pretrain/mlm.py.
 
-A directory holds one file, ``encoder.pt``: the ``TransformerEncoder``
-state_dict in fp32, saved with ``torch.save`` and read with
-``torch.load(weights_only=True)``. It holds no config: as JAX's orbax
-directory, it is read into an encoder built from the configured
-``EncoderConfig`` (``models/hf_port.load_encoder_checkpoint`` sizes the
-tables to the file's). The ``embed`` verb writes one; ``train``, ``infer``,
-``stage1``, ``dann``, ``embed`` and ``cit`` read one through
-``--hf_encoder``. A JAX orbax directory is not readable here.
+As in JAX: the BERT recipe (``mask_prob`` of the real non-special positions;
+of those 80 % [MASK], 10 % a random id, 10 % kept; optional whole-word
+masking), the encoder's hidden state cast to fp32 under an untied head
+(Dense d->d, exact GELU, LayerNorm at Flax's eps 1e-6, Dense d->V), the
+masked mean of the negative log-likelihood over every position, and AdamW
+(weight decay 0.01, eps 1e-8) under optax's ``linear_schedule(0, lr,
+warmup)`` or, with ``lr_decay``, ``warmup_cosine_decay_schedule(0, lr,
+warmup, steps, 0.1 lr)``, read at the count of updates made before it
+(``lr_at``: the first update has lr 0). The whole tokenized corpus (and the
+word starts) lives on the device; each step draws its batch indices (with
+replacement), two uniforms and the random ids from one ``torch.Generator``
+on the device (``draw_noise``). JAX fuses ``scan_size`` steps into one
+``lax.scan`` dispatch; here one step is captured in a CUDA graph, with the
+generator registered, and replayed ``scan_size`` times a dispatch, its lr
+formed on the device from a step counter. Warm-up and capture do not change
+the run (``train/scan_epoch.Snapshot``). The CPU runs the same step eagerly.
+Whole dispatches run, so ``steps=10, scan_size=4`` trains 12 steps, and each
+logs one ``mlm_step`` event with the dispatch's mean loss, as in JAX.
+
+Directories (JAX's are orbax checkpoints, which the port does not read):
+
+- the encoder dir: one file, ``encoder.pt``, the ``TransformerEncoder``
+  state_dict in fp32 (``save_encoder``/``load_encoder``). It holds no
+  config: it is read into an encoder built from the configured
+  ``EncoderConfig`` (``models/hf_port.load_encoder_checkpoint`` sizes the
+  tables to the file's). ``pretrain --out`` and ``embed --out`` write one;
+  every ``--hf_encoder`` reads one;
+- the MLM dir (``pretrain --save_mlm``): one file, ``mlm.pt``, the whole
+  ``MlmModel`` state_dict (encoder and head) in fp32
+  (``save_mlm``/``load_mlm``), which ``tools/mlm_scorer.py`` reads. The
+  tokenizer it was trained with lies beside it as ``<dir>.tokenizer.json``.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from carel_tpu_torch.config import EncoderConfig
+from carel_tpu_torch.models.encoder import TransformerEncoder, init_flax_
 
 ENCODER_FILE = "encoder.pt"
+MLM_FILE = "mlm.pt"
+# Flax's LayerNorm default; the encoder's own LayerNorms take
+# cfg.layer_norm_eps
+MLM_LN_EPS = 1e-6
+# ids up to [MASK] = 4 are specials (never masked), and the random
+# replacements start above them
+LAST_SPECIAL_ID = 4
+
+
+class MlmModel(nn.Module):
+    """The encoder, then the untied MLM head over its hidden state in fp32:
+    logits [B, L, V] (fp32)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        d = cfg.hidden_dim
+        self.encoder = TransformerEncoder(cfg)
+        self.mlm_transform = nn.Linear(d, d)
+        self.mlm_ln = nn.LayerNorm(d, eps=MLM_LN_EPS)
+        self.mlm_output = nn.Linear(d, cfg.vocab_size)
+
+    def hidden(self, input_ids: torch.Tensor,
+               attention_mask: torch.Tensor) -> torch.Tensor:
+        """The encoder's last hidden state in fp32 [B, L, D] (no dropout,
+        as JAX's ``deterministic=True``)."""
+        hidden, _ = self.encoder(input_ids, attention_mask, None,
+                                 deterministic=True, pool=False)
+        return hidden.float()
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The MLM head on fp32 hidden states [..., D] -> logits [..., V],
+        in fp32 outside any autocast."""
+        with torch.autocast(device_type=h.device.type, enabled=False):
+            h = F.gelu(self.mlm_transform(h), approximate="none")
+            return self.mlm_output(self.mlm_ln(h))
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.head(self.hidden(input_ids, attention_mask))
+
+
+@dataclass(frozen=True)
+class MlmConfig:
+    batch_size: int = 256
+    seq_len: int = 64
+    steps: int = 2000
+    warmup_steps: int = 200
+    learning_rate: float = 1e-4
+    mask_prob: float = 0.15
+    seed: int = 42
+    # steps a dispatch: one captured step replayed this many times
+    scan_size: int = 50
+    # whole-word masking: every token of a word reads its first token's
+    # draws (jieba words for zh, "##"-joined WordPiece pieces for en)
+    whole_word: bool = False
+    language: str = "zh"
+    # cosine decay to 10% of peak after warmup; constant after it otherwise
+    lr_decay: bool = False
+    # encoder snapshots "{save_path}_step{N}" every save_every steps
+    save_every: int = 0
+    save_path: str = ""
+    # the whole MlmModel (encoder and head) at the end, for the scorer
+    save_full_path: str = ""
+
+
+def make_mlm_batches(texts: Sequence[str], tokenizer, cfg: MlmConfig
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Tokenize the corpus once into [N, L] ids and masks."""
+    enc = tokenizer.encode_batch(list(texts), cfg.seq_len)
+    return enc.input_ids, enc.attention_mask
+
+
+def make_word_starts(texts: Sequence[str], tokenizer, seq_len: int,
+                     language: str) -> np.ndarray:
+    """[N, L] index of the first token of the word holding each position;
+    specials and padding point at themselves. zh: jieba words over the
+    space-stripped clause (one token a char); en: a WordPiece ``##`` piece
+    continues the previous word."""
+    n = len(texts)
+    out = np.tile(np.arange(seq_len, dtype=np.int32), (n, 1))
+    if language == "zh":
+        import jieba
+
+        for i, t in enumerate(texts):
+            t = "".join(ch for ch in str(t) if not ch.isspace())
+            pos = 1  # 0 is [CLS]
+            for word in jieba.cut(t):
+                start = pos
+                for _ in word:
+                    if pos < seq_len:
+                        out[i, pos] = min(start, seq_len - 1)
+                    pos += 1
+    else:
+        id_to_token = {}
+        if hasattr(tokenizer, "_tok"):
+            id_to_token = {v: k for k, v in tokenizer._tok.get_vocab().items()}
+        for i, t in enumerate(texts):
+            ids = tokenizer.tokenize_to_ids(str(t))
+            pos, start = 1, 1
+            for tid in ids:
+                if not id_to_token.get(tid, "").startswith("##"):
+                    start = pos
+                if pos < seq_len:
+                    out[i, pos] = min(start, seq_len - 1)
+                pos += 1
+    return out
+
+
+def lr_at(cfg: MlmConfig, count: torch.Tensor) -> torch.Tensor:
+    """The lr of the update after ``count`` updates (a 0-d fp32 tensor, on
+    the device in a captured step), in fp32 as optax forms it:
+    ``linear_schedule(0, lr, warmup)``, 0 throughout when warmup is 0; with
+    ``lr_decay``, ``warmup_cosine_decay_schedule(0, lr, warmup, steps,
+    0.1 lr)``, whose cosine spans steps - warmup after the warmup."""
+    lr, warmup = cfg.learning_rate, cfg.warmup_steps
+
+    def linear(c):
+        if warmup <= 0:
+            return torch.zeros_like(c)
+        frac = 1 - torch.clamp(c, 0, warmup) / warmup
+        return (0.0 - lr) * frac + lr
+
+    if not cfg.lr_decay:
+        return linear(count)
+    decay_steps = cfg.steps - warmup
+    if not decay_steps > 0:
+        raise ValueError("the cosine schedule requires steps > warmup_steps, "
+                         f"got steps={cfg.steps}, warmup={warmup}")
+    end = lr * 0.1
+    alpha = 0.0 if lr == 0.0 else end / lr
+    c = torch.clamp(count - warmup, max=decay_steps)
+    cosine = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
+    decayed = lr * ((1 - alpha) * cosine + alpha)
+    return torch.where(count < warmup, linear(count), decayed)
+
+
+def draw_noise(generator: torch.Generator, n: int, shape: Tuple[int, int],
+               vocab_size: int, device: torch.device):
+    """A step's draws from ``generator``, in this order: the batch indices
+    [B] in [0, n) (with replacement), the mask uniform u and the branch
+    uniform u2 [B, L] in [0, 1), the random ids [B, L] in [5, vocab_size).
+    Every draw of the trainer goes through here."""
+    idx = torch.randint(0, n, shape[:1], generator=generator, device=device)
+    u = torch.rand(shape, generator=generator, device=device)
+    u2 = torch.rand(shape, generator=generator, device=device)
+    rand_ids = torch.randint(LAST_SPECIAL_ID + 1, vocab_size, shape,
+                             generator=generator, device=device)
+    return idx, u, u2, rand_ids
+
+
+def mask_id_of(tokenizer) -> int:
+    """The [MASK] id: the tokenizer's, or 4 when it keeps no
+    ``token_to_id`` (the char and WordPiece tokenizers reserve 4)."""
+    if hasattr(tokenizer, "token_to_id"):
+        return getattr(tokenizer, "token_to_id", {}).get("[MASK]", 4)
+    return 4
+
+
+def _adamw(params, lr: float, device: torch.device):
+    """optax.adamw(lr, weight_decay=0.01, eps=1e-8): on CUDA fused and
+    capturable, its lr a 0-d device tensor that a captured step writes."""
+    kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    if device.type == "cuda":
+        return torch.optim.AdamW(
+            params, lr=torch.tensor(lr, dtype=torch.float32, device=device),
+            capturable=True, fused=True, **kw)
+    return torch.optim.AdamW(params, lr=lr, **kw)
+
+
+class MlmTrainer:
+    """The model, its AdamW, the sampling generator (seeded ``cfg.seed`` on
+    the device), the update counter and the device-resident corpus.
+    ``step()`` trains one step and returns its loss (a 0-d device tensor);
+    ``dispatch(n)`` trains n steps (on CUDA, a captured step replayed n
+    times unless ``capture`` is off) and returns their mean loss. After a
+    step each parameter's ``.grad`` holds the step's gradient (the pooler,
+    which the loss never reads, a zero one: optax still decays it).
+
+    Counters: ``captures``, ``replays``, and the kernel launches of the
+    captured step (``captured_launches``); a replay adds them to the ops'
+    launch counts, the capture and its warm-up add nothing."""
+
+    def __init__(self, model: MlmModel, cfg: MlmConfig, ids: np.ndarray,
+                 mask: np.ndarray, word_starts: Optional[np.ndarray],
+                 mask_id: int, device, capture: bool = True):
+        self.model, self.cfg, self.mask_id = model, cfg, mask_id
+        self.device = torch.device(device)
+        self.vocab_size = model.encoder.cfg.vocab_size
+        self.ids = torch.from_numpy(np.asarray(ids)).to(self.device)
+        self.attn = torch.from_numpy(np.asarray(mask)).to(self.device)
+        self.word_starts = (None if word_starts is None else torch.from_numpy(
+            np.asarray(word_starts, np.int64)).to(self.device))
+        self.params = list(model.parameters())
+        self.optimizer = _adamw(self.params, cfg.learning_rate, self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
+        self.count = torch.zeros((), dtype=torch.float32, device=self.device)
+        # gradients live across steps, each step zeroes them first
+        for p in self.params:
+            p.grad = torch.zeros_like(p)
+        self.capture = capture and self.device.type == "cuda"
+        self.captures = self.replays = 0
+        self.captured_launches: dict = {}
+        self._graph = self._loss = None
+
+    def step(self) -> torch.Tensor:
+        cfg = self.cfg
+        B, L = cfg.batch_size, cfg.seq_len
+        idx, u, u2, rand_ids = draw_noise(self.generator, len(self.ids),
+                                          (B, L), self.vocab_size,
+                                          self.device)
+        ids = self.ids.index_select(0, idx).long()
+        attn = self.attn.index_select(0, idx)
+        candidates = (attn > 0) & (ids > LAST_SPECIAL_ID)
+        if self.word_starts is not None:
+            # whole word: both draws are read at the word's first token
+            ws = self.word_starts.index_select(0, idx)
+            u = torch.gather(u, 1, ws)
+            u2 = torch.gather(u2, 1, ws)
+        is_masked = (u < cfg.mask_prob) & candidates
+        replace_mask = is_masked & (u2 < 0.8)
+        replace_rand = is_masked & (u2 >= 0.8) & (u2 < 0.9)
+        corrupted = torch.where(
+            replace_mask, torch.full_like(ids, self.mask_id),
+            torch.where(replace_rand, rand_ids.long(), ids))
+
+        torch._foreach_zero_([p.grad for p in self.params])
+        logits = self.model(corrupted, attn)
+        nll = F.cross_entropy(logits.view(B * L, -1), ids.view(-1),
+                              reduction="none").view(B, L)
+        w = is_masked.float()
+        loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+        loss.backward()
+        lr = lr_at(cfg, self.count)
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"] = float(lr)
+        self.optimizer.step()
+        self.count += 1
+        return loss.detach()
+
+    def dispatch(self, n: int) -> torch.Tensor:
+        if not self.capture:
+            return torch.stack([self.step() for _ in range(n)]).mean()
+        from carel_tpu_torch import ops
+
+        if self._graph is None:
+            self._capture()
+        losses = torch.empty(n, dtype=torch.float32, device=self.device)
+        for i in range(n):
+            self._graph.replay()
+            losses[i].copy_(self._loss)
+        self.replays += n
+        ops.add_launches(self.captured_launches, n)
+        return losses.mean()
+
+    def _capture(self) -> None:
+        from carel_tpu_torch.train.scan_epoch import Snapshot, capture_graph
+        from carel_tpu_torch.train.state import dropout_generator
+
+        snapshot = Snapshot(self.params, [self.optimizer],
+                            [self.generator, dropout_generator(self.device)],
+                            [self.count])
+        self._graph, self._loss, _, self.captured_launches = capture_graph(
+            self.step, snapshot.restore, self.generator, self.device)
+        self.captures += 1
+
+
+def build_mlm(encoder_cfg: EncoderConfig, seed: int,
+              init_params: Optional[Dict[str, torch.Tensor]] = None
+              ) -> MlmModel:
+    """MlmModel with Flax-style random init from ``seed`` (a CPU
+    generator), its encoder replaced by ``init_params`` when given."""
+    model = MlmModel(encoder_cfg)
+    init_flax_(model, torch.Generator().manual_seed(seed))
+    if init_params is not None:
+        model.encoder.load_state_dict(init_params)
+    return model
+
+
+def pretrain_mlm(
+    encoder_cfg: EncoderConfig,
+    tokenizer,
+    texts: Sequence[str],
+    cfg: MlmConfig = MlmConfig(),
+    logger=None,
+    init_params: Optional[Dict[str, torch.Tensor]] = None,
+    device="cuda",
+    model: Optional[MlmModel] = None,
+    capture: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Run MLM pretraining; returns the encoder's state_dict (on
+    ``device``). ``model`` replaces the random init (``build_mlm``);
+    ``capture=False`` runs the CUDA steps eagerly."""
+    from carel_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    ids, mask = make_mlm_batches(texts, tokenizer, cfg)
+    ws = (make_word_starts(texts, tokenizer, cfg.seq_len, cfg.language)
+          if cfg.whole_word else None)
+    if model is None:
+        model = build_mlm(encoder_cfg, cfg.seed, init_params)
+    trainer = MlmTrainer(model.to(device), cfg, ids, mask, ws,
+                         mask_id_of(tokenizer), device, capture=capture)
+    scan_size = max(1, min(cfg.scan_size, cfg.steps))
+    done = last_saved = 0
+    while done < cfg.steps:
+        loss = float(trainer.dispatch(scan_size))
+        done += scan_size
+        if logger:
+            logger.log({"event": "mlm_step", "step": done, "loss": loss})
+        if (cfg.save_every and cfg.save_path
+                and done - last_saved >= cfg.save_every and done < cfg.steps):
+            save_encoder(f"{cfg.save_path}_step{done}",
+                         model.encoder.state_dict())
+            last_saved = done
+    if cfg.save_full_path:
+        save_mlm(cfg.save_full_path, model.state_dict())
+    return model.encoder.state_dict()
 
 
 def is_encoder_dir(path: str) -> bool:
@@ -26,21 +378,45 @@ def is_encoder_dir(path: str) -> bool:
     return bool(path) and os.path.exists(os.path.join(path, ENCODER_FILE))
 
 
-def save_encoder(path: str, encoder_state: Dict[str, torch.Tensor]) -> str:
-    """Write the encoder's state_dict (as fp32 CPU tensors) to
-    ``path/encoder.pt``; returns the directory's absolute path."""
+def _save_state(path: str, name: str, state: Dict[str, torch.Tensor]) -> str:
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     state = {k: v.detach().to("cpu", torch.float32).contiguous()
-             for k, v in encoder_state.items()}
-    tmp = os.path.join(path, ENCODER_FILE + ".tmp")
+             for k, v in state.items()}
+    tmp = os.path.join(path, name + ".tmp")
     torch.save(state, tmp)
-    os.replace(tmp, os.path.join(path, ENCODER_FILE))
+    os.replace(tmp, os.path.join(path, name))
     return path
+
+
+def _load_state(path: str, name: str) -> Dict[str, torch.Tensor]:
+    return torch.load(os.path.join(path, name), map_location="cpu",
+                      weights_only=True)
+
+
+def save_encoder(path: str, encoder_state: Dict[str, torch.Tensor]) -> str:
+    """Write the encoder's state_dict (as fp32 CPU tensors) to
+    ``path/encoder.pt``; returns the directory's absolute path."""
+    return _save_state(path, ENCODER_FILE, encoder_state)
 
 
 def load_encoder(path: str) -> Dict[str, torch.Tensor]:
     """The encoder's state_dict from a ``save_encoder`` directory (CPU,
     fp32)."""
-    return torch.load(os.path.join(path, ENCODER_FILE), map_location="cpu",
-                      weights_only=True)
+    return _load_state(path, ENCODER_FILE)
+
+
+def save_mlm(path: str, mlm_state: Dict[str, torch.Tensor]) -> str:
+    """Write the whole MlmModel's state_dict (fp32, CPU) to
+    ``path/mlm.pt``; returns the directory's absolute path."""
+    return _save_state(path, MLM_FILE, mlm_state)
+
+
+def load_mlm(path: str) -> Dict[str, torch.Tensor]:
+    """The MlmModel's state_dict from a ``save_mlm`` directory (CPU,
+    fp32)."""
+    if not os.path.exists(os.path.join(path, MLM_FILE)):
+        raise FileNotFoundError(
+            f"{path}: no {MLM_FILE}; write one with `pretrain --save_mlm` "
+            "(an orbax directory of carel_tpu is not readable here)")
+    return _load_state(path, MLM_FILE)

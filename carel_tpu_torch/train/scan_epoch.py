@@ -148,47 +148,88 @@ def capture_key(state: TrainState, layout: RowLayout) -> tuple:
     return tuple(key)
 
 
-class _Snapshot:
-    """Copies of what a warm-up and a capture change: the params, every
-    optimizer state tensor, the step count and the sampling and dropout
-    generators' states. ``restore`` writes them back in place and zeroes
-    the state tensors created since, which is the state a first optimizer
-    step creates (Adam's step and moments, RMSprop's nu)."""
+class Snapshot:
+    """Copies of what a warm-up and a capture change: the ``params``, every
+    state tensor of the ``optimizers``, the ``tensors`` (a step counter)
+    and the ``generators``' states. ``restore`` writes them back in place
+    and zeroes the optimizer state tensors created since, which is the
+    state a first optimizer step creates (Adam's step and moments,
+    RMSprop's nu)."""
 
-    def __init__(self, state: TrainState):
-        device = next(state.model.parameters()).device
-        self.params = [(p, p.detach().clone())
-                       for p in state.model.parameters()]
-        self.opt = {id(t): (t, t.clone()) for t in self._tensors(state)}
-        self.step = state.step
-        self.gens = [(g, g.get_state()) for g in
-                     (state.generator, dropout_generator(device))]
+    def __init__(self, params, optimizers, generators, tensors=()):
+        self.optimizers = tuple(optimizers)
+        self.params = [(p, p.detach().clone()) for p in params]
+        self.tensors = [(t, t.clone()) for t in tensors]
+        self.opt = {id(t): (t, t.clone()) for t in self._opt_tensors()}
+        self.gens = [(g, g.get_state()) for g in generators]
 
-    @staticmethod
-    def _tensors(state: TrainState):
-        for opt in _optimizers(state):
+    def _opt_tensors(self):
+        for opt in self.optimizers:
             for entry in opt.state.values():
                 for value in entry.values():
                     if isinstance(value, torch.Tensor):
                         yield value
 
     @torch.no_grad()
-    def restore(self, state: TrainState) -> None:
-        for p, saved in self.params:
+    def restore(self) -> None:
+        for p, saved in self.params + self.tensors:
             p.copy_(saved)
-        for t in self._tensors(state):
+        for t in self._opt_tensors():
             if id(t) in self.opt:
                 t.copy_(self.opt[id(t)][1])
             else:
                 t.zero_()
-        state.step = self.step
         for gen, saved in self.gens:
             gen.set_state(saved)
+
+
+class _Snapshot(Snapshot):
+    """A ``Snapshot`` of a TrainState: its params, its three optimizers,
+    the sampling and dropout generators and the step count."""
+
+    def __init__(self, state: TrainState):
+        device = next(state.model.parameters()).device
+        super().__init__(state.model.parameters(), _optimizers(state),
+                         (state.generator, dropout_generator(device)))
+        self.step = state.step
+
+    def restore(self, state: TrainState) -> None:
+        super().restore()
+        state.step = self.step
 
 
 def _diff(after: dict, before: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
+
+
+def capture_graph(fn: Callable, restore: Callable,
+                  generator: torch.Generator, device: torch.device):
+    """``fn()`` warmed up WARMUP_STEPS times on a side stream, then one
+    call captured in a CUDA graph with ``generator`` registered;
+    ``restore()`` then rolls back what the warm-up and the capture changed,
+    and the ops' launch counts are left as they were. Returns (the graph,
+    the captured call's output, the warm-up's launches, the captured
+    launches). There is no fallback: a failed capture raises."""
+    counts = ops.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        warm = ops.launch_counts()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+        captured = ops.launch_counts()
+    finally:
+        restore()
+        ops.reset_launch_counts()
+        ops.add_launches(counts)
+    return graph, out, _diff(warm, counts), _diff(captured, warm)
 
 
 class EpochStep:
@@ -254,30 +295,13 @@ class EpochStep:
         # drop the last capture and the gradients it left in its pool
         self._graph = self._row = self._loss = self._key = None
         state.model.zero_grad(set_to_none=True)
-        device = first_row.device
         snapshot = _Snapshot(state)
-        counts = ops.launch_counts()
         row = first_row.clone()
         batch, kl_weight, vi_beta = unpack_row(row, layout)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_STEPS):
-                    self.body(state, batch, kl_weight, vi_beta)
-            torch.cuda.current_stream(device).wait_stream(side)
-            warm = ops.launch_counts()
-            graph.register_generator_state(state.generator)
-            with torch.cuda.graph(graph, stream=side):
-                metrics = self.body(state, batch, kl_weight, vi_beta)
-            captured = ops.launch_counts()
-        finally:
-            snapshot.restore(state)
-            ops.reset_launch_counts()
-            ops.add_launches(counts)
-        self.warmup_launches = _diff(warm, counts)
-        self.captured_launches = _diff(captured, warm)
+        graph, metrics, self.warmup_launches, self.captured_launches = \
+            capture_graph(lambda: self.body(state, batch, kl_weight, vi_beta),
+                          lambda: snapshot.restore(state), state.generator,
+                          first_row.device)
         self._graph, self._row, self._loss = graph, row, metrics["loss"]
         self._key = capture_key(state, layout)
         self.captures += 1

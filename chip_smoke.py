@@ -33,8 +33,10 @@ an error:
    (tensor-core kernels), at the training and the inference shape, at a ragged
    tiny one, at L over one block's rows (200, 513), at hd = 128 and with pad
    tails longer than one tile of keys, at the stage-1 clause batch [300, 12,
-   60, 64] with most rows all pads, the DANN batch [32, 12, 128, 64] and the
-   embed path's [32, 12, 200, 64] (a partly empty last tile), with
+   60, 64] with most rows all pads, the DANN batch [32, 12, 128, 64], the
+   embed path's [32, 12, 200, 64] (a partly empty last tile), MLM
+   pretraining's [256, 12, 64, 64] (with its backward) and the MLM
+   scorer's [32, 12, 64, 64] (rows of 20-40 real tokens), with
    an all-pad row and a row without pads, in the stock and the packed layout,
    and require two runs to give the same bits; hold the BoW backward with many
    duplicate indices (K4 adds the corrections at the indices to G in a fixed
@@ -46,10 +48,11 @@ an error:
    within 1e-5 normwise of index_add_; over the token types' table of two
    rows, five runs bit-equal beside torch's embedding backward; likewise at 64
    x 128 ids over roberta-base's one-row token-type table, its 514 positions
-   and its 50,265 words, each timed; time every kernel, its plain version and,
-   for K7-K10, the library call by CUDA events and by the profiler's device
-   time per call, and the host's cost of one launch, K7-K9 also at the stage-1,
-   DANN and embed shapes;
+   and its 50,265 words, each timed, and K10 at MLM pretraining's 256 x 64
+   ids; time every kernel, its plain version and, for K7-K10, the library
+   call by CUDA events and by the profiler's device time per call, and the
+   host's cost of one launch, K7-K9 also at the stage-1, DANN, embed,
+   pretrain and scorer shapes (with the library's kernel names);
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights, batch and noise, under
    the flagship's MMD (with the default and the flash attention), ec_hsic,
@@ -63,7 +66,8 @@ an error:
    step (params and the batch norm's running statistics); and a tiny
    original 3-latent DRL step (one backward, the main Adam and the
    adversaries' RMSprop; the latent heads unchanged, the adversaries
-   moved);
+   moved); and a tiny MLM step with flash attention (pretrain/mlm.py's
+   MlmTrainer, captured on the card, the same draws injected on both);
 5. main paths, each at full width (12L/768H encoder, vocab 21,128, ec_dim
    24, BoW vocab 23,808, max_len 96, batch 64) on random weights from a
    seed, on a synthetic target domain (documents of 3-12 clauses with all
@@ -147,6 +151,22 @@ an error:
    - the clustering tool: 4,096 synthetic clauses embedded by the embed
      path's encoder, train_idec (5 pretraining epochs, 20 refinement
      steps), emotion_cluster_chi2; profiled once;
+   - the pretrain verb's trainer (pretrain_mlm) at 12L/768H bf16, vocab
+     21,128, attention_impl="flash", MlmConfig's b256 x s64 over the
+     clauses of synthetic documents: 16 steps in two dispatches of 8
+     replays of one captured step, K7-K9 once a layer and K10 three times
+     on every step; the MLM saved (--save_mlm) and the encoder dir (--out)
+     loaded into the flagship's encoder bit-equal; a second captured and
+     an eager run of the seed bit-equal to the first; dispatches timed and
+     profiled, and the fp32 head's share of the step;
+   - the ordering verb's pieces: MlmScorer (flash, 32 x 64 a call) over
+     the saved MLM on the gold pairs of 160 synthetic documents (64 scored
+     pairs or more), the verb's JSON, ms a call, K7 once a layer a call;
+     eight pairs against an fp32 scorer on the CPU with the same weights;
+   - case_analysis: compare_checkpoints over the flagship's and the flash
+     path's best checkpoints on the 514 test pairs (flash, K7 only);
+   - hpo: search over the flagship at full width, two trials of one
+     captured epoch each (K1-K4 and K10 on every step);
    - the plain pair classifier (the pair verb's train_pair_classifier) at
      12L/768H, vocab 21,128, bf16, attention_impl="flash", b64 x s96 on
      the zh paths' synthetic pairs: a base epoch of 16 eager steps, its
@@ -1033,8 +1053,9 @@ def phase_embedding(records: dict) -> None:
     and whether three runs of torch's embedding backward on the same inputs
     give the same bits (printed); over the token types' table of two rows,
     five runs of K10 bit-equal, beside torch's embedding backward there
-    (printed); K10 timed at both batches beside torch's embedding backward
-    (the plain version and the library call)."""
+    (printed); K10 timed at both batches and at MLM pretraining's (256 x 64
+    ids) beside torch's embedding backward (the plain version and the
+    library call)."""
     import torch.nn.functional as F
 
     from carel_tpu_torch.ops import cuda_embedding as ce
@@ -1092,7 +1113,7 @@ def phase_embedding(records: dict) -> None:
             fail("embedding backward over two rows: five runs differ")
 
     times = {}
-    for n in (64 * 96, 300 * 60):
+    for n in (64 * 96, 300 * 60, 256 * 64):
         ids = torch.tensor(np.minimum(
             np.random.default_rng(1).zipf(1.3, n) - 1, V - 1),
             dtype=torch.long, device="cuda")
@@ -1122,7 +1143,8 @@ def phase_embedding(records: dict) -> None:
         "replaces": "carel_tpu/models/encoder.py:132, :134, :140 (nn.Embed; XLA's "
                     "scatter-add of its gather, no Pallas kernel)",
         "launches": 0, "max_abs_err": max(err, err_r), **t,
-        "stage1_batch": times[300 * 60], "roberta_tables": roberta}
+        "stage1_batch": times[300 * 60], "pretrain_batch": times[256 * 64],
+        "roberta_tables": roberta}
     print_times("emb_bwd", records["emb_bwd"])
 
 
@@ -1243,15 +1265,16 @@ FLASH_GATES = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (6e-3, 8e-3)}
 
 
 def flash_inputs(B: int, h: int, L: int, hd: int, dtype, seed: int,
-                 min_tail: int = 0, pad_rows: float = 0.0):
+                 min_tail: int = 0, pad_rows: float = 0.0, min_len: int = 1):
     """q, k, v and a cotangent, N(0, 1) from a seed, and a mask with pad
-    tails of varied length, each min_tail at least: row 0 has no pads, row 1
-    is all pads, and each other row is all pads with probability pad_rows
-    (the stage-1 clause batch: documents padded to 75 clauses)."""
+    tails of varied length, each min_tail at least, over min_len real
+    tokens at least: row 0 has no pads, row 1 is all pads, and each other
+    row is all pads with probability pad_rows (the stage-1 clause batch:
+    documents padded to 75 clauses)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn(B, h, L, hd, device="cuda", generator=gen)
                   .to(dtype) for _ in range(4))
-    lengths = torch.randint(1, L - min_tail + 1, (B,), device="cuda",
+    lengths = torch.randint(min_len, L - min_tail + 1, (B,), device="cuda",
                             generator=gen)
     empty = torch.rand(B, device="cuda", generator=gen) < pad_rows
     lengths = torch.where(empty, 0, lengths)
@@ -1269,16 +1292,19 @@ def pack_heads(q, k, v):
 
 
 def flash_case(B: int, h: int, L: int, hd: int, dtype, backward: bool,
-               min_tail: int = 0, pad_rows: float = 0.0):
+               min_tail: int = 0, pad_rows: float = 0.0, min_len: int = 1):
     """K7 (and K8/K9) against the plain version at one shape; returns the
     largest absolute errors of the output and of the gradients."""
     from carel_tpu_torch.ops import cuda_attention as ca
 
     q, k, v, g, mask = flash_inputs(B, h, L, hd, dtype, seed=B + L,
-                                    min_tail=min_tail, pad_rows=pad_rows)
+                                    min_tail=min_tail, pad_rows=pad_rows,
+                                    min_len=min_len)
     scale = 1.0 / math.sqrt(hd)
     name = f"flash {str(dtype).split('.')[-1]} [{B}, {h}, {L}, {hd}]" \
         + (f" pad tails >= {min_tail}" if min_tail else "") \
+        + (f" rows of {min_len}-{L - min_tail} tokens" if min_len > 1
+           else "") \
         + (f" {int((mask.sum(1) == 0).sum())} rows all pads" if pad_rows
            else "")
 
@@ -1365,9 +1391,12 @@ def flash_work(mask: torch.Tensor, h: int, hd: int, element_size: int):
 # batch (32 clauses of 128 tokens, L past the one-block regime of L <= 96),
 # the embed path's batch (32 texts of 200 tokens: 200 is no multiple of
 # the 64-row tile, so the last tile is partly empty) and EncoderEmbedder's
-# forward-only batches: 256 texts of 200 tokens on the embed path, 256
-# clauses of 64 tokens on the clustering path, and one document's dozen
-# clauses of 64 tokens, with long pad tails, on the cit path
+# forward-only batches: 256 texts of 200 tokens on the embed path, and one
+# document's dozen clauses of 64 tokens, with long pad tails, on the cit
+# path; MLM pretraining's batch (256 clauses of 64 tokens, also
+# EncoderEmbedder's batch on the clustering path), with its backward, and
+# the MLM scorer's batch (32 rows of 64, 20-40 real tokens); optional fifth
+# field: the least real tokens of a row
 FLASH_CASES = (((64, 12, 96, 64), True, 0, 0.0),
                ((512, 12, 96, 64), False, 0, 0.0),
                ((5, 4, 37, 16), True, 0, 0.0),
@@ -1379,30 +1408,33 @@ FLASH_CASES = (((64, 12, 96, 64), True, 0, 0.0),
                ((32, 12, 128, 64), True, 0, 0.0),
                ((32, 12, 200, 64), True, 0, 0.0),
                ((256, 12, 200, 64), False, 0, 0.0),
-               ((256, 12, 64, 64), False, 0, 0.0),
-               ((12, 12, 64, 64), True, 24, 0.0))
-# the shapes of the stage-1, DANN and embed paths and of EncoderEmbedder's
-# batches at L = 200 and 64, timed beside the training shape:
-# (tag, shape, share of all-pad rows)
-FLASH_PATH_SHAPES = (("stage1", (300, 12, 60, 64), 0.8),
-                     ("dann", (32, 12, 128, 64), 0.0),
-                     ("embed", (32, 12, 200, 64), 0.0),
-                     ("embedder s200", (256, 12, 200, 64), 0.0),
-                     ("embedder s64", (256, 12, 64, 64), 0.0))
+               ((256, 12, 64, 64), True, 0, 0.0),
+               ((12, 12, 64, 64), True, 24, 0.0),
+               ((32, 12, 64, 64), True, 24, 0.0, 20))
+# the shapes of the stage-1, DANN, embed and pretrain paths, of
+# EncoderEmbedder's batch at L = 200 and of the MLM scorer's, timed beside
+# the training shape: (tag, shape, flash_inputs' mask options)
+FLASH_PATH_SHAPES = (("stage1", (300, 12, 60, 64), {"pad_rows": 0.8}),
+                     ("dann", (32, 12, 128, 64), {}),
+                     ("embed", (32, 12, 200, 64), {}),
+                     ("embedder s200", (256, 12, 200, 64), {}),
+                     ("pretrain, embedder s64", (256, 12, 64, 64), {}),
+                     ("scorer", (32, 12, 64, 64),
+                      {"min_tail": 24, "min_len": 20}))
 
 
-def flash_calls(B: int, h: int, L: int, hd: int, seed: int,
-                pad_rows: float = 0.0):
+def flash_calls(B: int, h: int, L: int, hd: int, seed: int, **mask_kw):
     """At one bf16 shape in the packed layout the training step gives
     K7-K9: {kernel name: (the wrapper's call, the plain version, the
-    library call)} and the least work of each (flash_work)."""
+    library call)} and the least work of each (flash_work); ``mask_kw``
+    goes to flash_inputs."""
     import torch.nn.functional as F
 
     from carel_tpu_torch.ops import cuda_attention as ca
 
     scale = 1.0 / math.sqrt(hd)
     q, k, v, g, mask = flash_inputs(B, h, L, hd, torch.bfloat16, seed=seed,
-                                    pad_rows=pad_rows)
+                                    **mask_kw)
     seg = ca.segment_ids(mask)
     qkv = pack_heads(q, k, v)
     qp, kp, vp = (t.transpose(1, 2) for t in qkv.unbind(2))
@@ -1456,9 +1488,9 @@ def phase_flash(records: dict) -> None:
     resolve_device("cuda")  # full-fp32 matmuls for the plain version
     worst = {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, backward, min_tail, pad_rows in FLASH_CASES:
+        for shape, backward, min_tail, pad_rows, *min_len in FLASH_CASES:
             abs_out, abs_grad = flash_case(*shape, dtype, backward, min_tail,
-                                           pad_rows)
+                                           pad_rows, *min_len)
             if dtype == torch.bfloat16:
                 worst["fwd"] = max(worst["fwd"], abs_out)
                 worst["bwd"] = max(worst["bwd"], abs_grad)
@@ -1516,8 +1548,8 @@ def phase_flash(records: dict) -> None:
 
     # K7-K9 at the shapes of the other paths; which of its backends the
     # library's forward picked, by the names of the kernels it launched
-    for tag, shape, pad_rows in FLASH_PATH_SHAPES:
-        calls, work = flash_calls(*shape, seed=3, pad_rows=pad_rows)
+    for tag, shape, mask_kw in FLASH_PATH_SHAPES:
+        calls, work = flash_calls(*shape, seed=3, **mask_kw)
         sdpa = device_kernel_names(calls["flash_fwd"][2])
         records["flash_fwd"].setdefault("library_kernels", {})[tag] = sdpa
         print(f"scaled_dot_product_attention at bf16 {list(shape)} ({tag} "
@@ -3938,6 +3970,459 @@ def phase_cluster(records: dict, embed: dict, smi: str) -> dict:
 HELD: dict = {}
 
 
+# MLM pretraining at full width: MlmConfig's batch, two captured dispatches
+PRETRAIN_STEPS, PRETRAIN_SCAN = 16, 8
+# pairs the ordering phase holds card against CPU, and its gate: the mean
+# masked log-prob of the bf16 flash scorer within 1e-2 relative of the fp32
+# CPU scorer's (bf16 rounds each of the 12 layers' products to 2^-9; the
+# error expected is ~1e-3 of a log-prob near -10)
+ORDERING_CPU_PAIRS, ORDERING_GATE = 8, 1e-2
+
+
+def mlm_step_calls(layers: int) -> dict:
+    """Kernel launches of one MLM training step with flash attention: K7-K9
+    once a layer, K10 for each of the three tables."""
+    return {"flash_fwd": layers, "flash_bwd_dkv": layers,
+            "flash_bwd_dq": layers, "emb_bwd": CALLS_A_STEP["emb_bwd"]}
+
+
+def phase_reference_pretrain() -> None:
+    """One tiny fp32 MLM step (pretrain/mlm.py: MlmTrainer, flash
+    attention) on the card, captured and replayed, and on the CPU from the
+    same weights and the same draws, at the lr after warmup: loss within
+    rel 1e-4, gradients within 1e-3 normwise, every parameter within 2 lr
+    and within 1e-3 lr where its gradient is over 1e-3 of its tensor's
+    largest (the attention key biases, whose gradient is 0 in exact
+    arithmetic, to 2 lr only); the card's step launches K7-K9 once a layer
+    and K10 three times."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.models.encoder import tiny_encoder_config
+    from carel_tpu_torch.pretrain import mlm
+
+    tag = "reference step pretrain (tiny fp32, flash, card vs CPU)"
+    enc = tiny_encoder_config(vocab_size=256, dropout=0.0,
+                              attention_impl="flash")
+    cfg = mlm.MlmConfig(batch_size=16, seq_len=32, warmup_steps=4,
+                        learning_rate=1e-3)
+    rng = np.random.default_rng(6)
+    n, B, L = 64, cfg.batch_size, cfg.seq_len
+    lengths = rng.integers(6, L + 1, n)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = (rng.integers(5, enc.vocab_size, (n, L)) * mask).astype(np.int32)
+    ids[:, 0] = 2
+    u = rng.random((B, L)).astype(np.float32)
+    u[:, ::4] = 0.01  # a few masked positions of each branch
+    u2 = rng.random((B, L)).astype(np.float32)
+    host = (rng.integers(0, n, B), u, u2,
+            rng.integers(5, enc.vocab_size, (B, L)))
+    draws = {dev: tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                        for a in host) for dev in ("cpu", "cuda")}
+    init_model = mlm.build_mlm(enc, seed=0)
+    init = {k: v.clone() for k, v in init_model.state_dict().items()}
+    runs = {}
+    real = mlm.draw_noise
+    mlm.draw_noise = lambda gen, n, shape, vocab, device: draws[
+        torch.device(device).type]
+    try:
+        for dev in ("cpu", "cuda"):
+            model = mlm.MlmModel(enc)
+            model.load_state_dict(init)
+            trainer = mlm.MlmTrainer(model.to(dev), cfg, ids, mask, None, 4,
+                                     dev)
+            trainer.count.fill_(cfg.warmup_steps)  # lr = learning_rate
+            ops.reset_launch_counts()
+            loss = float(trainer.dispatch(1))
+            runs[dev] = (loss,
+                         {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()},
+                         {k: p.grad.cpu() for k, p in
+                          model.named_parameters()},
+                         ops.launch_counts(), trainer.captures)
+    finally:
+        mlm.draw_noise = real
+    (l_c, p_c, g_c, _, _), (l_g, p_g, g_g, counts, captures) = (runs["cpu"],
+                                                                runs["cuda"])
+    lr = cfg.learning_rate
+    rel_loss = abs(l_g - l_c) / abs(l_c)
+    worst_g = max(relnorm(g_g[k], g_c[k]) for k in g_c
+                  if float(g_c[k].abs().max()) > 0)
+    worst_p = max(float((p_g[k] - p_c[k]).abs().max()) for k in p_c) / lr
+    key_bias = {k: torch.zeros_like(g, dtype=torch.bool) for k, g in
+                g_c.items()}
+    for k, g in g_c.items():
+        if k.endswith("attention.qkv.bias"):
+            d = g.shape[0] // 3
+            key_bias[k][d:2 * d] = True
+    safe = {k: (g.abs() > 1e-3 * g.abs().max()) & ~key_bias[k]
+            for k, g in g_c.items()}
+    worst_safe = max(float((p_g[k] - p_c[k])[safe[k]].abs().max())
+                     for k in g_c if bool(safe[k].any())) / lr
+    print(f"{tag}: loss {l_g:.6f} vs {l_c:.6f} (rel {rel_loss:.2e}), grad "
+          f"normwise rel {worst_g:.2e}, param abs {worst_p:.2e} lr "
+          f"({worst_safe:.2e} lr where |g| > 1e-3 max|g|); {captures} "
+          f"capture, launches {counts}", flush=True)
+    if not (rel_loss <= 1e-4 and worst_g <= 1e-3 and worst_p <= 2
+            and worst_safe <= 1e-3 and captures == 1):
+        fail(f"{tag}: card and CPU disagree")
+    want = mlm_step_calls(enc.num_layers)
+    if {k: v for k, v in counts.items() if v} != want:
+        fail(f"{tag}: launches {counts} (want {want})")
+
+
+def pretrain_texts(n_docs: int = 1024) -> list:
+    """The clauses of synthetic zh documents (5-25 chars each)."""
+    rng = np.random.default_rng(21)
+    return [c.text for d in synth_docs(rng, n_docs, 20) for c in d.clauses]
+
+
+def phase_pretrain(records: dict, smi: str) -> dict:
+    """The pretrain verb's trainer at full width (12L/768H bf16, vocab
+    21,128, flash attention) at MlmConfig's b256 x s64 over the clauses of
+    synthetic documents: PRETRAIN_STEPS steps in dispatches of
+    PRETRAIN_SCAN replays of one captured step, the whole MLM saved as
+    --save_mlm does and the encoder as --out does. K7-K9 must launch once a
+    layer and K10 three times on every step, nothing else; each dispatch's
+    loss finite; the encoder dir loads through load_encoder_checkpoint into
+    the flagship's encoder bit for bit; a second captured run and an eager
+    run of the same seed give the first run's bits. Then dispatches are
+    timed (wall by the host clock around a synchronize, device ms and
+    kernels by the profiler), each on its own. Returns the numbers, the MLM
+    dir and its pinned tokenizer."""
+    import copy
+
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.config import EncoderConfig
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.models.encoder import TransformerEncoder
+    from carel_tpu_torch.models.hf_port import load_encoder_checkpoint
+    from carel_tpu_torch.pretrain import mlm
+
+    tag = "pretrain path (flash attention)"
+    enc = EncoderConfig(arch="bert", dtype="bfloat16", attention_impl="flash")
+    root = os.path.join(RUN_DIR, "pretrain")
+    out_dir, mlm_dir = os.path.join(root, "encoder"), os.path.join(root, "mlm")
+    cfg = mlm.MlmConfig(steps=PRETRAIN_STEPS, scan_size=PRETRAIN_SCAN,
+                        save_full_path=mlm_dir)
+    B, L, layers = cfg.batch_size, cfg.seq_len, enc.num_layers
+    texts = pretrain_texts()
+    tok = ZhCharTokenizer(ZH_CHARS)
+    os.makedirs(root, exist_ok=True)
+    tok.save(mlm_dir + ".tokenizer.json")
+    t0 = time.perf_counter()
+    init_model = mlm.build_mlm(enc, cfg.seed)
+    print(f"{tag}: {len(texts)} clauses, MlmModel of "
+          f"{sum(p.numel() for p in init_model.parameters())} params built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    logger = _Records()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = mlm.pretrain_mlm(enc, tok, texts, cfg, logger, device="cuda",
+                              model=copy.deepcopy(init_model))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in logger.records]
+    print(f"{tag}: {PRETRAIN_STEPS} steps in {len(losses)} dispatches of "
+          f"{PRETRAIN_SCAN} (capture, tokenization and the MLM save "
+          f"included) in {wall:.2f} s; loss of each dispatch {losses}; "
+          f"launches {counts}; peak memory {peak:.2f} GiB", flush=True)
+    if len(losses) != PRETRAIN_STEPS // PRETRAIN_SCAN or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"{tag}: dispatch losses {losses}")
+    count_path_launches(records, "pretrain", counts, {
+        k: v * PRETRAIN_STEPS for k, v in mlm_step_calls(layers).items()})
+
+    # --out: the encoder dir, read as train --hf_encoder reads it into the
+    # flagship's encoder
+    mlm.save_encoder(out_dir, params)
+    flagship_enc = EncoderConfig(arch="bert", dtype="bfloat16")
+    loaded_cfg, loaded = load_encoder_checkpoint(out_dir, flagship_enc)
+    encoder = TransformerEncoder(loaded_cfg)
+    encoder.load_state_dict(loaded)
+    full = mlm.load_mlm(mlm_dir)
+    same = loaded_cfg == flagship_enc and all(
+        torch.equal(encoder.state_dict()[k], params[k].cpu())
+        and torch.equal(full[f"encoder.{k}"], params[k].cpu())
+        for k in params)
+    print(f"{tag}: the encoder dir loads into the flagship's encoder "
+          f"bit-equal, the MLM dir holds the same encoder: {same}",
+          flush=True)
+    if not same:
+        fail(f"{tag}: the saved encoder does not give back the trained bits")
+
+    # the same seed again, captured and eager: the same bits
+    for kind, capture in (("captured", True), ("eager", False)):
+        again = mlm.pretrain_mlm(
+            enc, tok, texts, dataclasses.replace(cfg, save_full_path=""),
+            device="cuda", model=copy.deepcopy(init_model), capture=capture)
+        if not all(torch.equal(again[k], params[k]) for k in params):
+            fail(f"{tag}: a second run ({kind}) of the seed differs")
+        del again
+    print(f"{tag}: a second captured run and an eager run of the seed give "
+          "the first run's bits", flush=True)
+
+    # dispatches timed, each on its own, from a trainer of the trained model
+    model = mlm.MlmModel(enc)
+    model.load_state_dict(full)
+    ids, mask = mlm.make_mlm_batches(texts, tok, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = mlm.MlmTrainer(model.cuda(), cfg, ids, mask, None,
+                             mlm.mask_id_of(tok), "cuda")
+    dispatch = lambda: trainer.dispatch(PRETRAIN_SCAN)  # noqa: E731
+    dispatch()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / PRETRAIN_SCAN * 1e3)
+    devs = [device_profile(dispatch, iters=1, warmup=0) for _ in range(3)]
+    nums = dict(wall_ms=float(np.median(walls)),
+                device_ms=float(np.median([d[0] for d in devs]))
+                / PRETRAIN_SCAN,
+                kernels=float(np.median([d[1] for d in devs]))
+                / PRETRAIN_SCAN)
+    timed_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the fp32 head's share of the step: its forward and backward alone
+    # over one step's hidden states (TF32 off), against the step's device
+    # time; its GEMMs' operations over the card's fp32 peak bound it
+    import torch.nn.functional as F
+
+    rows, d, V = B * L, enc.hidden_dim, enc.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    hidden = torch.randn(rows, d, device="cuda", generator=gen,
+                         requires_grad=True)
+    target = torch.randint(0, V, (rows,), device="cuda", generator=gen)
+    weight = (torch.rand(rows, device="cuda", generator=gen) < 0.15).float()
+    head_params = [p for n, p in model.named_parameters()
+                   if n.startswith("mlm_")]
+
+    def head_step():
+        nll = F.cross_entropy(model.head(hidden), target, reduction="none")
+        loss = (nll * weight).sum() / weight.sum()
+        return torch.autograd.grad(loss, [hidden, *head_params])
+
+    head_ms, head_kernels = device_profile(head_step, iters=5, warmup=2)
+    head_flop = 6.0 * rows * d * (d + V)
+    head_bound = head_flop / PEAK_FP32_FLOPS * 1e3
+    nums["head_ms"] = head_ms
+    print(f"{tag}: the fp32 head (forward and backward, {head_flop:.3e} "
+          f"FLOP) {head_ms:.3f} ms of device time in {head_kernels:.0f} "
+          f"kernels, {head_ms / nums['device_ms']:.3f} of the step's; "
+          f"{head_flop / head_ms / 1e9:.1f} TFLOP/s against the fp32 bound "
+          f"{head_bound:.3f} ms ({smi})", flush=True)
+    del hidden
+    print(f"{tag} b{B}xs{L}, each dispatch of {PRETRAIN_SCAN} steps on its "
+          f"own: wall ms/step {[round(w, 3) for w in walls]}, device "
+          f"ms/step {[round(d[0] / PRETRAIN_SCAN, 3) for d in devs]}, "
+          f"kernels/step {[round(d[1] / PRETRAIN_SCAN, 1) for d in devs]}; "
+          f"{B * L / nums['wall_ms'] * 1e3:.0f} tokens/s; peak "
+          f"{timed_peak:.2f} GiB over the timed dispatches; launches a step "
+          f"{mlm_step_calls(layers)}", flush=True)
+    del trainer, model, init_model
+    return dict(nums, peak_gib=peak, mlm_dir=mlm_dir, enc=enc,
+                tok_path=mlm_dir + ".tokenizer.json")
+
+
+def ordering_docs(n_docs: int):
+    """Synthetic documents of 3-8 clauses of 5-25 chars (the clause
+    lengths of the zh corpora), one gold pair each."""
+    return synth_docs(np.random.default_rng(31), n_docs, 8)
+
+
+def phase_ordering(records: dict, pre: dict, smi: str) -> dict:
+    """The ordering verb's pieces over pretrain's MLM dir: MlmScorer with
+    the pretrain path's encoder (flash attention, 32 x 64 a call) over the
+    gold pairs of a synthetic ECPE file, through ordering_probe, and the
+    verb's JSON of its stats: ms a call (wall: the host clock around the
+    probe, a fetch a call; device: the profiler over one call's batch), K7
+    once a layer a call and nothing else; and the scores of
+    ORDERING_CPU_PAIRS pairs held against an fp32 scorer on the CPU with
+    the same weights (ORDERING_GATE)."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.cli.main import ordering_summary
+    from carel_tpu_torch.data.ecpe_format import (parse_ecpe_file,
+                                                  write_ecpe_file)
+    from carel_tpu_torch.data.tokenizer import ZhCharTokenizer
+    from carel_tpu_torch.tools.mlm_scorer import MlmScorer
+    from carel_tpu_torch.tools.ordering import ordering_probe
+
+    tag = "ordering path (MLM scorer, flash attention)"
+    torch.cuda.reset_peak_memory_stats()
+    path = os.path.join(RUN_DIR, "ordering", "docs.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_ecpe_file(path, ordering_docs(160))
+    # the tokenizer pinned beside the MLM dir, as the verb reads it
+    tok = ZhCharTokenizer.load(pre["tok_path"])
+    scorer = MlmScorer(pre["mlm_dir"], tok, pre["enc"], device="cuda")
+    docs = parse_ecpe_file(path)
+    calls = []
+
+    def counted(p, h):
+        calls.append(1)
+        return scorer(p, h)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = ordering_probe(docs, entailment_scorer=counted)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(calls) * 1e3
+    counts = ops.launch_counts()
+    print(f"{tag}: the ordering verb's JSON "
+          f"{json.dumps(ordering_summary(stats, True))}", flush=True)
+    if stats.scored_pairs < 64 or len(calls) != 2 * stats.scored_pairs:
+        fail(f"{tag}: {stats.scored_pairs} scored pairs in {len(calls)} "
+             "calls (want 64 or more, two calls each)")
+    count_path_launches(records, "ordering", counts, {
+        "flash_fwd": pre["enc"].num_layers * len(calls)})
+
+    pairs = [(d.clause(c).text.strip(), d.clause(e).text.strip())
+             for d in docs for e, c in d.pairs if e != c]
+    batch = scorer.batch(*pairs[0])
+    dev_ms, kernels = device_profile(
+        lambda: scorer.masked_logprobs(*batch[:4]))
+    cpu = MlmScorer(pre["mlm_dir"], tok, dataclasses.replace(
+        pre["enc"], dtype="float32", attention_impl="xla"), device="cpu")
+    held = [(scorer(p, h), cpu(p, h)) for p, h in
+            pairs[:ORDERING_CPU_PAIRS]]
+    worst = max(abs(g - c) / abs(c) for g, c in held)
+    print(f"{tag}: {stats.scored_pairs} scored pairs ({len(calls)} calls); "
+          f"wall {wall:.3f} ms a call, device {dev_ms:.3f} ms a call in "
+          f"{kernels:.1f} kernels; launches {counts}; card (bf16, flash) vs "
+          f"CPU (fp32) on {len(held)} pairs: "
+          f"{[(round(g, 5), round(c, 5)) for g, c in held]}, worst rel "
+          f"{worst:.2e} (gate {ORDERING_GATE}) ({smi})", flush=True)
+    if not worst <= ORDERING_GATE:
+        fail(f"{tag}: the card's scores are off the CPU's by {worst:.2e}")
+    del scorer, cpu
+    return dict(wall_ms=wall, device_ms=dev_ms, kernels=kernels,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def docs_of(pairs):
+    """Documents for a synthetic PairSet (synth_target_domain): each its
+    clauses and its one gold pair, so that self_chain_doc_ids finds the
+    documents whose emotion clause is its own cause."""
+    from carel_tpu_torch.data.ecpe_format import Clause, Document
+
+    docs = []
+    for i, n in enumerate(pairs.docs_pair_size):
+        ex = [e for e in pairs.examples if e.doc_index == i]
+        gold = [(e.emo_sen_id, e.cau_sen_id) for e in ex if e.label]
+        clauses = [Clause(sen_id=c, emotion=6, cause=6, text=f"c{c}",
+                          emotion_raw="6", cause_raw="6", text_field3=f"c{c}")
+                   for c in range(1, n + 1)]
+        docs.append(Document(doc_id=str(i + 1), pairs=gold, clauses=clauses))
+    return docs
+
+
+def phase_case_analysis(records: dict, smi: str) -> dict:
+    """The case_analysis verb's compare_checkpoints over two checkpoints
+    that the paths above saved, the flagship's (default attention) and the
+    flash path's, both scored by the flagship with flash attention over the
+    514 test pairs of the paths' synthetic target domain: both F1s and the
+    self-chain split printed, the CSV's rows counted, K7 once a layer on
+    each of the four evaluation batches and nothing else."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.models.drl import DrlModel
+    from carel_tpu_torch.tools.case_analysis import compare_checkpoints
+    from carel_tpu_torch.train import checkpoint as ckpt
+    from carel_tpu_torch.train.steps import make_eval_step
+
+    tag = "case_analysis path (flash attention)"
+    cfg = full_width_config(FLAGSHIP, "case", attention_impl="flash")
+    enc, L, V = cfg.model.encoder, cfg.data.max_len, cfg.model.bow_dim
+    rng = np.random.default_rng(0)
+    synth_pair_arrays(rng, 1024, L, enc.vocab_size, V)  # the paths' train set
+    test_pairs, test, _ = synth_target_domain(rng, 512, L, enc.vocab_size, V)
+    test_pairs.num_unpred_emotions = 10
+    docs = docs_of(test_pairs)
+    device = torch.device("cuda")
+    pa = ckpt.load_best(os.path.join(RUN_DIR, "ckpt", FLAGSHIP), FLAGSHIP,
+                        device)
+    pb = ckpt.load_best(os.path.join(RUN_DIR, "ckpt", "flash"), "flash",
+                        device)
+    with torch.device("cuda"):
+        model = DrlModel(cfg.model)
+    out_csv = os.path.join(RUN_DIR, "case_analysis.csv")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = compare_checkpoints(
+        make_eval_step(), model, pa, pb, test_pairs, test, docs, out_csv,
+        torch.Generator(device=device).manual_seed(0),
+        cfg.train.eval_batch_size)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    with open(out_csv, encoding="utf8") as f:
+        rows = sum(1 for _ in f) - 1
+    batches = -(-len(test) // cfg.train.eval_batch_size)
+    print(f"{tag}: flagship F1 {res.model_a_f1:.4f}, flash F1 "
+          f"{res.model_b_f1:.4f}; self-chain {res.self_chain_counts}, "
+          f"normal {res.normal_counts}; split F1 {res.split_f1}; {rows} CSV "
+          f"rows; {wall:.2f} s; launches {counts} ({smi})", flush=True)
+    if rows != len(test) or not res.self_chain_counts["total"] or not (
+            0.0 <= res.model_a_f1 <= 1.0 and 0.0 <= res.model_b_f1 <= 1.0):
+        fail(f"{tag}: {rows} rows, or no self-chain row, or an F1 out of "
+             "range")
+    count_path_launches(records, "case_analysis", counts, {
+        "flash_fwd": enc.num_layers * batches * 2})
+    del model, pa, pb
+    return dict(wall_s=wall)
+
+
+HPO_TRIALS = 2
+
+
+def phase_hpo(records: dict, smi: str) -> dict:
+    """The hpo verb's search with its objective (cli/main.py:
+    hpo_objective) over the flagship at full width: HPO_TRIALS trials of
+    one base epoch (16 captured steps, K1-K4 and K10 on every step) and its
+    evaluation over the paths' 514 test pairs, from DEFAULT_SPACE's draws
+    by random.Random(42), as the verb makes them."""
+    from types import SimpleNamespace
+
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.cli.main import hpo_objective
+    from carel_tpu_torch.tools.hpo import DEFAULT_SPACE, search
+
+    tag = "hpo path"
+    cfg = full_width_config(FLAGSHIP, "hpo", self_iteration=0)
+    enc, L, V = cfg.model.encoder, cfg.data.max_len, cfg.model.bow_dim
+    rng = np.random.default_rng(0)
+    train = synth_pair_arrays(rng, 1024, L, enc.vocab_size, V)
+    _, test, _ = synth_target_domain(rng, 512, L, enc.vocab_size, V)
+    pipe = SimpleNamespace(cfg=cfg, model_id="hpo", train_arrays=train,
+                           test_arrays=test, num_unpred_pairs=10)
+    logger = _Records()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    best, trials = search(hpo_objective(pipe, torch.device("cuda"), logger),
+                          cfg, DEFAULT_SPACE, HPO_TRIALS, logger=logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = HPO_TRIALS * -(-len(train) // cfg.train.batch_size)
+    verb = {"best_value": best.value if best else None,
+            "best_params": best.params if best else None,
+            "trials": len(trials)}
+    print(f"{tag}: {HPO_TRIALS} trials of one epoch ({steps} steps) in "
+          f"{wall:.1f} s: {[(t.number, t.value, t.pruned) for t in trials]};"
+          f" the verb's JSON {json.dumps(verb)}; launches {counts} ({smi})",
+          flush=True)
+    if len(trials) != HPO_TRIALS or best is None or not all(
+            t.value is not None and 0.0 <= t.value <= 1.0 for t in trials):
+        fail(f"{tag}: trials {trials}")
+    count_path_launches(records, "hpo", counts, {
+        k: steps * CALLS_A_STEP.get(k, 1) for k in PATH_KERNELS[FLAGSHIP]})
+    return dict(wall_s=wall)
+
+
 def held_after(phase: str) -> None:
     HELD[phase] = round(torch.cuda.memory_allocated() / 2**30, 3)
 
@@ -3962,6 +4447,7 @@ def main() -> int:
         phase_reference(FLAGSHIP, adapter=kind)
     phase_reference_stage1()
     phase_reference_original()
+    phase_reference_pretrain()
     paths = {}
     for preset, iterations, strategy in (
             (FLAGSHIP, 1, "temporal_order_modification"),
@@ -4000,6 +4486,20 @@ def main() -> int:
     del embed
     torch.cuda.empty_cache()
     held_after("clustering")
+    pre = phase_pretrain(records, smi)
+    new_paths["pretrain"] = {k: pre.pop(k) for k in
+                             ("wall_ms", "device_ms", "kernels", "peak_gib")}
+    torch.cuda.empty_cache()
+    held_after("pretrain")
+    new_paths["ordering"] = phase_ordering(records, pre, smi)
+    torch.cuda.empty_cache()
+    held_after("ordering")
+    phase_case_analysis(records, smi)
+    torch.cuda.empty_cache()
+    held_after("case_analysis")
+    phase_hpo(records, smi)
+    torch.cuda.empty_cache()
+    held_after("hpo")
     paths[EN_PRESET] = phase_en(records)
     torch.cuda.empty_cache()
     clause_paths = {}
@@ -4069,7 +4569,9 @@ def main() -> int:
           f"{64 / pair['wall_ms'] * 1e3:.1f} pairs/s), peak memory "
           f"{pair['peak_gib']:.2f} GiB", flush=True)
     for name, p in new_paths.items():
-        print(path_line(f"path {name}", p, p["peak_gib"], smi), flush=True)
+        print(path_line(f"path {name}", p, p["peak_gib"], smi,
+                        "call" if name == "ordering" else "step"),
+              flush=True)
     for name, p in clause_paths.items():
         print(f"path {name} (eager): device {p['device_ms']:.2f} ms/step, "
               f"{p['kernels']:.1f} kernels/step, wall {p['wall_ms']:.2f} "

@@ -377,7 +377,7 @@ def test_dann_verb_runs_on_cpu(tmp_path, capsys):
     # an orbax encoder dir (no config.json) still raises; --language en
     # and an HF --hf_encoder run (tests/test_torch_en.py)
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 3"):
         main(["dann", "--data_root", str(tmp_path / "corpus"), "--encoder",
               "tiny", "--device", "cpu", "--hf_encoder",
               str(tmp_path / "orbax"), "--cache_dir", str(tmp_path / "cache"),

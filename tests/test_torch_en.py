@@ -18,7 +18,7 @@ tests/test_torch_data.write_en_corpus, at tiny widths:
   events and losses (stage 1 rtol 1e-5 a step, the DANN's atol 1e-4 as in
   tests/test_torch_dann.py);
 - the CLI verbs (train, infer, stage1, dann) in en and with --hf_encoder,
-  on the CPU; an orbax dir still raises, naming ROADMAP Queue 1 item 7."""
+  on the CPU; an orbax dir raises, naming ROADMAP Queue 3."""
 
 import dataclasses
 import functools
@@ -431,7 +431,7 @@ def test_cli_hf_encoder_train_and_infer(corpus, hf_dir, capsys, tmp_path):
     and supplies the tokenizer (the config event's vocab is the
     checkpoint's, and no WordPiece is trained); infer serves the
     checkpoint's encoder (the random tiny checkpoint scores F1 0, so train
-    saves no best to load); an orbax dir raises, naming Queue 1 item 7."""
+    saves no best to load); an orbax dir raises, naming Queue 3."""
     common = ["--preset", "en_newsplit", "--data_root", corpus,
               "--encoder", "tiny", "--device", "cpu", "--hf_encoder",
               hf_dir, "--cache_dir", str(tmp_path / "cache"),
@@ -451,7 +451,7 @@ def test_cli_hf_encoder_train_and_infer(corpus, hf_dir, capsys, tmp_path):
     assert _last_json(capsys)["pairs_per_sec"] > 0
     orbax = tmp_path / "orbax"
     orbax.mkdir()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 3"):
         main(["train", "--preset", "en_newsplit", "--data_root", corpus,
               "--encoder", "tiny", "--device", "cpu", "--hf_encoder",
               str(orbax), "--cache_dir", str(tmp_path / "cache"),

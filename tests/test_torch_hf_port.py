@@ -138,7 +138,7 @@ def test_checkpoint_sizes_the_tables_and_orbax_raises(tmp_path):
     """A checkpoint loaded into a configured encoder (stage 1 and the DANN)
     keeps the configured heads, layers and arch and takes the checkpoint's
     table sizes; a directory without config.json (an orbax checkpoint of
-    carel_tpu.pretrain) raises, naming ROADMAP Queue 1 item 7."""
+    carel_tpu.pretrain) raises, naming ROADMAP Queue 3."""
     path = str(tmp_path / "roberta")
     tiny_hf("roberta", path, vocab=90, hidden=64, mlp=128, max_pos=70)
     want = EncoderConfig(vocab_size=300, hidden_dim=64, num_layers=2,
@@ -150,7 +150,7 @@ def test_checkpoint_sizes_the_tables_and_orbax_raises(tmp_path):
     TransformerEncoder(cfg).load_state_dict(state)
     assert hf_port.is_hf_dir(path) and not hf_port.is_hf_dir("")
     os.makedirs(tmp_path / "orbax")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 3"):
         hf_port.load_encoder_checkpoint(str(tmp_path / "orbax"), want)
     os.makedirs(tmp_path / "no_weights")
     (tmp_path / "no_weights" / "config.json").write_text(

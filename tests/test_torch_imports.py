@@ -72,15 +72,37 @@ def test_importing_the_port_loads_no_jax_package_module():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# modules of the adapter, bf16-mu and pair slice and of the embedder, CIT
-# and original slice: the scan above must reach them (it walks the package,
-# so a module moved out of it would drop out)
+# modules of the adapter, bf16-mu and pair slice, of the embedder, CIT and
+# original slice and of the pretraining and tools slice: the scan above must
+# reach them (it walks the package, so a module moved out of it would drop
+# out)
 SLICE_MODULES = ("ops/entmax.py", "models/pair_classifier.py",
                  "train/pair_trainer.py", "tools/memorization_plot.py",
                  "pretrain/mlm.py", "embeddings.py", "data/triples.py",
                  "train/cit_trainer.py", "models/drl_original.py",
                  "train/steps_original.py", "train/original_driver.py",
-                 "tools/clustering.py")
+                 "tools/clustering.py", "tools/mlm_scorer.py",
+                 "tools/ordering.py", "tools/case_analysis.py",
+                 "tools/hpo.py", "tools/convert.py", "tools/vis.py",
+                 "tools/event_analysis.py", "utils/text.py",
+                 "ops/pairwise.py", "cli/main.py")
+
+
+# the host tools import sklearn, matplotlib and jieba only where they use
+# them: the GPU machine has none of the three
+LAZY = ("sklearn", "matplotlib", "jieba")
+
+
+@pytest.mark.parametrize("rel", ("tools/vis.py", "tools/event_analysis.py",
+                                 "pretrain/mlm.py", "cli/main.py"))
+def test_host_libraries_are_imported_lazily(rel):
+    tree = ast.parse((PORT / rel).read_text(encoding="utf8"))
+    top = [mod for node in tree.body
+           for mod in ([a.name for a in node.names]
+                       if isinstance(node, ast.Import) else
+                       [node.module or ""] if isinstance(node, ast.ImportFrom)
+                       else [])]
+    assert not [m for m in top if m.split(".")[0] in LAZY], (rel, top)
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

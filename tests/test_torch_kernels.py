@@ -35,7 +35,10 @@ at tiny widths equals the eager per-step loop from equal seeds (losses rel
 and a capture made stale by load_state is made again. A tiny fp32 step of
 the original 3-latent DRL (train/steps_original.py) on the card equals the
 CPU's (losses rel 1e-4, params within 2 lr of their group), its latent heads
-unchanged and its adversaries moved on both.
+unchanged and its adversaries moved on both. A tiny fp32 MLM step
+(pretrain/mlm.py), captured on the card, equals the CPU's eager one (loss
+rel 1e-4, gradients 1e-3 normwise, params within 2 lr, 1e-3 lr where the
+gradient is not noise) and launches K7-K9 and K10 as the path does.
 """
 
 import numpy as np
@@ -725,12 +728,14 @@ def test_kernels_repeat_bit_for_bit(cuda):
         assert all(torch.equal(u, v) for u, v in zip(da, db))
 
 
-def _flash_problem(device, B, h, L, hd, dtype, seed=0, min_tail=0):
+def _flash_problem(device, B, h, L, hd, dtype, seed=0, min_tail=0,
+                   min_len=1):
     rng = np.random.default_rng(seed)
     q, k, v, g = (torch.tensor(rng.normal(size=(B, h, L, hd))
                                .astype(np.float32), device=device).to(dtype)
                   for _ in range(4))
-    lengths = rng.integers(1, L - min_tail + 1, B)  # pad tails >= min_tail
+    # pad tails >= min_tail, rows of min_len real tokens or more
+    lengths = rng.integers(min_len, L - min_tail + 1, B)
     lengths[0], lengths[1] = L, 0  # a row without pads, an all-pad row
     mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
     return q, k, v, g, torch.tensor(mask, device=device)
@@ -738,22 +743,25 @@ def _flash_problem(device, B, h, L, hd, dtype, seed=0, min_tail=0):
 
 @pytest.mark.parametrize("dtype,tol_out,tol_grad", [
     (torch.float32, 1e-5, 1e-4), (torch.bfloat16, 6e-3, 8e-3)])
-@pytest.mark.parametrize("B,h,L,hd,min_tail", [
-    (8, 12, 96, 64, 0), (5, 4, 37, 16, 0), (3, 2, 130, 32, 0),
-    (2, 2, 70, 128, 0),
+@pytest.mark.parametrize("B,h,L,hd,min_tail,min_len", [
+    (8, 12, 96, 64, 0, 1), (5, 4, 37, 16, 0, 1), (3, 2, 130, 32, 0, 1),
+    (2, 2, 70, 128, 0, 1),
     # L over one block's rows, so that the tensor-core kernels' ring wraps;
     # hd = 128; pad tails longer than one tile of 32 keys
-    (3, 2, 200, 64, 0), (2, 2, 513, 32, 0), (2, 2, 96, 128, 0),
-    (4, 2, 160, 64, 48),
+    (3, 2, 200, 64, 0, 1), (2, 2, 513, 32, 0, 1), (2, 2, 96, 128, 0, 1),
+    (4, 2, 160, 64, 48, 1),
     # the embed path's batch: 200 is no multiple of 64, so the last tile
-    # of keys is partly empty; EncoderEmbedder's batches at L = 200 and 64,
-    # and one document's dozen clauses with long pad tails (the cit path)
-    (32, 12, 200, 64, 0), (256, 12, 200, 64, 0), (256, 12, 64, 64, 0),
-    (12, 12, 64, 64, 24)])
-def test_flash_kernels_match_plain(cuda, B, h, L, hd, min_tail, dtype,
-                                   tol_out, tol_grad):
+    # of keys is partly empty; EncoderEmbedder's batch at L = 200, MLM
+    # pretraining's (and EncoderEmbedder's at L = 64), one document's dozen
+    # clauses with long pad tails (the cit path) and the MLM scorer's 32
+    # rows of 20-40 real tokens
+    (32, 12, 200, 64, 0, 1), (256, 12, 200, 64, 0, 1),
+    (256, 12, 64, 64, 0, 1), (12, 12, 64, 64, 24, 1),
+    (32, 12, 64, 64, 24, 20)])
+def test_flash_kernels_match_plain(cuda, B, h, L, hd, min_tail, min_len,
+                                   dtype, tol_out, tol_grad):
     q, k, v, g, mask = _flash_problem(cuda, B, h, L, hd, dtype,
-                                      min_tail=min_tail)
+                                      min_tail=min_tail, min_len=min_len)
     scale = 1.0 / float(np.sqrt(hd))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ops.reset_launch_counts()
@@ -1303,3 +1311,74 @@ def test_original_step_on_the_card_matches_the_cpu(cuda):
             assert not torch.equal(p[f"{adv}.weight"], init[f"{adv}.weight"])
     assert counts["emb_bwd"] == 3
     assert sum(counts.values()) == 3
+
+
+def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
+    """One tiny fp32 MLM step (pretrain/mlm.py: MlmTrainer, flash
+    attention), captured and replayed on the card and eager on the CPU,
+    from the same weights and the same draws (draw_noise replaced) at the
+    lr after warmup: loss within rel 1e-4, gradients within 1e-3 normwise,
+    every parameter within 2 lr and within 1e-3 lr where its gradient is
+    over 1e-3 of its tensor's largest (the attention key biases, whose
+    gradient is 0 in exact arithmetic, to 2 lr only); the card's step
+    launches K7-K9 once a layer and K10 three times, in one capture."""
+    from carel_tpu_torch.models.encoder import tiny_encoder_config
+    from carel_tpu_torch.pretrain import mlm
+
+    enc = tiny_encoder_config(vocab_size=128, dropout=0.0,
+                              attention_impl="flash")
+    cfg = mlm.MlmConfig(batch_size=8, seq_len=24, warmup_steps=4,
+                        learning_rate=1e-3)
+    rng = np.random.default_rng(6)
+    n, B, L = 32, cfg.batch_size, cfg.seq_len
+    lengths = rng.integers(6, L + 1, n)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = (rng.integers(5, enc.vocab_size, (n, L)) * mask).astype(np.int32)
+    ids[:, 0] = 2
+    u = rng.random((B, L)).astype(np.float32)
+    u[:, ::4] = 0.01
+    host = (rng.integers(0, n, B), u, rng.random((B, L)).astype(np.float32),
+            rng.integers(5, enc.vocab_size, (B, L)))
+    draws = {dev: tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                        for a in host) for dev in ("cpu", "cuda")}
+    init = mlm.build_mlm(enc, seed=0).state_dict()
+    real = mlm.draw_noise
+    mlm.draw_noise = lambda gen, n, shape, vocab, device: draws[
+        torch.device(device).type]
+    runs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            model = mlm.MlmModel(enc)
+            model.load_state_dict(init)
+            trainer = mlm.MlmTrainer(model.to(dev), cfg, ids, mask, None, 4,
+                                     dev)
+            trainer.count.fill_(cfg.warmup_steps)
+            ops.reset_launch_counts()
+            loss = float(trainer.dispatch(1))
+            runs[dev] = (loss, {k: v.detach().cpu() for k, v in
+                                model.state_dict().items()},
+                         {k: p.grad.cpu() for k, p in
+                          model.named_parameters()},
+                         ops.launch_counts(), trainer.captures)
+    finally:
+        mlm.draw_noise = real
+    (l_c, p_c, g_c, _, _), (l_g, p_g, g_g, counts, captures) = (
+        runs["cpu"], runs["cuda"])
+    lr = cfg.learning_rate
+    assert abs(l_g - l_c) <= 1e-4 * abs(l_c)
+    for name, g in g_c.items():
+        if float(g.abs().max()) > 0:
+            assert _relnorm(g_g[name], g) <= 1e-3, name
+        diff = (p_g[name] - p_c[name]).abs()
+        assert float(diff.max()) <= 2 * lr, name
+        safe = g.abs() > 1e-3 * g.abs().max()
+        if name.endswith("attention.qkv.bias"):
+            d = g.shape[0] // 3
+            safe[d:2 * d] = False
+        if bool(safe.any()):
+            assert float(diff[safe].max()) <= 1e-3 * lr, name
+    assert captures == 1
+    layers = enc.num_layers
+    assert {k: v for k, v in counts.items() if v} == {
+        "flash_fwd": layers, "flash_bwd_dkv": layers,
+        "flash_bwd_dq": layers, "emb_bwd": 3}

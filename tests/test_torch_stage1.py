@@ -403,14 +403,14 @@ def test_stage1_verb_feeds_the_flagship(tmp_path, capsys, monkeypatch):
 
 def test_stage1_verb_raises_for_what_is_not_ported(tmp_path):
     """--language en and an HF --hf_encoder run since the en slice
-    (tests/test_torch_en.py); an encoder dir without config.json, an orbax
-    checkpoint of carel_tpu.pretrain, still raises: the port has no
-    pretraining yet."""
+    (tests/test_torch_en.py); an encoder dir with neither config.json nor
+    encoder.pt, an orbax checkpoint of carel_tpu.pretrain, raises: the port
+    reads neither orbax nor jax (ROADMAP Queue 3)."""
     _stage1_corpus(str(tmp_path))
     orbax = tmp_path / "orbax"
     orbax.mkdir()
     args = ["stage1", "--data_root", str(tmp_path), "--device", "cpu",
             "--encoder", "tiny", "--cache_dir", str(tmp_path / "cache"),
             "--log_dir", str(tmp_path / "logs")]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 3"):
         main(args + ["--hf_encoder", str(orbax)])
