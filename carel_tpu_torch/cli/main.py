@@ -8,6 +8,8 @@
         [--adapter raw|sparsemax|entmax --head_number 4] \\
         [--optim_mu_dtype bfloat16]
     python -m carel_tpu_torch.cli train --preset ec_hsic --data_root ...
+    python -m carel_tpu_torch.cli train ... [--num_devices N] \\
+        [--mesh_shape dp,tp]
     python -m carel_tpu_torch.cli train --preset en_newsplit --data_root ... \\
         [--hf_encoder /path/to/local/roberta-base]
     python -m carel_tpu_torch.cli infer --preset ... --data_root ... \\
@@ -41,10 +43,16 @@ captured CUDA-graph step replayed over the stacked epoch (the counterpart
 of the JAX package's whole-epoch scan) unless ``--no_scan_epoch`` or
 ``--debug_nans`` asks for the per-step loop; ``--save_state_every`` and
 ``--resume`` save and restore the full train state, ``--profile_dir``
-traces the base training. ``infer`` loads the best checkpoint
-of ``--model_id`` (random weights without it), scores every pair of the test
-file in fixed-size batches and, with ``--output_dir``, writes the true/pred
-pickles. ``stage1`` trains the document-level emotion model on the source
+traces the base training. ``--num_devices N`` (0: every device) and
+``--mesh_shape dp,tp`` train over a mesh (``parallel/``): the verb starts
+one worker process a device (a TCP rendezvous on 127.0.0.1, NCCL on the
+cards, gloo under ``--device cpu``), splits each batch over 'data' and,
+with tp over 1, the encoder's heads and MLP columns over 'model'; every
+rank computes the global batch's loss, as JAX's single controller does, and
+rank 0 logs, writes the checkpoints and prints the last line. ``infer``
+loads the best checkpoint of ``--model_id`` (random weights without it),
+scores every pair of the test file in fixed-size batches and, with
+``--output_dir``, writes the true/pred pickles. ``stage1`` trains the document-level emotion model on the source
 domain, self-trains on the target and writes the stage-1 pair file that the
 ``predicted_emotion`` presets test on; ``dann`` runs the clause-level DANN
 emotion classifier with its self-training; ``pair`` trains the plain pair
@@ -166,6 +174,16 @@ def _apply_overrides(cfg: CarelConfig, args) -> CarelConfig:
         tkw["profile_dir"] = args.profile_dir
     if getattr(args, "debug_nans", False):
         tkw["debug_nans"] = True
+    if getattr(args, "num_devices", None) is not None:
+        tkw["num_devices"] = args.num_devices
+    if getattr(args, "mesh_shape", ""):
+        try:
+            parts = [int(x) for x in args.mesh_shape.split(",")]
+        except ValueError:
+            parts = []
+        if len(parts) != 2:
+            raise SystemExit("--mesh_shape expects 'dp,tp', e.g. 4,2")
+        tkw["mesh_shape"] = tuple(parts)
     if getattr(args, "scan_epoch", False):
         tkw["scan_epoch"] = True
     if getattr(args, "no_scan_epoch", False):
@@ -293,6 +311,12 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "anomaly detection); it reads values back to the "
                         "host and cannot be captured, so the per-step loop "
                         "runs")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="devices for the data mesh (0 = all; none = no "
+                        "mesh)")
+    p.add_argument("--mesh_shape", default="",
+                   help="dp,tp mesh, e.g. 4,2 = dp4 x tp2 (Megatron-split "
+                        "encoder weights on the model axis)")
 
 
 def cmd_train(args) -> int:
@@ -300,6 +324,9 @@ def cmd_train(args) -> int:
 
     device = resolve_device(args.device)
     cfg = _apply_overrides(PRESETS[args.preset], args)
+    shape = _mesh_shape(args, cfg, device)
+    if shape is not None:
+        return _train_on_mesh(args, cfg, device, shape)
 
     import torch
 
@@ -307,7 +334,66 @@ def cmd_train(args) -> int:
         return _train(args, cfg, device)
 
 
-def _train(args, cfg: CarelConfig, device) -> int:
+def _mesh_shape(args, cfg: CarelConfig, device):
+    """(dp, tp) of the mesh the flags ask for, or None: ``--mesh_shape``
+    gives it, ``--num_devices N`` is (N, 1) (0: every device), no flag no
+    mesh, as in the JAX CLI."""
+    from carel_tpu_torch.parallel.mesh import local_device_count
+
+    if cfg.train.mesh_shape is not None:
+        return tuple(cfg.train.mesh_shape)
+    if args.num_devices is None:
+        return None
+    return (args.num_devices or local_device_count(device), 1)
+
+
+def _train_on_mesh(args, cfg: CarelConfig, device, shape) -> int:
+    """Train over a (dp, tp) mesh: one worker a device, started here (a
+    world of one runs in this process)."""
+    from carel_tpu_torch.parallel.mesh import free_port, local_device_count
+
+    world = shape[0] * shape[1]
+    if world < 1:
+        raise SystemExit(f"mesh shape {shape} holds no device")
+    if device.type == "cuda" and world > local_device_count(device):
+        raise SystemExit(f"mesh shape {shape} needs {world} cards, this "
+                         f"machine has {local_device_count(device)}")
+    port = free_port()
+    if world == 1:
+        return _mesh_worker(0, args, cfg, device.type, port, shape)
+    import torch.multiprocessing as mp
+
+    mp.spawn(_mesh_worker, args=(args, cfg, device.type, port, shape),
+             nprocs=world, join=True)
+    return 0
+
+
+def _mesh_worker(rank: int, args, cfg: CarelConfig, device_type: str,
+                 port: int, shape) -> int:
+    import torch
+    import torch.distributed as dist
+
+    from carel_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    world = shape[0] * shape[1]
+    device = torch.device(device_type, rank) if device_type == "cuda" \
+        else torch.device("cpu")
+    if device_type == "cpu":
+        # the ranks share the machine's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    init_distributed(rank, world, port, device)
+    try:
+        axes = ("data", "model") if cfg.train.mesh_shape is not None \
+            else ("data",)
+        mesh = make_mesh(world, axes, shape if len(axes) == 2
+                         else shape[:1])
+        with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
+            return _train(args, cfg, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, cfg: CarelConfig, device, mesh=None) -> int:
     from carel_tpu_torch.pipeline import build_pipeline, init_state
     from carel_tpu_torch.selftrain import self_train
     from carel_tpu_torch.train import checkpoint as ckpt
@@ -319,42 +405,65 @@ def _train(args, cfg: CarelConfig, device) -> int:
     from carel_tpu_torch.utils.profiling import trace
 
     enc = _encoder_preset(args.encoder, cfg.data.language)
-    pipe = build_pipeline(cfg, cache_dir=args.cache_dir, encoder_cfg=enc,
-                          max_train_docs=args.max_train_docs,
-                          max_test_docs=args.max_test_docs)
+
+    def pipeline():
+        return build_pipeline(cfg, cache_dir=args.cache_dir, encoder_cfg=enc,
+                              max_train_docs=args.max_train_docs,
+                              max_test_docs=args.max_test_docs)
+
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        pipe = pipeline()
+    if mesh is not None:
+        # rank 0 writes the caches (tokenizer, segmentation) that the
+        # others then read, and every rank takes its model id
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)
+        if not lead:
+            pipe = pipeline()
+        ids = [pipe.model_id]
+        dist.broadcast_object_list(ids, src=0, group=mesh.group)
+        pipe.model_id = ids[0]
     cfg = pipe.cfg
     # anomaly mode reads values back to the host, which a captured step
     # cannot do: under --debug_nans the per-step loop runs
     epoch_step = cfg.train.scan_epoch and not cfg.train.debug_nans
     train_step = make_epoch_step(cfg) if epoch_step else make_train_step(cfg)
-    logger = JsonlLogger(cfg.train.log_dir,
-                         f"{args.preset}_{pipe.model_id[:8]}")
+    logger = JsonlLogger(cfg.train.log_dir if lead else "",
+                         f"{args.preset}_{pipe.model_id[:8]}", echo=lead)
+    segmenter = pipe.bow.segmenter
     logger.log({"event": "config", "preset": args.preset,
                 "model_id": pipe.model_id, "device": str(device),
                 "epoch_step": epoch_step,
+                "mesh_shape": list(mesh.shape) if mesh else None,
+                "segmentation": segmenter.source if segmenter else None,
                 "train_pairs": len(pipe.train_arrays),
                 "test_pairs": len(pipe.test_arrays),
                 "num_unpred": pipe.num_unpred_pairs,
                 "bow_dim": cfg.model.bow_dim,
                 "vocab": cfg.model.encoder.vocab_size})
 
-    state = init_state(cfg, device)
+    state = init_state(cfg, device, mesh=mesh)
     if args.resume:
-        state = ckpt.load_state(cfg.train.checkpoint_dir, args.resume, state)
+        state = ckpt.load_state(cfg.train.checkpoint_dir, args.resume, state,
+                                mesh)
         logger.log({"event": "resumed", "from": args.resume,
                     "step": state.step})
     eval_step = make_eval_step()
     best_cache: dict = {}
-    with trace(cfg.train.profile_dir):
+    with trace(cfg.train.profile_dir if lead else ""):
         state, best = train_epochs(
             cfg, state, train_step, eval_step, pipe.train_arrays,
             pipe.test_arrays, pipe.num_unpred_pairs, pipe.model_id,
-            logger=logger, best_cache=best_cache)
+            logger=logger, best_cache=best_cache, mesh=mesh)
+    self_training = cfg.train.self_iteration > 0
     logger.log({"event": "base_done", "p": best[0], "r": best[1],
-                "f1": best[2]})
+                "f1": best[2],
+                **({} if self_training else _run_record(train_step))})
 
     final_best = best
-    if cfg.train.self_iteration > 0:
+    if self_training:
         if cfg.train.self_lr > 0.0:
             # the fine-tunes' main Adam takes self_lr (its state does not
             # depend on lr); the disc and club optimizers keep adv_lr and
@@ -373,11 +482,12 @@ def _train(args, cfg: CarelConfig, device) -> int:
             pipe.model_id, logger=logger,
             track_memorization=args.track_memorization,
             best_cache=best_cache,
-            initial_best=best if args.self_anchor_base else None)
+            initial_best=best if args.self_anchor_base else None,
+            mesh=mesh)
         if args.track_memorization and logger.path:
             _plot_memorization(logger, cfg.train.log_dir)
         logger.log({"event": "self_done", "p": sbest[0], "r": sbest[1],
-                    "f1": sbest[2]})
+                    "f1": sbest[2], **_run_record(train_step)})
         # reference-exact default: when self-training never produces a
         # non-empty pseudo set, sbest stays at the (0, 0, 0) the reference's
         # zero-initialised self metrics report (flagship :967);
@@ -390,9 +500,22 @@ def _train(args, cfg: CarelConfig, device) -> int:
     logger.close()
     # best_f1 is the run's headline (the self-training best when it ran, the
     # reference's reported number); base_f1 is the best before it
-    print(json.dumps({"model_id": pipe.model_id, "best_f1": final_best[2],
-                      "base_f1": best[2]}))
+    if lead:
+        print(json.dumps({"model_id": pipe.model_id,
+                          "best_f1": final_best[2], "base_f1": best[2]}))
     return 0
+
+
+def _run_record(train_step) -> dict:
+    """What the run did, on its last summary event: the epoch step's
+    captures and replays, every kernel's launches in this process, and
+    whether jieba was imported."""
+    from carel_tpu_torch import ops
+
+    return {"captures": getattr(train_step, "captures", None),
+            "replays": getattr(train_step, "replays", None),
+            "launches": ops.launch_counts(),
+            "jieba_imported": "jieba" in sys.modules}
 
 
 def _plot_memorization(logger, log_dir: str) -> None:
@@ -867,8 +990,18 @@ def cmd_pretrain(args) -> int:
     # shapes; a mismatch raises in load_state_dict)
     init_params = load_encoder(args.init_encoder) if args.init_encoder \
         else None
+    segmenter = None
+    if args.whole_word and cfg.data.language == "zh":
+        # jieba's words of the corpus files, through their cache
+        from carel_tpu_torch.data.bow import open_segmentation
+
+        segmenter = open_segmentation(
+            args.cache_dir, corpus_paths + list(args.raw_corpus or []))
     params = pretrain_mlm(enc, tok, texts, mlm_cfg, logger,
-                          init_params=init_params, device=device)
+                          init_params=init_params, device=device,
+                          segmenter=segmenter)
+    if segmenter is not None:
+        segmenter.save()
     path = save_encoder(args.out, params)
     logger.close()
     print(json.dumps({"encoder_ckpt": path, "clauses": len(texts)}))

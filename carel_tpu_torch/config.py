@@ -9,9 +9,10 @@ drl_classifier_ec_mmd_final_mul_newsplit_emnlp.py:30-70 for the newsplit extras)
 The dataclasses and presets are kept field for field with the JAX package so a
 preset means the same run in both. The port reads scan_epoch (a captured
 CUDA-graph step replayed over the stacked epoch, train/scan_epoch.py),
-save_state_every, profile_dir, debug_nans and optim_mu_dtype (the ``train``
-verb). Fields that only the JAX package reads (remat, rng_impl, donate,
-num_devices, mesh_shape) are carried but ignored here.
+save_state_every, profile_dir, debug_nans, optim_mu_dtype, num_devices and
+mesh_shape (the ``train`` verb; the mesh of parallel/). Fields that only
+the JAX package reads (remat, rng_impl, donate) are carried but ignored
+here.
 """
 
 from __future__ import annotations
@@ -244,7 +245,7 @@ class TrainConfig:
     scan_epoch: bool = True
     # parallelism
     num_devices: int = 0  # 0 = all available
-    mesh_shape: Optional[tuple] = None  # e.g. (8,) data-parallel
+    mesh_shape: Optional[tuple] = None  # (dp, tp), e.g. (4, 2)
 
 
 @dataclass(frozen=True)

@@ -4,8 +4,10 @@ the clause-level ClauseEmotionDANN, the original 3-latent DrlOriginalModel
 (its latent heads ``content_mu`` ... ``cause_log_var``, five adversaries,
 four classifiers and ``decoder`` are Dense layers), the IDEC AutoEncoder
 (``enc_0`` ... ``out``), the MLM of pretraining (``encoder``, then the
-Dense ``mlm_transform`` and ``mlm_output`` and the LayerNorm ``mlm_ln``)
-and a bare TransformerEncoder.
+Dense ``mlm_transform`` and ``mlm_output`` and the LayerNorm ``mlm_ln``),
+the ``DomainDiscriminator`` (Dense ``fc1``, ``fc2``, ``out``) and a bare
+TransformerEncoder. ``jax_params_to_tp_shard`` gives one tensor-parallel
+rank's part of the DrlModel's (``parallel/tp.py``).
 
 The JAX params arrive as a nested dict of numpy arrays (e.g. the Flax tree
 passed through ``np.asarray``). Layouts (carel_tpu/models/hf_port.py:10-14
@@ -140,3 +142,13 @@ def jax_batch_stats_to_state_dict(batch_stats: Mapping
         state[f"{_module_path(tuple(mod))}.{_BATCH_STATS[leaf]}"] = \
             torch.tensor(np.asarray(arr, np.float32))
     return state
+
+
+def jax_params_to_tp_shard(params: Mapping, rank: int, tp: int,
+                           num_heads: int) -> Dict[str, torch.Tensor]:
+    """Tp rank ``rank``'s part of ``jax_params_to_state_dict(params)``
+    under the Megatron split of parallel/tp.py (``tp`` ranks on 'model')."""
+    from carel_tpu_torch.parallel.tp import shard_tensor
+
+    return {k: shard_tensor(k, v, rank, tp, num_heads).clone()
+            for k, v in jax_params_to_state_dict(params).items()}

@@ -11,13 +11,23 @@ Reproduces bow_util.py (reference :13-81) and ECPEDataset._get_bow_representatio
 SPARSE (per-example term indices + counts padded to a fixed width) so the host
 never materializes an [N, V] dense matrix; densification happens per batch on
 the device.
+
+jieba segments the zh text. A ``SegmentationCache`` in the cache dir keeps
+jieba's words for every string handed to it, in a file named by a hash of
+the input files' bytes, so that a machine without jieba (the one with the
+GPU) reads the same words: where jieba imports, it segments and the cache
+file is written; where it does not, the file is read, and a string the file
+lacks raises. No other segmenter stands in.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import re
 from dataclasses import dataclass
-from typing import Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,22 +36,100 @@ from carel_tpu_torch.data.ecpe_format import Document, parse_ecpe_file
 _NON_CJK = re.compile(u"[^一-龥]")
 _PUNCT = re.compile(r"[^\w\s]")
 
-_jieba = None
+def _import_jieba():
+    """jieba, or None where it does not import (asked anew each time, so a
+    blocked import is seen)."""
+    try:
+        import jieba
+    except ImportError:
+        return None
+    jieba.setLogLevel(60)
+    return jieba
 
 
 def _get_jieba():
-    global _jieba
-    if _jieba is None:
-        import jieba
-
-        jieba.setLogLevel(60)
-        _jieba = jieba
-    return _jieba
+    jieba = _import_jieba()
+    if jieba is None:
+        raise ImportError("jieba is not installed: the zh BoW needs it, or "
+                          "a segmentation cache (SegmentationCache)")
+    return jieba
 
 
-def tokenize_zh(text: str) -> List[str]:
-    """Strip non-CJK chars, then jieba-segment (bow_util.py:13-17)."""
+def segmentation_cache_path(cache_dir: str, files: Sequence[str]) -> str:
+    """The cache file of ``files`` (train, test, BoW corpus; or a pretrain
+    corpus) in ``cache_dir``: ``segmentation_zh_<hash>.json``, the hash
+    taken over the files' bytes in order."""
+    digest = hashlib.sha256()
+    for path in files:
+        with open(path, "rb") as f:
+            data = f.read()
+        digest.update(len(data).to_bytes(8, "little"))
+        digest.update(data)
+    return os.path.join(cache_dir,
+                        f"segmentation_zh_{digest.hexdigest()[:16]}.json")
+
+
+class SegmentationCache:
+    """jieba's words for every exact string handed to ``cut``. With jieba,
+    ``cut`` segments through it and records the words, and ``save`` writes
+    the file; without it, the file at ``path`` is read and a string it
+    lacks raises a LookupError naming the string and the file."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.jieba = _import_jieba()
+        self.table: Dict[str, List[str]] = {}
+        if self.jieba is None:
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"jieba is not installed and there is no zh "
+                    f"segmentation cache {path}: make it where jieba "
+                    f"imports, from the same input files (README.md)")
+            with open(path, encoding="utf-8") as f:
+                self.table = json.load(f)
+
+    @property
+    def source(self) -> str:
+        return "jieba" if self.jieba is not None else "cache"
+
+    def cut(self, text: str) -> List[str]:
+        if self.jieba is not None:
+            words = self.jieba.lcut(text)
+            self.table[text] = words
+            return words
+        words = self.table.get(text)
+        if words is None:
+            raise LookupError(f"the zh segmentation cache {self.path} has "
+                              f"no entry for {text!r}, and jieba is not "
+                              f"installed")
+        return list(words)
+
+    def save(self) -> None:
+        """Write the file (jieba's side only; the reading side has
+        nothing new)."""
+        if self.jieba is None:
+            return
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        tmp = self.path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(self.table, f, ensure_ascii=False, sort_keys=True,
+                      separators=(",", ":"))
+        os.replace(tmp, self.path)
+
+
+def open_segmentation(cache_dir: str, files: Sequence[str]
+                      ) -> SegmentationCache:
+    """The segmentation cache of ``files`` in ``cache_dir``."""
+    return SegmentationCache(segmentation_cache_path(cache_dir, files))
+
+
+def tokenize_zh(text: str,
+                segmenter: Optional[SegmentationCache] = None) -> List[str]:
+    """Strip non-CJK chars, then jieba-segment (bow_util.py:13-17), through
+    ``segmenter`` when one is given."""
     text = _NON_CJK.sub("", text)
+    if segmenter is not None:
+        return segmenter.cut(text)
     return _get_jieba().lcut(text)
 
 
@@ -68,19 +156,23 @@ class BowVocab:
     words: List[str]
     index: dict  # word -> position
     tokenizer: str  # "zh" | "en"
+    # where zh words come from: a SegmentationCache, or jieba when None
+    segmenter: Optional[SegmentationCache] = None
 
     def __len__(self) -> int:
         return len(self.words)
 
     @classmethod
-    def from_words(cls, words: Iterable[str], tokenizer: str) -> "BowVocab":
+    def from_words(cls, words: Iterable[str], tokenizer: str,
+                   segmenter: Optional[SegmentationCache] = None
+                   ) -> "BowVocab":
         words = list(words)
         return cls(words=words, index={w: i for i, w in enumerate(words)},
-                   tokenizer=tokenizer)
+                   tokenizer=tokenizer, segmenter=segmenter)
 
     def tokenize(self, text: str) -> List[str]:
         if self.tokenizer == "zh":
-            return tokenize_zh(_NON_CJK.sub("", text))
+            return tokenize_zh(text, self.segmenter)
         return bow_tokenize_en(text)
 
     def counts(self, text: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -146,11 +238,17 @@ def _count_vectorizer_vocab(corpus: List[str], tokenizer=None) -> List[str]:
     return sorted(terms)
 
 
-def build_bow_vocab_zh(file_path: str) -> BowVocab:
-    """zh vocab: jieba tokens over space-stripped clauses (bow_util.py:20-40)."""
+def build_bow_vocab_zh(file_path: str,
+                       segmenter: Optional[SegmentationCache] = None
+                       ) -> BowVocab:
+    """zh vocab: jieba tokens over space-stripped clauses (bow_util.py:20-40);
+    the words come through ``segmenter`` when one is given, and the vocab
+    keeps it for the pair strings."""
     docs = parse_ecpe_file(file_path)
     corpus = _doc_sentences(docs, strip_spaces=True)
-    return BowVocab.from_words(_count_vectorizer_vocab(corpus, tokenize_zh), "zh")
+    words = _count_vectorizer_vocab(
+        corpus, lambda text: tokenize_zh(text, segmenter))
+    return BowVocab.from_words(words, "zh", segmenter)
 
 
 def build_bow_vocab_en(file_path: str, bow_optimize: bool = False) -> BowVocab:

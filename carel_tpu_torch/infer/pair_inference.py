@@ -8,8 +8,9 @@ pair_data/ec_pair/{id}_{true,pred}.pkl by the CIT classifier).
 
 Latency: scoring runs in fixed-size batches; per-batch p50/p95 are reported.
 Each batch's time runs from the host batch to its probabilities on the host:
-the ``.cpu()`` fetch is the synchronisation. Sharding over a mesh waits for
-``parallel/``.
+the ``.cpu()`` fetch is the synchronisation. Under a mesh (``mesh``, as at
+carel_tpu/infer/pair_inference.py:46-59) each rank feeds its rows of every
+batch and gets the whole batch's probabilities.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from carel_tpu_torch.data.batching import PairArrays, cut_batch
 from carel_tpu_torch.data.pairs import PairSet
+from carel_tpu_torch.parallel.sharding import shard_batch
 from carel_tpu_torch.train.metrics import prf_with_forced_misses
 from carel_tpu_torch.train.steps import batch_to_device
 
@@ -46,6 +48,7 @@ def score_pairs(
     arrays: PairArrays,
     generator: torch.Generator,
     batch_size: int = 512,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Probabilities over all pairs + per-batch wall times (seconds)."""
     device = next(model.parameters()).device
@@ -55,6 +58,8 @@ def score_pairs(
     for start in range(0, n, batch_size):
         idx = np.arange(start, min(start + batch_size, n))
         host = cut_batch(arrays, idx, batch_size).as_dict()
+        if mesh is not None:
+            host = shard_batch(mesh, host)
         t0 = time.perf_counter()
         p = eval_step(model, batch_to_device(host, device),
                       generator).cpu().numpy()
@@ -72,6 +77,7 @@ def run_pair_inference(
     batch_size: int = 512,
     output_dir: str = "",
     model_id: str = "model",
+    mesh=None,
 ) -> InferenceResult:
     """Score ``arrays`` (the encoding of ``pair_set``) with ``model`` where
     it lies. The sampling noise comes from ``generator`` (default: a new one
@@ -80,7 +86,7 @@ def run_pair_inference(
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(0)
     probs, times = score_pairs(eval_step, model, arrays, generator,
-                               batch_size)
+                               batch_size, mesh)
     preds = np.round(probs).astype(np.int64)
     p, r, f1 = prf_with_forced_misses(
         arrays.pair_labels, probs, pair_set.num_unpred_emotions)

@@ -7,7 +7,10 @@ LinearDiscriminator and ClubNet of carel_tpu/models/discriminators.py.
   (drl_classifier_ec_vi_final.py:153-161): linear-relu-linear for mu and
   linear-relu-linear-tanh for log_var.
 - grad_reverse: the gradient-reversal layer of the clause-level DANN
-  (models/dann.py).
+  (models/dann.py);
+- DomainDiscriminator: the reference's domain head, gradient reversal then
+  hidden-relu-hidden-relu-logit (Dense ``fc1``, ``fc2``, ``out``),
+  exported as in the JAX package (which no trainer calls).
 """
 
 from __future__ import annotations
@@ -60,3 +63,22 @@ def grad_reverse(x: torch.Tensor, lambda_: float = 1.0) -> torch.Tensor:
     """Gradient reversal (DANN): the identity forward, -lambda * g
     backward, as carel_tpu's custom_vjp ``grad_reverse``."""
     return _GradReverse.apply(x, float(lambda_))
+
+
+class DomainDiscriminator(nn.Module):
+    """grad_reverse(features, grl_lambda), then Dense(hidden) - relu -
+    Dense(hidden) - relu - Dense(1): one domain logit a row."""
+
+    def __init__(self, in_dim: int, hidden_dim: int = 100,
+                 grl_lambda: float = 1.0):
+        super().__init__()
+        self.grl_lambda = grl_lambda
+        self.fc1 = nn.Linear(in_dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, hidden_dim)
+        self.out = nn.Linear(hidden_dim, 1)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = grad_reverse(features, self.grl_lambda)
+        x = F.relu(self.fc1(x))
+        x = F.relu(self.fc2(x))
+        return self.out(x)

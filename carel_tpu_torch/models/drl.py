@@ -16,6 +16,18 @@ unread outputs; run eagerly, they would be launched on every step and every
 served batch.) Outputs are raw tensors under the JAX package's keys; the
 losses live in carel_tpu_torch.losses. The stop-gradient inputs of the
 discriminator and CLUB outputs (``*_sg``) are ``.detach()``-ed latents.
+
+Under a mesh (``self.mesh``, set by ``pipeline.init_state``) the forward is
+split at the latent parameters. The ``LOCAL`` modules (the encoder, the
+adapters and the four latent projections) run on this rank's rows of the
+batch; their outputs are gathered over the mesh's 'data' axis; the rest
+(sampling, classifiers, decoder, discriminators, CLUB) runs on the gathered
+rows of the global batch, the same on every rank. So every rank computes
+the global batch's loss and noise, as one device does. The step sums the
+``local_parameters``' gradients over 'data'; the others get the whole
+gradient on every rank. A gather passes its input's gradient straight
+back, so the backward adds every gradient in the order it does without a
+mesh: a mesh of one device gives the bits of no mesh.
 """
 
 from __future__ import annotations
@@ -30,6 +42,11 @@ from carel_tpu_torch.models.discriminators import ClubNet, LinearDiscriminator
 from carel_tpu_torch.models.encoder import TransformerEncoder
 from carel_tpu_torch.models.heads import (AttentionAdapter, VaeHeads,
                                           sample_prior)
+from carel_tpu_torch.parallel.sharding import gather_rows
+
+# modules run on this rank's rows under a mesh; the rest on gathered rows
+LOCAL = ("encoder", "emotion_adapter", "cause_adapter", "heads.emotion_mu",
+         "heads.emotion_log_var", "heads.cause_mu", "heads.cause_log_var")
 
 
 class DrlModel(nn.Module):
@@ -49,6 +66,14 @@ class DrlModel(nn.Module):
         self.ec_disc = LinearDiscriminator(cfg.ec_dim, 1, cfg.dropout)
         self.ce_disc = LinearDiscriminator(cfg.ec_dim, 1, cfg.dropout)
         self.club = ClubNet(cfg.ec_dim)
+        self.mesh = None
+
+    def local_parameters(self):
+        """The parameters of the ``LOCAL`` modules, which see this rank's
+        rows only: their gradients are summed over the mesh's 'data'
+        axis."""
+        return [p for name, p in self.named_parameters()
+                if any(name.startswith(m + ".") for m in LOCAL)]
 
     def features(self, input_ids, attention_mask, token_type_ids,
                  deterministic: bool = True):
@@ -88,7 +113,11 @@ class DrlModel(nn.Module):
         # without adapters both latents read the one pooled output
         c_feat = e_feat if self.cfg.adapter == AdapterKind.NONE \
             else c_feat.float()
-        e_mu, e_lv, c_mu, c_lv = self.heads.latent_params(e_feat, c_feat)
+        latents = self.heads.latent_params(e_feat, c_feat)
+        if self.mesh is not None:
+            # this rank's rows to the global batch's
+            latents = [gather_rows(t, self.mesh) for t in latents]
+        e_mu, e_lv, c_mu, c_lv = latents
 
         if sample:
             eps_e, eps_c = eps if eps is not None else (None, None)

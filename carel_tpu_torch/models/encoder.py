@@ -18,7 +18,12 @@ Kept from the JAX encoder:
   the CPU), on every device. Without dropout both paths give the same
   pooled output and hidden states at real positions; at pad positions they
   differ, since a pad query attends to pad keys under the segment mask;
-- exact-erf GELU, post-LN residuals, and a dense+tanh pooler over [CLS].
+- exact-erf GELU, post-LN residuals, and a dense+tanh pooler over [CLS];
+- under a mesh with a 'model' axis over 1 (``parallel/tp.py:
+  shard_params_tp``), the Megatron split: each rank runs its heads (the
+  flash kernels on ``h / tp`` heads) and its MLP columns, and the partial
+  out and ``mlp_out`` products are summed over 'model' before their bias is
+  added once; with ``tp`` None the layers are as above.
 
 With ``dtype="bfloat16"`` the encoder runs under bf16 autocast with LayerNorm
 in fp32 and its outputs cast back to bf16, as the JAX encoder computes matmuls
@@ -40,6 +45,7 @@ from carel_tpu_torch.config import EncoderConfig
 from carel_tpu_torch.ops.cuda_attention import (flash_attention_packed,
                                                 segment_ids)
 from carel_tpu_torch.ops.cuda_embedding import embedding
+from carel_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 ATTENTION_IMPLS = ("xla", "flash")
 
@@ -123,15 +129,36 @@ class SelfAttention(nn.Module):
         self.dropout = cfg.dropout
         self.qkv = nn.Linear(cfg.hidden_dim, 3 * cfg.hidden_dim)
         self.out = nn.Linear(cfg.hidden_dim, cfg.hidden_dim)
+        # the mesh when the heads are split over its 'model' axis
+        self.tp = None
+
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, L, 3, heads, head_dim] over this rank's heads."""
+        B, L, _ = x.shape
+        if self.tp is None:
+            return self.qkv(x).view(B, L, 3, self.num_heads, self.head_dim)
+        heads = self.qkv.weight.shape[0] // (3 * self.head_dim)
+        lo = self.tp.tp_rank * heads
+        # the qkv bias is replicated; each rank reads its heads' part
+        b = copy_to_tp(self.qkv.bias, self.tp).view(
+            3, self.num_heads, self.head_dim)[:, lo:lo + heads]
+        return F.linear(copy_to_tp(x, self.tp), self.qkv.weight,
+                        b.reshape(-1)).view(B, L, 3, heads, self.head_dim)
+
+    def _out(self, ctx: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.out(ctx)
+        part = reduce_from_tp(F.linear(ctx, self.out.weight), self.tp)
+        return part + self.out.bias.to(part.dtype)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 deterministic: bool) -> torch.Tensor:
         """``bias`` is the additive fp32 mask bias [B, 1, 1, L] under "xla"
         and the int32 segment ids [B, L] under "flash"."""
-        B, L, D = x.shape
-        qkv = self.qkv(x).view(B, L, 3, self.num_heads, self.head_dim)
+        B, L, _ = x.shape
+        qkv = self._qkv(x)
         if self.impl == "flash":
-            return self.out(flash_attention_packed(
+            return self._out(flash_attention_packed(
                 qkv, bias, 1.0 / math.sqrt(self.head_dim)))
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, h, L, hd]
         # fp32 sums of the bf16 q, k products, as JAX's
@@ -141,8 +168,8 @@ class SelfAttention(nn.Module):
             scores = attention_scores(q, k) / math.sqrt(self.head_dim)
         probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
         probs = F.dropout(probs, self.dropout, training=not deterministic)
-        ctx = (probs @ v).transpose(1, 2).reshape(B, L, D)
-        return self.out(ctx)
+        ctx = (probs @ v).transpose(1, 2).reshape(B, L, -1)
+        return self._out(ctx)
 
 
 class EncoderLayer(nn.Module):
@@ -154,13 +181,22 @@ class EncoderLayer(nn.Module):
         self.mlp_in = nn.Linear(cfg.hidden_dim, cfg.mlp_dim)
         self.mlp_out = nn.Linear(cfg.mlp_dim, cfg.hidden_dim)
         self.mlp_ln = nn.LayerNorm(cfg.hidden_dim, eps=cfg.layer_norm_eps)
+        # the mesh when the MLP columns are split over its 'model' axis
+        self.tp = None
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.mlp_out(F.gelu(self.mlp_in(x)))
+        h = F.gelu(self.mlp_in(copy_to_tp(x, self.tp)))
+        part = reduce_from_tp(F.linear(h, self.mlp_out.weight), self.tp)
+        return part + self.mlp_out.bias.to(part.dtype)
 
     def forward(self, x, bias, deterministic: bool, dtype: torch.dtype):
         training = not deterministic
         attn = F.dropout(self.attention(x, bias, deterministic), self.dropout,
                          training=training)
         x = self.attention_ln(x + attn).to(dtype)
-        mlp = self.mlp_out(F.gelu(self.mlp_in(x)))
+        mlp = self._mlp(x)
         mlp = F.dropout(mlp, self.dropout, training=training)
         return self.mlp_ln(x + mlp).to(dtype)
 

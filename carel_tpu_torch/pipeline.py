@@ -28,7 +28,7 @@ import torch
 from carel_tpu_torch.config import CarelConfig, EncoderConfig
 from carel_tpu_torch.data.batching import PairArrays, encode_pairs
 from carel_tpu_torch.data.bow import (BowVocab, build_bow_vocab_en,
-                                      build_bow_vocab_zh)
+                                      build_bow_vocab_zh, open_segmentation)
 from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
 from carel_tpu_torch.data.pairs import PairSet, build_pairs
 from carel_tpu_torch.data.self_chain import build_pairs_self_chain
@@ -38,6 +38,8 @@ from carel_tpu_torch.models.drl import DrlModel
 from carel_tpu_torch.models.encoder import init_flax_
 from carel_tpu_torch.models.hf_port import (encoder_config_from_hf, is_hf_dir,
                                             load_encoder_checkpoint)
+from carel_tpu_torch.parallel.sharding import shard_params
+from carel_tpu_torch.parallel.tp import shard_params_tp
 from carel_tpu_torch.train.state import TrainState, create_train_state
 
 
@@ -142,14 +144,20 @@ def build_pipeline(
                              rng=rng)
     test_pairs = make_pairs(test_docs, test=True, spaced_sep=spaced, rng=rng)
 
+    os.makedirs(cache_dir, exist_ok=True)
+    segmenter = None
     if cfg.data.language == "zh":
-        bow = build_bow_vocab_zh(bow_path)
+        # jieba's words of the vocabulary build and of every pair string,
+        # through the cache of these three files (written with jieba, read
+        # without it)
+        segmenter = open_segmentation(cache_dir,
+                                      (train_path, test_path, bow_path))
+        bow = build_bow_vocab_zh(bow_path, segmenter)
     else:
         bow = build_bow_vocab_en(bow_path, bow_optimize=cfg.data.bow_optimize)
 
     # tokenizer: an HF dir (data.tokenizer), else the cache, else built from
     # the BoW corpus and cached (no network)
-    os.makedirs(cache_dir, exist_ok=True)
     tok_cache = os.path.join(cache_dir,
                              f"tokenizer_{cfg.data.language}.json")
     hf = cfg.data.tokenizer if cfg.data.tokenizer not in ("auto", "") \
@@ -179,7 +187,7 @@ def build_pipeline(
         cfg = dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, max_len=auto_len))
 
-    return Pipeline(
+    pipe = Pipeline(
         cfg=cfg,
         model_id=str(uuid.uuid4()),
         tokenizer=tokenizer,
@@ -192,10 +200,14 @@ def build_pipeline(
                                  cfg.data.max_len),
         num_unpred_pairs=test_pairs.num_unpred_emotions,
     )
+    if segmenter is not None:
+        segmenter.save()
+    return pipe
 
 
 def init_state(cfg: CarelConfig, device="cuda",
-               compat_frozen_latent_heads: bool = True) -> TrainState:
+               compat_frozen_latent_heads: bool = True,
+               mesh=None) -> TrainState:
     """Model with Flax-style random init on ``device``, plus its optimizer.
 
     Seeds, all from cfg.train.seed: the parameters come from a CPU generator
@@ -204,6 +216,13 @@ def init_state(cfg: CarelConfig, device="cuda",
     on the device seeded with seed + 1. When ``cfg.model.pretrained_encoder``
     is an HF checkpoint dir or the port's encoder dir, its weights then
     replace the encoder's; an orbax dir raises.
+
+    Under a ``mesh`` (``parallel/mesh.py``) every rank seeds alike, the
+    parameters are placed as JAX places them (carel_tpu/pipeline.py:
+    240-248): split over 'model' when it has more than one rank
+    (``shard_params_tp``), else replicated (``shard_params``); both check
+    that the ranks hold rank 0's values. The model then gathers its latents
+    over 'data'.
     """
     device = resolve_device(device)
     seed = cfg.train.seed
@@ -214,6 +233,12 @@ def init_state(cfg: CarelConfig, device="cuda",
         model.encoder.load_state_dict(load_encoder_checkpoint(
             cfg.model.pretrained_encoder, cfg.model.encoder)[1])
     model.to(device)
+    if mesh is not None:
+        if mesh.tp > 1:
+            shard_params_tp(mesh, model)
+        else:
+            shard_params(mesh, model)
+        model.mesh = mesh
     sample_gen = torch.Generator(device=device).manual_seed(seed + 1)
     return create_train_state(cfg, model, sample_gen,
                               compat_frozen_latent_heads)

@@ -123,20 +123,25 @@ def make_mlm_batches(texts: Sequence[str], tokenizer, cfg: MlmConfig
 
 
 def make_word_starts(texts: Sequence[str], tokenizer, seq_len: int,
-                     language: str) -> np.ndarray:
+                     language: str, segmenter=None) -> np.ndarray:
     """[N, L] index of the first token of the word holding each position;
     specials and padding point at themselves. zh: jieba words over the
-    space-stripped clause (one token a char); en: a WordPiece ``##`` piece
-    continues the previous word."""
+    space-stripped clause (one token a char), through ``segmenter``
+    (``data.bow.SegmentationCache``) when one is given; en: a WordPiece
+    ``##`` piece continues the previous word."""
     n = len(texts)
     out = np.tile(np.arange(seq_len, dtype=np.int32), (n, 1))
     if language == "zh":
-        import jieba
+        if segmenter is None:
+            import jieba
 
+            cut = jieba.lcut
+        else:
+            cut = segmenter.cut
         for i, t in enumerate(texts):
             t = "".join(ch for ch in str(t) if not ch.isspace())
             pos = 1  # 0 is [CLS]
-            for word in jieba.cut(t):
+            for word in cut(t):
                 start = pos
                 for _ in word:
                     if pos < seq_len:
@@ -342,15 +347,18 @@ def pretrain_mlm(
     device="cuda",
     model: Optional[MlmModel] = None,
     capture: bool = True,
+    segmenter=None,
 ) -> Dict[str, torch.Tensor]:
     """Run MLM pretraining; returns the encoder's state_dict (on
     ``device``). ``model`` replaces the random init (``build_mlm``);
-    ``capture=False`` runs the CUDA steps eagerly."""
+    ``capture=False`` runs the CUDA steps eagerly; ``segmenter`` gives zh
+    whole-word masking its words (jieba when None)."""
     from carel_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
     ids, mask = make_mlm_batches(texts, tokenizer, cfg)
-    ws = (make_word_starts(texts, tokenizer, cfg.seq_len, cfg.language)
+    ws = (make_word_starts(texts, tokenizer, cfg.seq_len, cfg.language,
+                           segmenter)
           if cfg.whole_word else None)
     if model is None:
         model = build_mlm(encoder_cfg, cfg.seed, init_params)

@@ -48,10 +48,13 @@ def self_train(
     track_memorization: bool = False,
     best_cache: Optional[dict] = None,
     initial_best: Optional[Tuple[float, float, float]] = None,
+    mesh=None,
 ) -> Tuple[TrainState, Tuple[float, float, float]]:
     """Self-training loop. With track_memorization, the per-iteration churn
     of pseudo-positive pair selections is logged as 'memorization' events
-    (the analysis of drl_classifier_ec_mmd_final_mul_memorization.py)."""
+    (the analysis of drl_classifier_ec_mmd_final_mul_memorization.py).
+    Under a ``mesh`` the evaluation gives every rank the whole test set's
+    probabilities, so the pseudo-labels are chosen alike on every rank."""
     logger = logger or JsonlLogger(echo=False)
     if iterations is None:
         iterations = cfg.train.self_iteration
@@ -70,7 +73,7 @@ def self_train(
     for i in range(iterations):
         t0 = time.perf_counter()
         res = evaluate(eval_step, state.model, test_arrays, num_unpred_pairs,
-                       eval_gen, cfg.train.eval_batch_size)
+                       eval_gen, cfg.train.eval_batch_size, mesh)
         t1 = time.perf_counter()
         pseudo = generate_self_train_pairs(
             test_pairs, res.probs, cfg.train.self_strategy,
@@ -103,7 +106,7 @@ def self_train(
             num_unpred_pairs, model_id, epochs=cfg.train.self_epochs,
             logger=logger,
             data_rng=np.random.default_rng(cfg.train.seed + 100 + i),
-            best_f1_so_far=best[2], best_cache=best_cache)
+            best_f1_so_far=best[2], best_cache=best_cache, mesh=mesh)
         if metrics[2] > best[2]:
             best = metrics
         logger.log({"event": "selftrain_best", "iteration": i + 1,

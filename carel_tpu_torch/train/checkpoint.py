@@ -11,6 +11,13 @@ reference's uuid scheme.
   and the states of the sampling generator and of the generator dropout
   draws from, the counterpart of JAX's params, three opt states, step and
   PRNG key.
+
+Under a mesh the files hold whole parameters (and whole optimizer moments):
+the split ones are gathered over 'model' (``parallel/tp.py``), rank 0
+writes, and every rank waits for the file; a load splits them again for
+its rank. So a checkpoint of a dp2 x tp2 run loads in a one-device run and
+the other way round. Every rank holds the same generator states, so rank
+0's are the run's.
 """
 
 from __future__ import annotations
@@ -19,7 +26,10 @@ import os
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
+from carel_tpu_torch.parallel.tp import (full_state_dict, shard_state_dict,
+                                         shard_tensor, unshard_tensor)
 from carel_tpu_torch.train.state import TrainState, dropout_generator
 
 _OPTIMIZERS = ("optimizer", "disc_optimizer", "club_optimizer")
@@ -52,24 +62,85 @@ def load_best(ckpt_dir: str, model_id: str,
                       weights_only=True)
 
 
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _wait(mesh) -> None:
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
+
+
+def save_best_of(ckpt_dir: str, model_id: str, model, mesh=None) -> None:
+    """``save_best`` of ``model``'s whole parameters (rank 0 of a mesh
+    writes; every rank calls)."""
+    state = full_state_dict(model, mesh)
+    if _writes(mesh):
+        save_best(ckpt_dir, model_id, state)
+    _wait(mesh)
+
+
+def load_best_into(ckpt_dir: str, model_id: str, model, mesh=None) -> None:
+    """Load the best checkpoint into ``model``, split for this rank."""
+    device = next(model.parameters()).device
+    state = load_best(ckpt_dir, model_id, device)
+    model.load_state_dict(shard_state_dict(state, mesh, model))
+
+
 def _device(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
-def save_state(ckpt_dir: str, model_id: str, state: TrainState) -> str:
-    """Full train-state snapshot (model, optimizers, step, generators)."""
+def _moments(state: TrainState, name: str, opt_state: dict, mesh,
+             whole: bool) -> dict:
+    """``opt_state`` (an optimizer's ``state_dict``) with the moments of
+    split parameters gathered whole (``whole``) or split for this rank."""
+    if mesh is None or mesh.tp == 1:
+        return opt_state
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = [p for g in getattr(state, name).param_groups
+              for p in g["params"]]
+    heads = state.model.encoder.cfg.num_heads
+    out = {}
+    for idx, entry in opt_state["state"].items():
+        pname = names[id(params[idx])]
+        new = {}
+        for k, v in entry.items():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                if whole:
+                    parts = [torch.empty_like(v) for _ in range(mesh.tp)]
+                    dist.all_gather(parts, v.contiguous(),
+                                    group=mesh.tp_group)
+                    v = unshard_tensor(pname, parts, heads)
+                else:
+                    v = shard_tensor(pname, v, mesh.tp_rank, mesh.tp,
+                                     heads).clone()
+            new[k] = v
+        out[idx] = new
+    return {"state": out, "param_groups": opt_state["param_groups"]}
+
+
+def save_state(ckpt_dir: str, model_id: str, state: TrainState,
+               mesh=None) -> str:
+    """Full train-state snapshot (model, optimizers, step, generators),
+    whole under a mesh (every rank calls; rank 0 writes)."""
     payload = {
-        "model": state.model.state_dict(),
-        **{name: getattr(state, name).state_dict() for name in _OPTIMIZERS},
+        "model": full_state_dict(state.model, mesh),
+        **{name: _moments(state, name, getattr(state, name).state_dict(),
+                          mesh, whole=True) for name in _OPTIMIZERS},
         "step": state.step,
         "generator": state.generator.get_state(),
         "dropout_generator": dropout_generator(_device(state)).get_state(),
     }
-    return _save(payload, state_path(ckpt_dir, model_id))
+    path = state_path(ckpt_dir, model_id)
+    if _writes(mesh):
+        _save(payload, path)
+    _wait(mesh)
+    return path
 
 
 def load_state(ckpt_dir: str, model_id: str,
-               state: TrainState) -> TrainState:
+               state: TrainState, mesh=None) -> TrainState:
     """Restore a ``save_state`` snapshot into ``state`` and return it. The
     params are copied in place; the optimizers take the saved moments and
     step counts but keep their hyper-parameters (lr as this run sets it, as
@@ -78,10 +149,11 @@ def load_state(ckpt_dir: str, model_id: str,
     device = _device(state)
     payload = torch.load(state_path(ckpt_dir, model_id),
                          map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
+    state.model.load_state_dict(shard_state_dict(payload["model"], mesh,
+                                                 state.model))
     for name in _OPTIMIZERS:
         opt = getattr(state, name)
-        saved = payload[name]
+        saved = _moments(state, name, payload[name], mesh, whole=False)
         groups = [{**g_saved, **{k: v for k, v in g.items() if k != "params"}}
                   for g_saved, g in zip(saved["param_groups"],
                                         opt.param_groups)]

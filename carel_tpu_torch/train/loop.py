@@ -9,6 +9,15 @@ train/scan_epoch.py (the default, a captured CUDA-graph step replayed over
 the stacked epoch on the card) or the per-step one of train/steps.py, fed
 by data/prefetch.py.
 
+Under a mesh (``mesh``) every rank takes its rows of each batch and of the
+stacked epoch (``parallel/sharding.py``); the model gathers its latents, so
+the evaluation's probabilities come back for the whole batch, in row order,
+on every rank, and every rank takes the same branch at every best-F1 test.
+Only ``mesh.rank`` 0 logs (the caller hands the others a silent logger) and
+writes the best checkpoint, whose parameters are whole (split ones gathered
+over 'model'), so that it loads on any mesh or none; every rank reloads the
+best.
+
 Parity note on KL annealing: the reference's annealing counter is the
 *within-epoch* batch index (`enumerate(train_loader)`, flagship :822), so
 with T=20000 the KL weight stays at its floor; the loop passes the batch
@@ -28,6 +37,7 @@ import torch
 from carel_tpu_torch.config import CarelConfig
 from carel_tpu_torch.data.batching import PairArrays, cut_batch, iter_batches
 from carel_tpu_torch.data.prefetch import prefetch_to_device
+from carel_tpu_torch.parallel.sharding import shard_batch, shard_stacked
 from carel_tpu_torch.train import checkpoint as ckpt
 from carel_tpu_torch.train.logging import JsonlLogger
 from carel_tpu_torch.train.metrics import prf_with_forced_misses
@@ -55,17 +65,21 @@ def evaluate(
     num_unpred_pairs: int,
     generator: torch.Generator,
     batch_size: int = 512,
+    mesh=None,
 ) -> EvalResult:
     """Batched full-test-set evaluation (the reference uses one giant batch,
     flagship :957-961; fixed-size batches with masked tails are
-    equivalent)."""
+    equivalent). Under a mesh each rank feeds its rows of each batch and
+    gets the whole batch's probabilities."""
     device = _device_of(model)
     n = len(test_arrays)
     parts = []
     for start in range(0, n, batch_size):
         idx = np.arange(start, min(start + batch_size, n))
-        batch = batch_to_device(
-            cut_batch(test_arrays, idx, batch_size).as_dict(), device)
+        host = cut_batch(test_arrays, idx, batch_size).as_dict()
+        if mesh is not None:
+            host = shard_batch(mesh, host)
+        batch = batch_to_device(host, device)
         parts.append(eval_step(model, batch, generator)[: len(idx)])
     probs = torch.cat(parts).cpu().numpy() if parts else \
         np.zeros(0, np.float32)
@@ -88,6 +102,7 @@ def train_epochs(
     data_rng: Optional[np.random.Generator] = None,
     best_f1_so_far: float = 0.0,
     best_cache: Optional[dict] = None,
+    mesh=None,
 ) -> Tuple[TrainState, Tuple[float, float, float]]:
     """Epoch loop with per-epoch eval and best-F1 checkpointing. Every step
     of epoch ``epoch`` gets vi_beta = min((epoch - 1) * vi_beta_step, 1)
@@ -122,15 +137,23 @@ def train_epochs(
         if getattr(train_step, "is_epoch_step", False):
             stacked = stack_epoch(train_arrays, cfg.train.batch_size,
                                   rng=data_rng)
+            if mesh is not None:
+                stacked = shard_stacked(mesh, stacked)
             losses = train_step(state, stacked, vi_beta).cpu().numpy()
             logger.log({"event": "train", "epoch": epoch,
-                        "it": len(losses), "loss": float(losses.mean())})
+                        "it": len(losses), "loss": float(losses.mean()),
+                        "losses": losses.tolist()})
         else:
             pending = []  # device scalars; fetched every 10 steps
+
+            def transform(b):
+                host = b.as_dict()
+                return host if mesh is None else shard_batch(mesh, host)
+
             batches = prefetch_to_device(
                 iter_batches(train_arrays, cfg.train.batch_size,
                              shuffle=True, rng=data_rng),
-                size=2, transform=lambda b: b.as_dict(), device=device)
+                size=2, transform=transform, device=device)
             for it, batch in enumerate(batches):
                 metrics = train_step(state, batch, it, vi_beta)
                 pending.append(metrics["loss"])
@@ -143,7 +166,7 @@ def train_epochs(
         examples_seen += len(train_arrays)
 
         res = evaluate(eval_step, model, test_arrays, num_unpred_pairs,
-                       eval_gen, cfg.train.eval_batch_size)
+                       eval_gen, cfg.train.eval_batch_size, mesh)
         logger.log({
             "event": "eval", "epoch": epoch,
             "precision": res.precision, "recall": res.recall, "f1": res.f1,
@@ -154,8 +177,8 @@ def train_epochs(
 
         if res.f1 > best[2]:
             best = (res.precision, res.recall, res.f1)
-            ckpt.save_best(cfg.train.checkpoint_dir, model_id,
-                           model.state_dict())
+            ckpt.save_best_of(cfg.train.checkpoint_dir, model_id, model,
+                              mesh)
             saved_any = True
             if best_cache is not None:
                 best_cache["state_dict"] = {
@@ -165,7 +188,7 @@ def train_epochs(
 
         if (cfg.train.save_state_every
                 and epoch % cfg.train.save_state_every == 0):
-            ckpt.save_state(cfg.train.checkpoint_dir, model_id, state)
+            ckpt.save_state(cfg.train.checkpoint_dir, model_id, state, mesh)
             logger.log({"event": "state_snapshot", "epoch": epoch,
                         "step": state.step})
 
@@ -177,6 +200,5 @@ def train_epochs(
         model.load_state_dict(best_cache["state_dict"])
     elif saved_any or os.path.exists(
             ckpt.best_path(cfg.train.checkpoint_dir, model_id)):
-        model.load_state_dict(ckpt.load_best(cfg.train.checkpoint_dir,
-                                             model_id, device))
+        ckpt.load_best_into(cfg.train.checkpoint_dir, model_id, model, mesh)
     return state, best

@@ -1,5 +1,6 @@
 """Evaluation metrics: binary precision/recall/F1 with forced-miss padding,
-and stage 1's micro P/R/F1 over clauses.
+the second-step pair-filter metric, and stage 1's micro P/R/F1 over
+clauses.
 
 Port of carel_tpu/train/metrics.py (the reference's metric, flagship
 :868-870, including sklearn's 0-when-undefined convention). The forced-miss
@@ -9,7 +10,7 @@ predict (flagship :861-865), so pair-F1 accounts for stage-1 recall loss.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -40,6 +41,32 @@ def prf_with_forced_misses(
         labels = np.concatenate([labels, np.ones(num_unpred_pairs, np.int64)])
         preds = np.concatenate([preds, np.zeros(num_unpred_pairs, np.int64)])
     return binary_prf(labels, preds)
+
+
+def prf_2nd_step(
+    pair_id_all: Sequence[int],
+    pair_id: Sequence[int],
+    pred_y: Sequence[int],
+) -> Tuple[float, float, float, float, float, float, float]:
+    """Second-step pair-filtering metric (data_process.py:162-212).
+
+    pair ids encode doc*10000 + emotion*100 + cause. Returns
+    (p, r, f1, o_p, o_r, o_f1, keep_rate): the filtered metrics over pairs
+    the classifier kept (pred_y truthy) and the unfiltered ("o_") metrics
+    over all candidates, with the reference's 1e-8 smoothing.
+    """
+    pair_id_filtered = [pid for pid, y in zip(pair_id, pred_y) if y]
+    keep_rate = len(pair_id_filtered) / (len(pair_id) + 1e-8)
+    s1, s2, s3 = set(pair_id_all), set(pair_id), set(pair_id_filtered)
+    o_acc = len(s1 & s2)
+    acc = len(s1 & s3)
+    o_p = o_acc / (len(s2) + 1e-8)
+    o_r = o_acc / (len(s1) + 1e-8)
+    p = acc / (len(s3) + 1e-8)
+    r = acc / (len(s1) + 1e-8)
+    f1 = 2 * p * r / (p + r + 1e-8)
+    o_f1 = 2 * o_p * o_r / (o_p + o_r + 1e-8)
+    return p, r, f1, o_p, o_r, o_f1, keep_rate
 
 
 def micro_prf(

@@ -31,7 +31,7 @@ import torch
 
 from carel_tpu_torch.config import CarelConfig, EncoderConfig
 from carel_tpu_torch.data.batching import PairArrays, encode_pairs, iter_batches
-from carel_tpu_torch.data.bow import build_bow_vocab_zh
+from carel_tpu_torch.data.bow import build_bow_vocab_zh, open_segmentation
 from carel_tpu_torch.data.ecpe_format import parse_ecpe_file
 from carel_tpu_torch.data.pairs import PairSet, build_pairs
 from carel_tpu_torch.data.tokenizer import build_tokenizer
@@ -200,9 +200,10 @@ def run_original(
     rng = random.Random(cfg.data.seed)
     train_pairs = build_pairs(train_docs, test=False, rng=rng)
     test_pairs = build_pairs(test_docs, test=True, rng=rng)
-    bow = build_bow_vocab_zh(bow_path)
-
     os.makedirs(cache_dir, exist_ok=True)
+    # jieba's words through the cache of the three input files
+    segmenter = open_segmentation(cache_dir, (train_path, test_path, bow_path))
+    bow = build_bow_vocab_zh(bow_path, segmenter)
     tok_cache = os.path.join(cache_dir, f"tokenizer_{cfg.data.language}.json")
     hf = cfg.data.tokenizer if cfg.data.tokenizer not in ("auto", "") else None
     corpus = None
@@ -223,6 +224,7 @@ def run_original(
         return encode_pairs(pair_set, tokenizer, bow, max_len)
 
     train_arrays, test_arrays = encode(train_pairs), encode(test_pairs)
+    segmenter.save()
     num_unpred = test_pairs.num_unpred_emotions
     logger.log({"event": "config", "preset": "drl_original",
                 "model_id": model_id, "device": str(device),

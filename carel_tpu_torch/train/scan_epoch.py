@@ -31,6 +31,12 @@ epochs and every self-training fine-tune: a pseudo set of another size is
 only another number of replays. (The JAX CLI falls back to its per-step
 loop when the pseudo-set size varies, to spare a compile per size; the port
 has no such cost.)
+
+Under a mesh each rank stacks its rows of the epoch (``shard_stacked``) and
+captures the step with its collectives (the gathers over 'data' and the
+gradient sum; NCCL on the card). The warm-up runs every collective once
+outside the capture, which creates NCCL's communicators before the graph
+needs them, and every rank restores its own state after it.
 """
 
 from __future__ import annotations
@@ -129,13 +135,14 @@ def _optimizers(state: TrainState):
 
 def capture_key(state: TrainState, layout: RowLayout) -> tuple:
     """What a captured step holds fixed: the batch layout, the sampling
-    generator, the params' addresses and requires_grad, every optimizer's
+    generator, the mesh, the params' addresses and requires_grad, every optimizer's
     hyper-parameters (a tensor lr by its address, since a replay reads its
     value) and the addresses of its state tensors. A capture whose key no
     longer matches the state is stale. ``model.load_state_dict`` copies in
     place and keeps the key; ``checkpoint.load_state`` replaces the
     optimizers' state tensors and changes it."""
-    key = [layout, id(state.generator)]
+    mesh = state.model.mesh
+    key = [layout, id(state.generator), mesh.key() if mesh else None]
     key += [(p.data_ptr(), p.requires_grad)
             for p in state.model.parameters()]
     for opt in _optimizers(state):

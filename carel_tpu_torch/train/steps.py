@@ -25,6 +25,17 @@ The BoW reconstruction term is always the fused loss (kernels K3/K4 on
 CUDA, the plain version on the CPU), so the model never computes the
 [B, V] decoder logits in training; the MMD term goes through kernels K1/K2
 and the HSIC term through K5/K6 on CUDA.
+
+Under a mesh (``model.mesh``) the batch holds this rank's rows. The model
+gathers its latents over the mesh's 'data' axis (models/drl.py), the body
+gathers the batch's loss inputs, and every rank computes the loss of the
+global batch: the pair BCE's batch pos_weight, MMD, HSIC, the CLUB
+permutation, the discriminators and every masked mean see all its rows, as
+on one device. The vi permutation is drawn over the global batch from the
+generator every rank holds alike. After the backward the gradients of the
+model's ``local_parameters`` (the modules that saw this rank's rows only)
+are summed over 'data'; the rest (classifiers, decoder, discriminators,
+CLUB) ran on the gathered rows and hold the whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -48,7 +59,12 @@ from carel_tpu_torch.losses.registry import (
 )
 from carel_tpu_torch.losses.vae import annealed_kl_weight, kl_loss
 from carel_tpu_torch.ops.cuda_bow import fused_bow_loss
+from carel_tpu_torch.parallel.sharding import all_reduce_grads, gather_batch
 from carel_tpu_torch.train.state import TrainState
+
+# the batch arrays the loss reads, gathered over a mesh's 'data' axis
+LOSS_INPUTS = ("pair_labels", "emotion_labels", "bow_indices", "bow_weights",
+               "example_mask")
 
 
 def batch_to_device(batch: Dict[str, np.ndarray],
@@ -139,11 +155,14 @@ def make_step_body(cfg: CarelConfig) -> Callable:
              eps: Optional[Sequence[torch.Tensor]] = None,
              perm: Optional[torch.Tensor] = None) -> Dict:
         model = state.model
+        mesh = model.mesh
         model.zero_grad(set_to_none=True)
         out = model(batch["input_ids"], batch["attention_mask"],
                     batch["token_type_ids"], deterministic=False,
                     sample=True, compute_recon=False, eps=eps,
                     generator=state.generator)
+        if mesh is not None:
+            batch = gather_batch(mesh, {k: batch[k] for k in LOSS_INPUTS})
         mask = batch["example_mask"]
         if reg == Regularizer.VI:
             # phase 1: the club's Adam from the approximation NLL, whose
@@ -170,6 +189,8 @@ def make_step_body(cfg: CarelConfig) -> Callable:
             metrics["ce_disc_loss"] = ce
             total = total + ec + ce
         total.backward()
+        if mesh is not None:
+            all_reduce_grads(model.local_parameters(), mesh)
         state.optimizer.step()
         if reg == Regularizer.GAN:
             state.disc_optimizer.step()

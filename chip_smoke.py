@@ -6,8 +6,8 @@ Phases, in order; any failure exits non-zero and no phase carries on after
 an error:
 
 1. device: require CUDA; print the nvidia-smi name and power limit line;
-   host: print which of tokenizers, transformers, safetensors, sklearn and
-   jieba import, and whether the C ingest extension (carel_tpu_torch/native)
+   host: print which of tokenizers, transformers, safetensors, sklearn,
+   jieba and pandas import, and whether the C ingest extension (carel_tpu_torch/native)
    builds; time zh tokenization of 20,000 synthetic pair strings on the
    host through its C path and through the Python loop (arrays equal);
 2. build: compile the hand-written kernels K1-K10 from carel_tpu_torch/csrc;
@@ -205,6 +205,21 @@ an error:
    moments are in the configured dtype and the club Adam is torch's (fp32
    moments); for bf16 mu a snapshot saved and resumed gives the bits of the
    epoch it repeats.
+
+7. verbs, after every profiled phase: the train verbs themselves, each in a
+   process of its own (its kernel launches counted from 0 there and logged
+   on its last event) with jieba blocked (a jieba.py that raises, first on
+   its PYTHONPATH), at the preset's full width (12L/768H bf16), one base
+   epoch and one self-training iteration of one epoch, a state snapshot each
+   epoch: verb_zh, `train --preset ec_mmd_final_mul_newsplit_emnlp` over the
+   synthetic zh corpus of carel_tpu_torch/data/synthetic.py and its
+   committed segmentation cache (the words must come from the cache, K1-K4
+   once and K10 three times on every step, one capture, a pair-F1 in the
+   last line); mesh, the same under --mesh_shape 1,1 (NCCL, a world of one,
+   the gathers and the gradient sum inside the captured step): every batch's
+   loss and the final params bit-equal to verb_zh's; verb_en, `train
+   --preset en_newsplit` over the synthetic en corpus (a WordPiece trained
+   into its cache dir).
 
 Then one line a variant and kind compares its step with the captured
 flagship's (the adapter and bf16-mu paths' captured steps too, and the
@@ -406,7 +421,7 @@ def phase_device() -> str:
 
 
 HOST_LIBRARIES = ("tokenizers", "transformers", "safetensors", "sklearn",
-                  "jieba")
+                  "jieba", "pandas")
 
 
 def phase_host() -> None:
@@ -2606,6 +2621,22 @@ def same_state(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
+# (start us, kernel name) of every device kernel of the last profile_epoch
+LAST_PROFILE: list = []
+
+
+def largest_gap(name: str) -> str:
+    """Where the last profile's launches of kernel ``name`` (a wrapper's
+    name) lie furthest apart: the place of a launch it lacks."""
+    starts = sorted(t for t, k in LAST_PROFILE if name in k)
+    gaps = np.diff(starts)
+    if not len(gaps):
+        return f"{len(starts)} launches"
+    i = int(np.argmax(gaps))
+    return (f"{len(starts)} launches, the widest gap {gaps[i]:.1f} us after "
+            f"launch {i} (median gap {float(np.median(gaps)):.1f} us)")
+
+
 def profile_epoch(run, nb: int):
     """Device time per step by kernel, from torch.profiler over one epoch of
     nb steps (``run()``, ended by a synchronize): returns the device ms/step,
@@ -2619,6 +2650,7 @@ def profile_epoch(run, nb: int):
             run()
             torch.cuda.synchronize()
         per_kernel: dict = {}
+        LAST_PROFILE.clear()
         for e in prof.events():
             # user annotations are mirrored on the device timeline and span
             # other kernels: count kernels only
@@ -2627,6 +2659,7 @@ def profile_epoch(run, nb: int):
                 us, calls = per_kernel.get(e.name, (0.0, 0))
                 per_kernel[e.name] = (us + e.time_range.elapsed_us(),
                                       calls + 1)
+                LAST_PROFILE.append((e.time_range.start, e.name))
         PROFILE_WINDOWS["profiled"] += 1
         device_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / nb
         if device_ms > 0.0:
@@ -2914,7 +2947,8 @@ def time_epochs(tag: str, kind: str, run, step, state, train, B: int,
         PROFILE_WINDOWS["short"] += 1
         print(f"{tag} ({kind}): the profile shows {off} a step (want "
               f"{ {k: want_calls.get(k, 0) for k in off} }) in window "
-              f"{window} of 3", flush=True)
+              f"{window} of 3: "
+              + "; ".join(f"{k}: {largest_gap(k)}" for k in off), flush=True)
     else:
         fail(f"{tag} ({kind}): three profiles show the path kernels {off} "
              f"times a step (want "
@@ -4423,6 +4457,149 @@ def phase_hpo(records: dict, smi: str) -> dict:
     return dict(wall_s=wall)
 
 
+VERB_DIR = os.path.join(RUN_DIR, "verbs")
+
+
+def blocked_jieba() -> str:
+    """A directory whose ``jieba.py`` raises ImportError, put first on a
+    verb's PYTHONPATH: the zh verbs must run on the segmentation cache."""
+    path = os.path.join(VERB_DIR, "no_jieba")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "jieba.py"), "w") as f:
+        f.write('raise ImportError("jieba is blocked for this run")\n')
+    return path
+
+
+def run_train_verb(tag: str, preset: str, data_root: str, cache: str,
+                   extra=()) -> dict:
+    """``python -m carel_tpu_torch.cli train --preset PRESET`` at the
+    preset's full width (the default ``--encoder base``: 12L/768H bf16) for
+    one base epoch and one self-training iteration of one epoch, with
+    jieba blocked, a state snapshot each epoch, in a process of its own:
+    its kernel launches are counted from 0 there and logged at its end.
+    Returns its last line, log events, final params and wall seconds."""
+    run = os.path.join(VERB_DIR, tag)
+    log_dir, ckpt_dir = os.path.join(run, "log"), os.path.join(run, "ckpt")
+    argv = [sys.executable, "-m", "carel_tpu_torch.cli", "train",
+            "--preset", preset, "--data_root", data_root, "--cache_dir",
+            cache, "--epochs", "1", "--self_iteration", "1",
+            "--self_epochs", "1", "--save_state_every", "1",
+            "--checkpoint_dir", ckpt_dir, "--log_dir", log_dir, *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [blocked_jieba(), ROOT] + [p for p in [os.environ.get(
+            "PYTHONPATH", "")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{tag}: train exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    f1 = last.get("best_f1")
+    if not (isinstance(f1, float) and 0.0 <= f1 <= 1.0
+            and 0.0 <= last["base_f1"] <= 1.0):
+        fail(f"{tag}: no pair-F1 in the last line: {last}")
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = [json.loads(line) for line in f]
+
+    def only(kind):
+        found = [e for e in events if e["event"] == kind]
+        if len(found) != 1:
+            fail(f"{tag}: {len(found)} {kind} events")
+        return found[0]
+
+    config, done = only("config"), only("self_done")
+    trains = [e["losses"] for e in events if e["event"] == "train"]
+    steps = sum(len(t) for t in trains)
+    if len(trains) != 2 or not np.all(np.isfinite(np.concatenate(trains))):
+        fail(f"{tag}: train events {trains}")
+    if done["jieba_imported"]:
+        fail(f"{tag}: jieba was imported")
+    if not (config["epoch_step"] and done["captures"] == 1
+            and done["replays"] == steps):
+        fail(f"{tag}: {done['captures']} captures and {done['replays']} "
+             f"replays for {steps} steps (want 1 capture)")
+    state = torch.load(os.path.join(ckpt_dir, f"{last['model_id']}_state.pt"),
+                       map_location="cpu", weights_only=True)
+    return dict(last=last, config=config, done=done, trains=trains,
+                steps=steps, wall_s=wall, params=state["model"],
+                epoch_s=[e["epoch_seconds"] for e in events
+                         if e["event"] == "eval"])
+
+
+def verb_line(tag: str, run: dict, smi: str) -> str:
+    cfg = run["config"]
+    launched = {k: v for k, v in run["done"]["launches"].items() if v}
+    return (f"verb {tag}: exit 0 in {run['wall_s']:.1f} s wall; "
+            f"{cfg['train_pairs']} train / {cfg['test_pairs']} test pairs, "
+            f"BoW V {cfg['bow_dim']}, vocab {cfg['vocab']}; "
+            f"segmentation {cfg['segmentation']}; {run['steps']} steps "
+            f"(1 capture, {run['done']['replays']} replays); epoch seconds "
+            f"(base incl. capture, self-training) "
+            f"{[round(x, 3) for x in run['epoch_s']]}; best_f1 "
+            f"{run['last']['best_f1']:.4f}; launches {launched}; {smi}")
+
+
+def verb_launches(records: dict, tag: str, preset: str, run: dict) -> None:
+    count_path_launches(records, tag, run["done"]["launches"], {
+        k: run["steps"] * CALLS_A_STEP.get(k, 1)
+        for k in PATH_KERNELS[preset]})
+
+
+def phase_verb_zh(records: dict, smi: str, tag: str = "verb_zh",
+                  extra=()) -> dict:
+    """The flagship's train verb over the committed synthetic zh corpus and
+    its segmentation cache, jieba blocked: K1-K4 and K10 on every step."""
+    from carel_tpu_torch.data.synthetic import install_zh_fixture
+
+    data = os.path.join(VERB_DIR, tag, "data")
+    cache = os.path.join(VERB_DIR, tag, "cache")
+    install_zh_fixture(data, cache)
+    run = run_train_verb(tag, FLAGSHIP, data, cache, extra)
+    if run["config"]["segmentation"] != "cache":
+        fail(f"{tag}: the zh words came from "
+             f"{run['config']['segmentation']}, not the cache")
+    verb_launches(records, tag, FLAGSHIP, run)
+    print(verb_line(tag, run, smi), flush=True)
+    return run
+
+
+def phase_verb_en(records: dict, smi: str) -> dict:
+    """en_newsplit's train verb over a seeded synthetic en corpus (a
+    WordPiece trained into the cache): K1-K4 and K10 on every step."""
+    from carel_tpu_torch.data.synthetic import write_en_newsplit_corpus
+
+    data = os.path.join(VERB_DIR, "verb_en", "data")
+    write_en_newsplit_corpus(data)
+    run = run_train_verb("verb_en", EN_PRESET, data,
+                         os.path.join(VERB_DIR, "verb_en", "cache"))
+    verb_launches(records, "verb_en", EN_PRESET, run)
+    print(verb_line("verb_en", run, smi), flush=True)
+    return run
+
+
+def phase_mesh(records: dict, zh: dict, smi: str) -> None:
+    """The flagship's train verb under --mesh_shape 1,1 (NCCL, a world of
+    one, the collectives inside the captured step) against the same seed's
+    run without a mesh: every batch's loss and the final params bit-equal,
+    one capture."""
+    run = phase_verb_zh(records, smi, "mesh", ("--mesh_shape", "1,1"))
+    if run["config"]["mesh_shape"] != [1, 1]:
+        fail(f"mesh: the run's mesh is {run['config']['mesh_shape']}")
+    if run["trains"] != zh["trains"]:
+        fail(f"mesh: losses {run['trains']} against {zh['trains']}")
+    if run["params"].keys() != zh["params"].keys() or not all(
+            torch.equal(v, zh["params"][k]) for k, v in run["params"].items()):
+        fail("mesh: final params differ from the run without a mesh")
+    print(f"mesh 1,1 against no mesh: {run['steps']} losses and "
+          f"{len(run['params'])} param tensors bit-equal; wall "
+          f"{run['wall_s']:.1f} s against {zh['wall_s']:.1f} s; epoch "
+          f"seconds {[round(x, 3) for x in run['epoch_s']]} against "
+          f"{[round(x, 3) for x in zh['epoch_s']]}; {smi}", flush=True)
+
+
 def held_after(phase: str) -> None:
     HELD[phase] = round(torch.cuda.memory_allocated() / 2**30, 3)
 
@@ -4518,6 +4695,14 @@ def main() -> int:
     phase_bits("entmax adapter", adapter_config("entmax"))
     phase_bits("bf16 mu", mu_bf16_config(), resume=True)
     phase_adam()
+    # the verbs run in processes of their own, after every profiled phase:
+    # another process on the card made this one's profiler drop kernel
+    # records afterwards (PERF.md, PR 16)
+    zh = phase_verb_zh(records, smi)
+    phase_mesh(records, zh, smi)
+    del zh
+    phase_verb_en(records, smi)
+    held_after("verbs")
     flag = steps[FLAGSHIP]["captured"]
     print(f"memory held between phases (allocated, GiB): {HELD}",
           flush=True)

@@ -73,7 +73,8 @@ def test_importing_the_port_loads_no_jax_package_module():
 
 
 # modules of the adapter, bf16-mu and pair slice, of the embedder, CIT and
-# original slice and of the pretraining and tools slice: the scan above must
+# original slice, of the pretraining and tools slice and of the mesh and
+# segmentation-cache slice: the scan above must
 # reach them (it walks the package, so a module moved out of it would drop
 # out)
 SLICE_MODULES = ("ops/entmax.py", "models/pair_classifier.py",
@@ -85,7 +86,10 @@ SLICE_MODULES = ("ops/entmax.py", "models/pair_classifier.py",
                  "tools/ordering.py", "tools/case_analysis.py",
                  "tools/hpo.py", "tools/convert.py", "tools/vis.py",
                  "tools/event_analysis.py", "utils/text.py",
-                 "ops/pairwise.py", "cli/main.py")
+                 "ops/pairwise.py", "cli/main.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/sharding.py", "parallel/tp.py",
+                 "data/synthetic.py")
 
 
 # the host tools import sklearn, matplotlib and jieba only where they use
@@ -94,7 +98,8 @@ LAZY = ("sklearn", "matplotlib", "jieba")
 
 
 @pytest.mark.parametrize("rel", ("tools/vis.py", "tools/event_analysis.py",
-                                 "pretrain/mlm.py", "cli/main.py"))
+                                 "pretrain/mlm.py", "cli/main.py",
+                                 "data/bow.py", "data/synthetic.py"))
 def test_host_libraries_are_imported_lazily(rel):
     tree = ast.parse((PORT / rel).read_text(encoding="utf8"))
     top = [mod for node in tree.body

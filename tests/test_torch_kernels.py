@@ -32,7 +32,9 @@ bit-equal from one CUDA graph. The captured epoch step (train/scan_epoch.py)
 at tiny widths equals the eager per-step loop from equal seeds (losses rel
 1e-5; params within 2 lr a step, the 99th percentile of every tensor within
 0.05 lr, as the CPU tests hold it against JAX) under every step variant,
-and a capture made stale by load_state is made again. A tiny fp32 step of
+and a capture made stale by load_state is made again; captured through
+a mesh of one rank (NCCL, the collectives in the graph) it gives the bits
+of no mesh. A tiny fp32 step of
 the original 3-latent DRL (train/steps_original.py) on the card equals the
 CPU's (losses rel 1e-4, params within 2 lr of their group), its latent heads
 unchanged and its adversaries moved on both. A tiny fp32 MLM step
@@ -1107,6 +1109,43 @@ def test_captured_epoch_equals_the_eager_one(cuda, reg, impl):
     counts = ops.launch_counts()  # eager steps count through the wrappers
     for name, n in step.captured_launches.items():
         assert counts[name] == 2 * 12 * n, name
+
+
+@pytest.mark.parametrize("reg", ["mmd", "vi"])
+def test_captured_epoch_on_a_mesh_of_one_gives_the_bits_of_no_mesh(cuda,
+                                                                   reg):
+    """A world of one rank (NCCL over 127.0.0.1): the tiny model's epoch
+    captured through a (1, 1) mesh, whose graph holds the gather of the
+    latents and of the loss inputs and the gradient sum, gives the losses
+    and params of the same epoch captured without a mesh, bit for bit, one
+    capture each."""
+    import torch.distributed as dist
+
+    from carel_tpu_torch.parallel.mesh import (free_port, init_distributed,
+                                               make_mesh)
+    from carel_tpu_torch.parallel.sharding import shard_stacked
+    from carel_tpu_torch.pipeline import init_state
+    from carel_tpu_torch.train.scan_epoch import make_epoch_step, stack_epoch
+
+    cfg = _tiny_cfg(reg)
+    stacked = stack_epoch(_tiny_arrays(), 8, np.random.default_rng(0))
+    init_distributed(0, 1, free_port(), cuda)
+    try:
+        mesh = make_mesh(1, shape=(1, 1))
+        runs = []
+        for m in (None, mesh):
+            state = init_state(cfg, cuda, mesh=m)  # seeds dropout alike
+            step = make_epoch_step(cfg)
+            losses = step(state, stacked if m is None
+                          else shard_stacked(m, stacked), 0.5)
+            assert step.captures == 1 and step.replays == 6
+            runs.append((losses, state.model.state_dict()))
+    finally:
+        dist.destroy_process_group()
+    (la, pa), (lb, pb) = runs
+    assert torch.equal(la, lb)
+    for k in pa:
+        assert torch.equal(pa[k], pb[k]), k
 
 
 def test_stale_capture_is_captured_again(cuda, tmp_path):

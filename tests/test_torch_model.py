@@ -288,3 +288,39 @@ def test_flax_init_statistics():
     assert abs(float(emb.std()) - math.sqrt(1 / 64)) < 0.1 * math.sqrt(1 / 64)
     assert float(model.heads.decoder.bias.detach().abs().max()) == 0.0
     assert float((model.encoder.embeddings_ln.weight.detach() - 1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("lam", [1.0, 0.3])
+def test_domain_discriminator_matches_jax(lam):
+    """DomainDiscriminator: the logits of seeded features from JAX's
+    weights, and the features' gradient reversed (-lam times the
+    forward's), as JAX's vjp gives it."""
+    from carel_tpu.models.discriminators import \
+        DomainDiscriminator as JDomainDiscriminator
+
+    from carel_tpu_torch.models import DomainDiscriminator
+
+    feats = np.random.default_rng(4).normal(size=(6, 16)).astype(np.float32)
+    up = np.random.default_rng(5).normal(size=(6, 1)).astype(np.float32)
+    jd = JDomainDiscriminator(hidden_dim=12, grl_lambda=lam)
+    params = jd.init(jax.random.key(0), jnp.asarray(feats))["params"]
+    logits, vjp = jax.vjp(lambda x: jd.apply({"params": params}, x),
+                          jnp.asarray(feats))
+    (j_grad,) = vjp(jnp.asarray(up))
+
+    td = DomainDiscriminator(16, hidden_dim=12, grl_lambda=lam)
+    td.load_state_dict(jax_params_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, params)))
+    x = torch.from_numpy(feats).requires_grad_(True)
+    out = td(x)
+    out.backward(torch.from_numpy(up))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(logits),
+                               atol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(j_grad),
+                               atol=1e-5)
+    # reversed: the plain head's gradient times -lam
+    x2 = torch.from_numpy(feats).requires_grad_(True)
+    plain = td.out(torch.relu(td.fc2(torch.relu(td.fc1(x2)))))
+    plain.backward(torch.from_numpy(up))
+    np.testing.assert_allclose(x.grad.numpy(), -lam * x2.grad.numpy(),
+                               rtol=1e-6, atol=1e-7)

@@ -399,3 +399,21 @@ def test_mmd_permutation_test_matches_jax(shift):
         assert float(got_p) == p == 0.0
     else:
         assert 0.05 < float(got_p) < 0.95
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prf_2nd_step_matches_jax(seed):
+    """The second-step pair-filter metric on seeded pair ids and keeps, and
+    JAX's own hand-checked case."""
+    from carel_tpu.train.metrics import prf_2nd_step as j_prf
+
+    from carel_tpu_torch.train.metrics import prf_2nd_step
+
+    rng = np.random.default_rng(seed)
+    cands = sorted({int(d * 10000 + e * 100 + c) for d, e, c in
+                    rng.integers(1, 9, (40, 3))})
+    gold = [p for p in cands if rng.random() < 0.3]
+    keep = rng.integers(0, 2, len(cands)).tolist()
+    assert prf_2nd_step(gold, cands, keep) == j_prf(gold, cands, keep)
+    assert prf_2nd_step([10102], [10102, 10103], [1, 0]) == \
+        j_prf([10102], [10102, 10103], [1, 0])
