@@ -1,7 +1,7 @@
 """Command-line entry points of the port: ``train``, ``infer``, ``stage1``,
 ``dann``, ``pair``, ``embed``, ``cit``, ``original``, ``pretrain``,
-``case_analysis``, ``hpo``, ``ordering``, ``convert``, ``vis`` and
-``presets``.
+``case_analysis``, ``hpo``, ``ordering``, ``convert``, ``vis``,
+``presets`` and ``bench``.
 
     python -m carel_tpu_torch.cli train --preset ec_mmd_final_mul_newsplit_emnlp \\
         --data_root /path/to/corpora [--device cuda] \\
@@ -35,6 +35,7 @@
         bow_concat --source ... --target ...
     python -m carel_tpu_torch.cli vis --files a.txt b.txt [--method pca]
     python -m carel_tpu_torch.cli presets
+    python -m carel_tpu_torch.cli bench [--device cuda]
 
 ``train`` runs the base epochs with per-epoch evaluation and best
 checkpointing, then ``--self_iteration`` self-training iterations (the
@@ -66,7 +67,10 @@ the encoder as a masked LM on the local corpora and writes the port's
 encoder dir (``--save_mlm``: the whole MLM too, which ``ordering
 --mlm_model`` scores with); ``case_analysis`` compares two best checkpoints
 on the test set; ``hpo`` searches the loss weights and lr; ``ordering``,
-``convert`` and ``vis`` run on the host, except the MLM scorer.
+``convert`` and ``vis`` run on the host, except the MLM scorer. ``bench``
+times the flagship's train step at b64 x s96 on random ids and prints
+pairs/s, ms a step (captured and eager) and the share of the H100's bf16
+peak (``bench.py``).
 ``--adapter`` (train and infer) reads each latent's features
 through its own attention adapter over the last hidden state, and
 ``--optim_mu_dtype bfloat16`` stores the main Adam's first moment in bf16;
@@ -1206,6 +1210,15 @@ def cmd_vis(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The flagship's train-step throughput on ``--device``
+    (``carel_tpu_torch/bench.py``): one JSON line."""
+    from carel_tpu_torch import bench
+
+    bench.main(device=args.device)
+    return 0
+
+
 def cmd_presets(_args) -> int:
     for name, cfg in sorted(PRESETS.items()):
         print(f"{name}: regularizer={cfg.loss.regularizer.value}, "
@@ -1374,6 +1387,11 @@ def build_parser() -> argparse.ArgumentParser:
     p_vis.set_defaults(fn=cmd_vis)
     p_pre = sub.add_parser("presets", help="list presets")
     p_pre.set_defaults(fn=cmd_presets)
+    p_bench = sub.add_parser("bench", help="train-step throughput")
+    p_bench.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                         help="run on the GPU (default) or, when asked, "
+                              "the CPU")
+    p_bench.set_defaults(fn=cmd_bench)
     return parser
 
 

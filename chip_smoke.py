@@ -50,7 +50,9 @@ an error:
    x 128 ids over roberta-base's one-row token-type table, its 514 positions
    and its 50,265 words, each timed, and K10 at MLM pretraining's 256 x 64
    ids; time every kernel, its plain version and, for K7-K10, the library
-   call by CUDA events and by the profiler's device time per call, and the
+   call by CUDA events and by the profiler's device time per call (every
+   profiled window opens and closes with spin kernels that its counts leave
+   out, so that a record lost at its edge is theirs), and the
    host's cost of one launch, K7-K9 also at the stage-1, DANN, embed,
    pretrain and scorer shapes (with the library's kernel names);
 4. reference: a tiny model takes one training step on the card (kernels) and
@@ -219,7 +221,12 @@ an error:
    the gathers and the gradient sum inside the captured step): every batch's
    loss and the final params bit-equal to verb_zh's; verb_en, `train
    --preset en_newsplit` over the synthetic en corpus (a WordPiece trained
-   into its cache dir).
+   into its cache dir); bench, `python -m carel_tpu_torch.cli bench` in a
+   process of its own (its launches counted from 0 there): its JSON line's
+   pairs/s must be finite and positive and agree with its captured ms/step
+   at batch 64, its MFU lie in (0, 100], its captured ms/step within
+   [0.67, 1.5] x the capture phase's wall ms/step of the flagship, one
+   capture, and K1-K4 once and K10 three times on every step of each arm.
 
 Then one line a variant and kind compares its step with the captured
 flagship's (the adapter and bf16-mu paths' captured steps too, and the
@@ -293,8 +300,58 @@ def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 
 
 # windows that device_profile and profile_epoch profiled, those without a
-# device event, and the epochs whose profile missed a path kernel's launch
-PROFILE_WINDOWS = {"profiled": 0, "empty": 0, "short": 0}
+# device event, the epochs whose profile missed a path kernel's launch; the
+# windows with work that device_events read, those of them that lost a
+# guard's record, and the guards' records lost
+PROFILE_WINDOWS = {"profiled": 0, "empty": 0, "short": 0, "guarded": 0,
+                   "guard_lost": 0, "guards_lost": 0}
+
+# every profiled window opens and closes with GUARD_KERNELS spin kernels of
+# torch.cuda._sleep (GUARD_CYCLES each, ~50 us at 1.98 GHz), which its
+# counts leave out: a record that the profiler loses at a window's edge is
+# then a guard's, not the work's (without them one run lost the first
+# flash_fwd of every window of the captured flash epoch, another none)
+GUARD_KERNELS = 200
+GUARD_CYCLES = 100_000
+GUARD_NAME = "spin_kernel"
+
+
+def guard() -> None:
+    for _ in range(GUARD_KERNELS):
+        torch.cuda._sleep(GUARD_CYCLES)
+
+
+@contextlib.contextmanager
+def guarded_profile():
+    """torch.profiler over the CUDA activity, the body's work between two
+    runs of guard(); the body ends with a synchronize. Read the kernels
+    with device_events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        guard()
+        yield prof
+        guard()
+        torch.cuda.synchronize()
+
+
+def device_events(prof) -> list:
+    """The device kernels and copies of a guarded_profile, without the
+    guards and the user annotations (mirrored on the device timeline, they
+    span other kernels); the guards' records lost are counted (where in
+    the window is not known: the records' times put some of the work among
+    the first guards)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    work = [e for e in events if GUARD_NAME not in e.name]
+    if work:
+        lost = 2 * GUARD_KERNELS - (len(events) - len(work))
+        PROFILE_WINDOWS["guarded"] += 1
+        PROFILE_WINDOWS["guard_lost"] += lost > 0
+        PROFILE_WINDOWS["guards_lost"] += lost
+    return work
 
 
 def device_profile(fn, iters: int = 30, warmup: int = 5):
@@ -306,20 +363,15 @@ def device_profile(fn, iters: int = 30, warmup: int = 5):
     event at all over a window; such a window is profiled again, up to
     three windows in all, and counted in PROFILE_WINDOWS, which main
     prints, so that a rising rate shows."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for window in range(1, 4):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with guarded_profile() as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)]
+        spans = [e.time_range.elapsed_us() for e in device_events(prof)]
         PROFILE_WINDOWS["profiled"] += 1
         if spans and sum(spans) > 0:
             return sum(spans) / 1e3 / iters, len(spans) / iters
@@ -334,18 +386,13 @@ def device_kernel_names(fn) -> list:
     fn launches, as torch.profiler records them (which backend a library
     call picked); a window with no device event is profiled again, up to
     three in all, as in device_profile."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with guarded_profile() as prof:
             fn()
             torch.cuda.synchronize()
-        names = sorted({e.name[:120] for e in prof.events()
-                        if e.device_type == DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)})
+        names = sorted({e.name[:120] for e in device_events(prof)})
         if names:
             return names
     return ["(the profiler recorded no device event)"]
@@ -2642,24 +2689,16 @@ def profile_epoch(run, nb: int):
     nb steps (``run()``, ended by a synchronize): returns the device ms/step,
     the kernels/step and {name: calls} of every device kernel. A window
     without a device event is profiled again, as in device_profile."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for window in range(1, 4):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with guarded_profile() as prof:
             run()
             torch.cuda.synchronize()
         per_kernel: dict = {}
         LAST_PROFILE.clear()
-        for e in prof.events():
-            # user annotations are mirrored on the device timeline and span
-            # other kernels: count kernels only
-            if (e.device_type == DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)):
-                us, calls = per_kernel.get(e.name, (0.0, 0))
-                per_kernel[e.name] = (us + e.time_range.elapsed_us(),
-                                      calls + 1)
-                LAST_PROFILE.append((e.time_range.start, e.name))
+        for e in device_events(prof):
+            us, calls = per_kernel.get(e.name, (0.0, 0))
+            per_kernel[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+            LAST_PROFILE.append((e.time_range.start, e.name))
         PROFILE_WINDOWS["profiled"] += 1
         device_ms = sum(us for us, _ in per_kernel.values()) / 1e3 / nb
         if device_ms > 0.0:
@@ -4600,6 +4639,68 @@ def phase_mesh(records: dict, zh: dict, smi: str) -> None:
           f"{[round(x, 3) for x in zh['epoch_s']]}; {smi}", flush=True)
 
 
+# steps each arm of the bench verb runs at bench.main's defaults: a warm-up
+# of two, then three rounds of ten
+BENCH_ARM_STEPS = 2 + 3 * 10
+
+
+def phase_bench(records: dict, flag: dict, smi: str) -> None:
+    """``python -m carel_tpu_torch.cli bench`` in a process of its own, as a
+    user runs it: the flagship's step at b64 x s96 timed captured and eager,
+    and the reference's eager step (transformers BERT-base, fp32, anomaly
+    detection) on the card. Its JSON line is held to itself and to the
+    capture phase's flagship ``flag``, and its kernel launches, counted
+    from 0 in its process, to K1-K4 once and K10 three times a step."""
+    argv = [sys.executable, "-m", "carel_tpu_torch.cli", "bench"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH", "")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        line = None
+    if not isinstance(line, dict) or "details" not in line:
+        fail(f"bench: no JSON last line in {proc.stdout[-2000:]!r}")
+    value, d = line["value"], line["details"]
+    ms = d["ms_per_step"]
+    if not (isinstance(value, float) and math.isfinite(value) and value > 0):
+        fail(f"bench: value {value}")
+    if abs(value * ms / 1e3 - 64) > 1e-6 * 64:
+        fail(f"bench: {value} pairs/s at {ms} ms/step is not batch 64")
+    if not 0.0 < d["mfu_pct_of_h100_bf16_peak"] <= 100.0:
+        fail(f"bench: MFU {d['mfu_pct_of_h100_bf16_peak']} %")
+    if not 0.67 * flag["wall_ms"] <= ms <= 1.5 * flag["wall_ms"]:
+        fail(f"bench: captured {ms:.3f} ms/step against the capture "
+             f"phase's {flag['wall_ms']:.3f}")
+    if d["captures"] != 1:
+        fail(f"bench: {d['captures']} captures (want 1)")
+    want = {k: BENCH_ARM_STEPS * CALLS_A_STEP.get(k, 1)
+            for k in PATH_KERNELS[FLAGSHIP]}
+    for arm in ("captured", "eager"):
+        # the line lists the kernels launched; a path kernel missing is 0
+        count_path_launches(records, f"bench {arm}",
+                            {**dict.fromkeys(want, 0), **d["launches"][arm]},
+                            want)
+    print(f"bench: exit 0 in {wall:.1f} s wall; {value:.1f} pairs/s "
+          f"captured ({ms:.3f} ms/step; the capture phase's flagship "
+          f"{flag['wall_ms']:.3f}), eager {d['ms_per_step_eager']:.3f} "
+          f"ms/step, {d['model_tflops_per_sec']:.2f} TFLOP/s, MFU "
+          f"{d['mfu_pct_of_h100_bf16_peak']:.3f} % of 989 bf16; reference "
+          f"(transformers BERT-base fp32 b64xs128, anomaly detection) "
+          f"{d['torch_reference_ms_step']:.1f} ms/step, "
+          f"{d['torch_reference_pairs_per_sec']:.1f} pairs/s, ratio "
+          f"{d['torch_reference_ratio']:.2f} on "
+          f"{d['torch_reference_device']}; launches a arm {want}; bench "
+          f"device {d['device']}; {smi}", flush=True)
+    print(f"bench line: {json.dumps(line)}", flush=True)
+
+
 def held_after(phase: str) -> None:
     HELD[phase] = round(torch.cuda.memory_allocated() / 2**30, 3)
 
@@ -4704,6 +4805,7 @@ def main() -> int:
     phase_verb_en(records, smi)
     held_after("verbs")
     flag = steps[FLAGSHIP]["captured"]
+    phase_bench(records, flag, smi)
     print(f"memory held between phases (allocated, GiB): {HELD}",
           flush=True)
     for name, by_kind in steps.items():
@@ -4765,7 +4867,11 @@ def main() -> int:
     print(f"device_profile: {PROFILE_WINDOWS['empty']} of "
           f"{PROFILE_WINDOWS['profiled']} windows recorded no device event, "
           f"{PROFILE_WINDOWS['short']} epoch profiles missed a path kernel's "
-          f"launch", flush=True)
+          f"launch, {PROFILE_WINDOWS['guard_lost']} of "
+          f"{PROFILE_WINDOWS['guarded']} windows with work lost a guard's "
+          f"record ({PROFILE_WINDOWS['guards_lost']} of "
+          f"{2 * GUARD_KERNELS * PROFILE_WINDOWS['guarded']} guards' records)",
+          flush=True)
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "carel_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "carel_tpu")
+# the root bench.py and __graft_entry__.py import jax and the JAX package
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "carel_tpu",
+             "__graft_entry__", "bench")
 
 
 def _forbidden(module: str) -> bool:
@@ -51,6 +53,8 @@ def test_forbidden_matcher():
     assert _forbidden("jax.numpy")
     assert not _forbidden("carel_tpu_torch.data.bow")
     assert not _forbidden("jaxtyping")
+    assert _forbidden("__graft_entry__") and _forbidden("bench")
+    assert not _forbidden("carel_tpu_torch.bench")
 
 
 def test_importing_the_port_loads_no_jax_package_module():
@@ -73,8 +77,8 @@ def test_importing_the_port_loads_no_jax_package_module():
 
 
 # modules of the adapter, bf16-mu and pair slice, of the embedder, CIT and
-# original slice, of the pretraining and tools slice and of the mesh and
-# segmentation-cache slice: the scan above must
+# original slice, of the pretraining and tools slice, of the mesh and
+# segmentation-cache slice and the bench: the scan above must
 # reach them (it walks the package, so a module moved out of it would drop
 # out)
 SLICE_MODULES = ("ops/entmax.py", "models/pair_classifier.py",
@@ -89,17 +93,19 @@ SLICE_MODULES = ("ops/entmax.py", "models/pair_classifier.py",
                  "ops/pairwise.py", "cli/main.py",
                  "parallel/__init__.py", "parallel/mesh.py",
                  "parallel/sharding.py", "parallel/tp.py",
-                 "data/synthetic.py")
+                 "data/synthetic.py", "bench.py")
 
 
 # the host tools import sklearn, matplotlib and jieba only where they use
-# them: the GPU machine has none of the three
-LAZY = ("sklearn", "matplotlib", "jieba")
+# them: the GPU machine has none of the three; bench.py imports
+# transformers only inside the reference's step
+LAZY = ("sklearn", "matplotlib", "jieba", "transformers")
 
 
 @pytest.mark.parametrize("rel", ("tools/vis.py", "tools/event_analysis.py",
                                  "pretrain/mlm.py", "cli/main.py",
-                                 "data/bow.py", "data/synthetic.py"))
+                                 "data/bow.py", "data/synthetic.py",
+                                 "bench.py"))
 def test_host_libraries_are_imported_lazily(rel):
     tree = ast.parse((PORT / rel).read_text(encoding="utf8"))
     top = [mod for node in tree.body
