@@ -4,8 +4,9 @@ Kept from the JAX encoder:
 
 - BERT positions, and RoBERTa positions ``cumsum(mask) * mask + pad_id``;
 - token-type embeddings, the embeddings LayerNorm (eps 1e-12);
-- the word, position and token-type lookups as gathers whose backward adds
-  in a fixed order, kernel K10 on CUDA (``ops/cuda_embedding.py``), so that
+- the word, position and token-type lookups as gathers added in that order,
+  whose backward, one call of kernel K10 on CUDA for all three tables
+  (``ops/cuda_embedding.py: embeddings``), adds in a fixed order, so that
   training repeats its bits on the card;
 - the -1e9 additive mask bias, in fp32;
 - a fused qkv projection whose output is laid out (3, heads, head_dim);
@@ -44,7 +45,7 @@ from torch import nn
 from carel_tpu_torch.config import EncoderConfig
 from carel_tpu_torch.ops.cuda_attention import (flash_attention_packed,
                                                 segment_ids)
-from carel_tpu_torch.ops.cuda_embedding import embedding
+from carel_tpu_torch.ops.cuda_embedding import embeddings
 from carel_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 ATTENTION_IMPLS = ("xla", "flash")
@@ -247,13 +248,16 @@ class TransformerEncoder(nn.Module):
             else:
                 positions = torch.arange(
                     L, device=input_ids.device)[None, :].expand(B, L)
-            x = embedding(input_ids, self.word_embeddings.weight) + \
-                embedding(positions, self.position_embeddings.weight)
+            ids = [input_ids, positions]
+            tables = [self.word_embeddings.weight,
+                      self.position_embeddings.weight]
             if self.token_type_embeddings is not None:
                 if token_type_ids is None:
                     token_type_ids = torch.zeros_like(input_ids)
-                x = x + embedding(token_type_ids.long(),
-                                  self.token_type_embeddings.weight)
+                ids.append(token_type_ids.long())
+                tables.append(self.token_type_embeddings.weight)
+            # (word + position) + token type, one backward for all three
+            x = embeddings(ids, tables)
             x = self.embeddings_ln(x).to(dtype)
             x = F.dropout(x, cfg.dropout, training=not deterministic)
 

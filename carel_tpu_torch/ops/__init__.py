@@ -9,8 +9,9 @@ kernels that replace the JAX package's Pallas kernels.
   (backward);
 - ``cuda_attention``: flash attention with a segment mask, kernels K7
   (forward), K8 (dK, dV) and K9 (dQ), behind ``attention_impl="flash"``;
-- ``cuda_embedding``: the encoder's embedding lookups with a backward that
-  adds in a fixed order, kernel K10;
+- ``cuda_embedding``: the sum of the encoder's word, position and
+  token-type lookups, with one backward for all three tables that adds in a
+  fixed order, kernel K10;
 - ``entmax``: sparsemax and entmax15 for the sparse attention adapters
   (plain ops on every device: the JAX package has no Pallas kernel for
   them);

@@ -70,12 +70,12 @@ _SIGNATURES = {
     # dW db dh scratch stream
     "carel_bow_bwd_planned": ([_P, _P, _P] + [_I] * 5 + [_P] * 3 + [_I]
                               + [_P] * 5, _I),
-    "carel_emb_max_dim": ([], _I),
-    "carel_emb_bwd_scratch": ([_I, _I], _LL),
-    # ids | n V | count rank stream
-    "carel_emb_count": ([_P, _I, _I, _P, _P, _P], _I),
-    # ids g | n D V | count start rank scratch dW stream
-    "carel_emb_bwd": ([_P, _P, _I, _I, _I] + [_P] * 6, _I),
+    "carel_emb_max_tables": ([], _I),
+    # n D tables
+    "carel_emb_bwd_scratch": ([_I, _I, _I], _LL),
+    # ids of three tables | their rows, tables | g n D | scratch |
+    # three dW | stream
+    "carel_emb_bwd": ([_P] * 3 + [_I] * 4 + [_P, _I, _I, _P] + [_P] * 4, _I),
     "carel_flash_takes_head_dim": ([_I], _I),
     # q k v seg o lse | B h L hd | strides of qkv, o | scale is_bf16 stream
     "carel_flash_fwd": ([_P] * 6 + [_I] * 4 + [_LL] * 6 + [_F, _I, _P], _I),

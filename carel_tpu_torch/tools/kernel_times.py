@@ -1,32 +1,42 @@
-"""Time the wrappers of the small kernels K1-K6 of a checkout on the card.
+"""Time the wrappers of the kernels K1-K6 and K10 of a checkout on the card.
 
-    python3 <root>/carel_tpu_torch/tools/kernel_times.py --root <root>
-        [--out FILE]
+    python3 <this file> --root <root> [--only NAME ...] [--out FILE]
 
 ``--root`` names the checkout whose ``carel_tpu_torch`` package is built and
 timed (default: the one this file lies in), so that two commits are compared
 in one run on one card: unpack the other commit with ``git archive`` into a
-directory that ``.gitignore`` lists, and run each checkout's own copy of
-this file with its own root, in turns (other, this, this, other): the
-wrappers' signatures differ between commits (K2 takes K1's residuals since
-they were redesigned), and each copy calls its own. Run it as a file, not
-with ``-m``, so that the package comes from ``--root``.
+directory that ``.gitignore`` lists, and run the newer checkout's copy of
+this file once with each root, in turns (other, this, this, other). The
+rows call the wrappers of the checkout under ``--root``: K2 takes K1's
+residuals since they were redesigned, and K10 is one call for the three
+tables where the checkout has ``embeddings_backward_kernel``, else the
+per-table ``embedding_backward_kernel`` three times. Run it as a file, not
+with ``-m``, so that the package comes from ``--root``. ``--only`` keeps the
+rows whose name starts with one of the names given.
 
 Per kernel, at the shapes of the training step (B = 64; d = 24 for MMD and
 HSIC; D = 48 and V = 23,808 for the fused BoW loss): the median of 30 calls
 by CUDA events around the wrapper's Python call, the profiler's device time
 per call with the number of device kernels one call launches, and the host's
 cost of one call that is not waited for. The timing functions and the inputs
-are those of this checkout's ``chip_smoke.py``. The row ``floor`` is a
+are those of this file's ``chip_smoke.py``. The row ``floor`` is a
 one-element ``fill_``: the least device time of any launch on this card, the
 yardstick of the kernels that are bound by launch latency (K1, K2, K5, K6).
-Needs a GPU and nvcc; prints the card's name and power limit, one line per
-kernel and a JSON object last.
+K10 (rows ``emb_bwd ...``) runs the backward of the encoder's word,
+position and token-type tables at four batches (``EMB_BATCHES``: the zh
+step at 64 x 96, en over roberta-base's tables at 64 x 128, pretraining at
+256 x 64, stage 1 at 300 x 60), on ``chip_smoke.emb_batch``'s ids and g
+from one seed, and adds the device time of each device kernel a call (by name), the bound
+(ids and g read once, every row of the three dWs written once, at 3.35
+TB/s) and a sha256 of the three dWs' bytes, which two checkouts that add in
+the same order share. Needs a GPU and nvcc; prints the card's name and power
+limit, one line per row and a JSON object last.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -75,10 +85,42 @@ def kernel_calls(cs) -> dict:
     }
 
 
+# K10's batches: (B, L, position layout, tables) with the zh tables or
+# roberta-base's (chip_smoke.py's)
+EMB_BATCHES = {"zh 64x96": (64, 96, "bert", "ZH_EMB_ROWS"),
+               "en 64x128": (64, 128, "roberta", "ROBERTA_ROWS"),
+               "pretrain 256x64": (256, 64, "bert", "ZH_EMB_ROWS"),
+               "stage1 300x60": (300, 60, "bert", "ZH_EMB_ROWS")}
+
+
+def emb_calls(cs) -> dict:
+    """{row name: (a call of the checkout's K10 over the three tables of
+    chip_smoke.emb_batch's inputs, its bound ms)}."""
+    from carel_tpu_torch.ops import cuda_embedding as ce
+
+    out = {}
+    for name, (B, L, layout, tables) in EMB_BATCHES.items():
+        rows = getattr(cs, tables)
+        ids, g = cs.emb_batch(B, L, rows, layout, seed=B * L)
+        if hasattr(ce, "embeddings_backward_kernel"):
+            def call(ids=ids, g=g, rows=rows):
+                return ce.embeddings_backward_kernel(ids, g, rows)
+        else:
+            def call(ids=ids, g=g, rows=rows):
+                return [ce.embedding_backward_kernel(i, g, V)
+                        for i, V in zip(ids, rows)]
+        n, D = g.shape
+        nbytes = 8 * n * len(rows) + 4 * n * D + 4 * D * sum(rows)
+        out[f"emb_bwd {name}"] = (call, cs.bound_ms(nbytes, 0)[0])
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=str(HERE),
                         help="checkout whose carel_tpu_torch is timed")
+    parser.add_argument("--only", nargs="*", default=None,
+                        help="rows whose name starts with one of these")
     parser.add_argument("--out", default=None, help="also write the JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -97,15 +139,29 @@ def main() -> int:
         print(f"carel_tpu_torch came from {carel_tpu_torch.__file__}, not "
               f"from {root}", file=sys.stderr)
         return 1
+    calls = {name: (call, None) for name, call in kernel_calls(cs).items()}
+    calls.update(emb_calls(cs))
     rows = {}
-    for name, call in kernel_calls(cs).items():
+    for name, (call, bound) in calls.items():
+        if args.only and not name.startswith(tuple(args.only)):
+            continue
         device_ms, kernels = cs.device_profile(call)
-        rows[name] = {"ms": cs.median_ms(call), "device_ms": device_ms,
-                      "kernels_per_call": kernels,
-                      "host_launch_ms": cs.host_launch_ms(call)}
-        print(f"{name}: by events {rows[name]['ms']:.4f} ms, device "
+        row = rows[name] = {"ms": cs.median_ms(call), "device_ms": device_ms,
+                            "kernels_per_call": kernels,
+                            "host_launch_ms": cs.host_launch_ms(call)}
+        print(f"{name}: by events {row['ms']:.4f} ms, device "
               f"{device_ms:.4f} ms in {kernels:g} kernels a call, host "
-              f"{rows[name]['host_launch_ms']:.4f} ms a call", flush=True)
+              f"{row['host_launch_ms']:.4f} ms a call", flush=True)
+        if bound is None:
+            continue
+        row["bound_ms"] = bound
+        row["split"] = cs.device_split(call)
+        row["sha256"] = hashlib.sha256(b"".join(
+            dW.cpu().numpy().tobytes() for dW in call())).hexdigest()
+        print(f"{name}: bound {bound:.5f} ms; sha256 {row['sha256']}; "
+              "device ms a call by kernel: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in row["split"].items()),
+              flush=True)
     result = {"card": smi, "root": str(root), "kernels": rows}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -42,14 +42,16 @@ an error:
    duplicate indices (K4 adds the corrections at the indices to G in a fixed
    order): bit-equal over two runs and over two replays of a CUDA graph,
    within the BoW gate of the plain version, and time what the corrections
-   cost K4; hold the embeddings' backward (K10, every index's entries added in
-   position order) at the stage-2 and stage-1 batches, with Zipf-like ids and
-   with one id in every entry: bit-equal over two runs and two graph replays,
-   within 1e-5 normwise of index_add_; over the token types' table of two
-   rows, five runs bit-equal beside torch's embedding backward; likewise at 64
-   x 128 ids over roberta-base's one-row token-type table, its 514 positions
-   and its 50,265 words, each timed, and K10 at MLM pretraining's 256 x 64
-   ids; time every kernel, its plain version and, for K7-K10, the library
+   cost K4; hold the embeddings' backward (K10, one call for the word,
+   position and token-type tables, every index's entries added in position
+   order) over the zh tables at the stage-2 (64 x 96 ids), stage-1 (300 x
+   60) and MLM pretraining (256 x 64) batches and over roberta-base's (50,265
+   words, 514 positions, one token type) at 64 x 128, with Zipf-like word
+   ids and all-zero token types: bit-equal over two runs and two graph
+   replays, each table within 1e-5 normwise of index_add_, each call timed
+   with its device time split by device kernel, beside torch's embedding
+   backward of the three tables (whether it repeats the token types' bits
+   printed); time every kernel, its plain version and, for K7-K10, the library
    call by CUDA events and by the profiler's device time per call (every
    profiled window opens and closes with spin kernels that its counts leave
    out, so that a record lost at its edge is theirs), and the
@@ -109,7 +111,7 @@ an error:
      and one self-training epoch that writes the pair file, once with the
      BiLSTM, the default attention and the fresh-Adam quirk, once with the
      clause transformer, flash attention (K7-K9 once a layer on every forward)
-     and a carried Adam; K10 three times a step; the pair file holds the best
+     and a carried Adam; K10 once a step; the pair file holds the best
      snapshot's predictions and reads back through build_pairs(test=True) with
      the forced misses they give and at least one predicted pair, the best
      snapshot is a copy of the params, and three steps from one state repeat
@@ -131,7 +133,7 @@ an error:
      with attention_impl="flash", b32 x s200, over synthetic documents of
      four domain labels read by load_domain_docs (16 steps), then
      EncoderEmbedder over the 512 texts at batch 256: K7 once a layer on
-     every forward, K8/K9 once a layer and K10 three times on every step;
+     every forward, K8/K9 once a layer and K10 once on every step;
      the encoder dir (save_encoder) read back by load_encoder_checkpoint
      bit-equal; a step timed and profiled;
    - the cit verb's pieces: the flash path's served model scores 64
@@ -142,12 +144,12 @@ an error:
      the encoder started from the embed path's) for a base epoch of 16
      steps and one self-training iteration, the predictions passed in
      memory: K7 once a layer on every inference and embedder batch, K10
-     three times a step; refined predictions in {0, 1}, P/R/F1 in [0, 1];
+     once a step; refined predictions in {0, 1}, P/R/F1 in [0, 1];
      a step timed and profiled;
    - the original verb's pieces (train_original) at b64 x s96, BoW V
      23,808: a base epoch of 16 eager steps, the evaluation of 514 pairs,
      the best saved and reloaded, one self-training iteration, then 4
-     steps of the --bow_loss variant: K10 three times a step and nothing
+     steps of the --bow_loss variant: K10 once a step and nothing
      else; the six latent heads bit-unchanged, the five adversaries moved;
      a step timed and profiled;
    - the clustering tool: 4,096 synthetic clauses embedded by the embed
@@ -156,7 +158,7 @@ an error:
    - the pretrain verb's trainer (pretrain_mlm) at 12L/768H bf16, vocab
      21,128, attention_impl="flash", MlmConfig's b256 x s64 over the
      clauses of synthetic documents: 16 steps in two dispatches of 8
-     replays of one captured step, K7-K9 once a layer and K10 three times
+     replays of one captured step, K7-K9 once a layer and K10 once
      on every step; the MLM saved (--save_mlm) and the encoder dir (--out)
      loaded into the flagship's encoder bit-equal; a second captured and
      an eager run of the seed bit-equal to the first; dispatches timed and
@@ -173,7 +175,7 @@ an error:
      12L/768H, vocab 21,128, bf16, attention_impl="flash", b64 x s96 on
      the zh paths' synthetic pairs: a base epoch of 16 eager steps, its
      evaluation of 514 pairs, one threshold self-training iteration; K7
-     once a layer on every forward, K8/K9 once a layer and K10 three times
+     once a layer on every forward, K8/K9 once a layer and K10 once
      on every training step; finite probabilities in [0, 1]; 16 steps
      timed and profiled;
    - en_newsplit over a roberta-base-shaped encoder (12L/768H, vocab
@@ -216,7 +218,7 @@ an error:
    epoch: verb_zh, `train --preset ec_mmd_final_mul_newsplit_emnlp` over the
    synthetic zh corpus of carel_tpu_torch/data/synthetic.py and its
    committed segmentation cache (the words must come from the cache, K1-K4
-   once and K10 three times on every step, one capture, a pair-F1 in the
+   once and K10 once on every step, one capture, a pair-F1 in the
    last line); mesh, the same under --mesh_shape 1,1 (NCCL, a world of one,
    the gathers and the gradient sum inside the captured step): every batch's
    loss and the final params bit-equal to verb_zh's; verb_en, `train
@@ -226,7 +228,7 @@ an error:
    pairs/s must be finite and positive and agree with its captured ms/step
    at batch 64, its MFU lie in (0, 100], its captured ms/step within
    [0.67, 1.5] x the capture phase's wall ms/step of the flagship, one
-   capture, and K1-K4 once and K10 three times on every step of each arm.
+   capture, and K1-K4 once and K10 once on every step of each arm.
 
 Then one line a variant and kind compares its step with the captured
 flagship's (the adapter and bf16-mu paths' captured steps too, and the
@@ -403,6 +405,34 @@ def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return device_profile(fn, iters, warmup)[0]
 
 
+def kernel_label(name: str) -> str:
+    """A device kernel's name without its namespaces and return type, cut
+    to 70 characters (enough to tell torch's fill from its subtraction)."""
+    for noise in ("void ", "(anonymous namespace)::", "at::native::",
+                  "at_cuda_detail::cub::", "at_cuda_detail::"):
+        name = name.replace(noise, "")
+    return name[:70]
+
+
+def device_split(fn, iters: int = 30, warmup: int = 5) -> dict:
+    """{kernel_label of a device kernel: device ms a call} of fn over iters
+    calls, from the profiler, in the order of first launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with guarded_profile() as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    PROFILE_WINDOWS["profiled"] += 1
+    split: dict = {}
+    for e in device_events(prof):
+        label = kernel_label(e.name)
+        split[label] = (split.get(label, 0.0)
+                        + e.time_range.elapsed_us() / 1e3 / iters)
+    return split
+
+
 def host_launch_ms(fn, iters: int = 200, sync_every: int = 50) -> float:
     """Median host time of one call of fn that is not waited for (the
     wrapper's checks, allocations and the launch), with a synchronize every
@@ -553,9 +583,10 @@ def mmd_inputs(B: int, masked: int, d: int = 24, seed: int = 0):
 MMD_FOUR_ALPHAS = (0.1, 0.5, 1.0, 2.0)  # as many as K1/K2 take
 
 
-def replays_bit_equal(launch) -> bool:
+def replays_bit_equal(launch, fill: float = 0.0) -> bool:
     """launch() captured in one CUDA graph and replayed twice: True if each
-    replay writes the bits that the eager call returned."""
+    replay writes the bits that the eager call returned (into outputs
+    filled with ``fill`` first: NaN shows an element a replay leaves)."""
     want = [t.clone() for t in launch()]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -564,7 +595,7 @@ def replays_bit_equal(launch) -> bool:
     same = True
     for _ in range(2):
         for t in got:
-            t.zero_()
+            t.fill_(fill)
         graph.replay()
         torch.cuda.synchronize()
         same = same and all(torch.equal(u, v) for u, v in zip(got, want))
@@ -1107,175 +1138,121 @@ def phase_bow_corrections(records: dict) -> None:
           f"{fold_err:.2e}", flush=True)
 
 
-def phase_embedding(records: dict) -> None:
-    """K10, the embeddings' backward in a fixed order, at the stage-2 batch
-    (64 x 96 ids) and the stage-1 batch (300 x 60), with Zipf-like ids (a
-    few in long runs) and with one id in every entry: two runs and two
-    replays of a CUDA graph bit-equal, within 1e-5 normwise of index_add_,
-    and whether three runs of torch's embedding backward on the same inputs
-    give the same bits (printed); over the token types' table of two rows,
-    five runs of K10 bit-equal, beside torch's embedding backward there
-    (printed); K10 timed at both batches and at MLM pretraining's (256 x 64
-    ids) beside torch's embedding backward (the plain version and the
-    library call)."""
-    import torch.nn.functional as F
-
-    from carel_tpu_torch.ops import cuda_embedding as ce
-
-    V, D = 21128, 768
-    err = 0.0
-    for n, case in ((64 * 96, "zipf"), (64 * 96, "one"), (300 * 60, "zipf"),
-                    (300 * 60, "one")):
-        rng = np.random.default_rng(n)
-        ids = (np.minimum(rng.zipf(1.3, n) - 1, V - 1) if case == "zipf"
-               else np.zeros(n, np.int64))
-        ids = torch.tensor(ids, dtype=torch.long, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(n)
-        g = torch.randn(n, D, device="cuda", generator=gen)
-        first = ce.embedding_backward_kernel(ids, g, V)
-        if not torch.equal(first, ce.embedding_backward_kernel(ids, g, V)):
-            fail(f"embedding backward ({n} ids, {case}): two runs differ")
-        if not replays_bit_equal(
-                lambda: (ce.embedding_backward_kernel(ids, g, V),)):
-            fail(f"embedding backward ({n} ids, {case}): graph replays "
-                 "differ")
-        want = torch.zeros(V, D, device="cuda").index_add_(0, ids, g)
-        rel = relnorm(first, want)
-        err = max(err, float((first - want).abs().max()))
-        longest = int(torch.bincount(ids).max())
-        w = torch.zeros(V, D, device="cuda", requires_grad=True)
-        out = F.embedding(ids, w)
-        torch_runs = [torch.autograd.grad(out, w, g, retain_graph=True)[0]
-                      for _ in range(3)]
-        torch_same = all(torch.equal(torch_runs[0], t)
-                         for t in torch_runs[1:])
-        print(f"embedding backward, {n} ids ({case}, {longest} entries at "
-              f"most an id): two runs and two graph replays bit-equal; vs "
-              f"index_add_ normwise {rel:.2e}; three runs of torch's "
-              f"embedding backward bit-equal: {torch_same}", flush=True)
-        if not rel <= 1e-5:
-            fail(f"embedding backward off index_add_ by {rel:.2e}")
-    # the token types' table of two rows, every entry at index 0: torch's
-    # embedding backward there did not repeat its bits on the card
-    for n in (64 * 96, 300 * 60):
-        ids = torch.zeros(n, dtype=torch.long, device="cuda")
-        g = torch.randn(n, D, device="cuda")
-        w = torch.zeros(2, D, device="cuda", requires_grad=True)
-        out = F.embedding(ids, w)
-        runs = {"torch's embedding": [
-            torch.autograd.grad(out, w, g, retain_graph=True)[0]
-            for _ in range(5)],
-            "K10": [ce.embedding_backward_kernel(ids, g, 2)
-                    for _ in range(5)]}
-        same = {name: all(torch.equal(r[0], t) for t in r[1:])
-                for name, r in runs.items()}
-        print(f"token-type table (2 rows), {n} entries of index 0: five "
-              f"backward runs bit-equal: {same}", flush=True)
-        if not same["K10"]:
-            fail("embedding backward over two rows: five runs differ")
-
-    times = {}
-    for n in (64 * 96, 300 * 60, 256 * 64):
-        ids = torch.tensor(np.minimum(
-            np.random.default_rng(1).zipf(1.3, n) - 1, V - 1),
-            dtype=torch.long, device="cuda")
-        g = torch.randn(n, D, device="cuda")
-        w = torch.randn(V, D, device="cuda", requires_grad=True)
-        out = F.embedding(ids, w)
-
-        def torch_backward():
-            return torch.autograd.grad(out, w, g, retain_graph=True)
-
-        t = times[n] = timed(
-            lambda: ce.embedding_backward_kernel(ids, g, V), torch_backward,
-            torch_backward)
-        # ids and g read once, dW written once; one add per element of g
-        t["bound_ms"], t["bound_by"] = bound_ms(8 * n + 4 * n * D
-                                                + 4 * V * D, n * D)
-        print(f"emb_bwd at {n} ids: device {t['device_ms']:.4f} ms in "
-              f"{t['kernels_per_call']:g} kernels (torch's "
-              f"{t['plain_device_ms']:.4f}); by events {t['ms']:.4f} ms "
-              f"(torch's {t['plain_ms']:.4f}); bound {t['bound_ms']:.6f} ms",
-              flush=True)
-    roberta, err_r = roberta_tables()
-    t = times[64 * 96]
-    records["emb_bwd"] = {
-        "name": "emb_bwd", "route": "cuda",
-        "source": "carel_tpu_torch/csrc/embedding.cu",
-        "replaces": "carel_tpu/models/encoder.py:132, :134, :140 (nn.Embed; XLA's "
-                    "scatter-add of its gather, no Pallas kernel)",
-        "launches": 0, "max_abs_err": max(err, err_r), **t,
-        "stage1_batch": times[300 * 60], "pretrain_batch": times[256 * 64],
-        "roberta_tables": roberta}
-    print_times("emb_bwd", records["emb_bwd"])
+# the zh tables: 21,128 words, 512 positions, two token types; roberta-base's
+# (config.json of the model card): 50,265 words, 514 positions, one type
+ZH_EMB_ROWS = (21128, 512, 2)
+ROBERTA_ROWS = (50265, 514, 1)
+EMB_D = 768
 
 
-# roberta-base's tables (config.json of the model card): the token types'
-# single row, the 514 positions and the 50,265 words
-ROBERTA_ROWS = {"token_type": 1, "position": 514, "word": 50265}
+def emb_batch(B: int, L: int, rows: tuple, layout: str, seed: int):
+    """The three tables' ids [B * L] as the encoder hands them to K10, and g
+    [B * L, 768]: Zipf-like word ids (a few in long runs), the positions
+    (bert: 0..L-1 in every row; roberta: cumsum(mask) * mask + 1, the pad
+    id 1, over rows of 16 to L tokens) and all-zero token types (one run
+    across every chunk)."""
+    rng = np.random.default_rng(seed)
+    words = np.minimum(rng.zipf(1.3, (B, L)) - 1, rows[0] - 1)
+    if layout == "roberta":
+        mask = np.arange(L)[None, :] < rng.integers(16, L + 1, B)[:, None]
+        pos = np.cumsum(mask, axis=1) * mask + 1
+    else:
+        pos = np.tile(np.arange(L), (B, 1))
+    ids = [torch.tensor(a.reshape(-1), dtype=torch.long, device="cuda")
+           for a in (words, pos, np.zeros((B, L), np.int64))]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return ids, torch.randn(B * L, EMB_D, device="cuda", generator=gen)
 
 
-def roberta_tables():
-    """K10 at the en path's batch (64 x 128 ids) over each of roberta-base's
-    tables, with the ids the encoder gives it: all 0 for the one-row
-    token-type table (one run across every chunk), RoBERTa's positions
-    (cumsum of the mask, offset by the pad id 1) and Zipf-like words. Two
-    runs and two graph replays bit-equal and within 1e-5 normwise of
-    index_add_, as at the zh shapes; each timed beside torch's embedding
-    backward, with its bound. Returns ({table: times}, the largest absolute
+def emb_case(tag: str, B: int, L: int, rows: tuple, layout: str):
+    """K10, one call over the three tables of one batch: two runs and two
+    graph replays (into NaN) bit-equal, each table within 1e-5 normwise of
+    index_add_; whether three runs of torch's embedding backward repeat the
+    token types' bits (printed); the call timed beside the plain version
+    (three index_add_s) and torch's embedding backward of the three tables
+    (what the parent's path would have without K10), its device time split
+    by device kernel, its bound. Returns (times, the largest absolute
     error)."""
     import torch.nn.functional as F
 
     from carel_tpu_torch.ops import cuda_embedding as ce
 
-    B, L, D = 64, 128, 768
     n = B * L
-    out, err = {}, 0.0
-    for table, rows in ROBERTA_ROWS.items():
-        rng = np.random.default_rng(rows)
-        if table == "token_type":
-            ids = np.zeros(n, np.int64)
-        elif table == "position":
-            mask = (np.arange(L)[None, :]
-                    < rng.integers(16, L + 1, B)[:, None])
-            ids = (np.cumsum(mask, axis=1) * mask + 1).reshape(-1)
-        else:
-            ids = np.minimum(rng.zipf(1.3, n) - 1, rows - 1)
-        ids = torch.tensor(ids, dtype=torch.long, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(rows)
-        g = torch.randn(n, D, device="cuda", generator=gen)
-        first = ce.embedding_backward_kernel(ids, g, rows)
-        if not torch.equal(first, ce.embedding_backward_kernel(ids, g, rows)):
-            fail(f"embedding backward over the {rows}-row {table} table: "
-                 "two runs differ")
-        if not replays_bit_equal(
-                lambda: (ce.embedding_backward_kernel(ids, g, rows),)):
-            fail(f"embedding backward over the {rows}-row {table} table: "
-                 "graph replays differ")
-        want = torch.zeros(rows, D, device="cuda").index_add_(0, ids, g)
-        rel = relnorm(first, want)
-        err = max(err, float((first - want).abs().max()))
-        if not rel <= 1e-5:
-            fail(f"embedding backward over the {rows}-row {table} table off "
-                 f"index_add_ by {rel:.2e}")
-        w = torch.randn(rows, D, device="cuda", requires_grad=True)
-        emb = F.embedding(ids, w)
+    ids, g = emb_batch(B, L, rows, layout, seed=n)
 
-        def torch_backward():
-            return torch.autograd.grad(emb, w, g, retain_graph=True)
+    def kernel():
+        return ce.embeddings_backward_kernel(ids, g, rows)
 
-        t = out[table] = timed(
-            lambda: ce.embedding_backward_kernel(ids, g, rows),
-            torch_backward, torch_backward)
-        t["rows"], t["ids"] = rows, n
-        t["bound_ms"], t["bound_by"] = bound_ms(
-            8 * n + 4 * n * D + 4 * rows * D, n * D)
-        print(f"emb_bwd over roberta-base's {table} table ({rows} rows, {n} "
-              f"ids, {int(torch.bincount(ids).max())} entries at most an "
-              f"id): two runs and two graph replays bit-equal, vs index_add_ "
-              f"normwise {rel:.2e}", flush=True)
-        print_times(f"emb_bwd ({table}, {rows} rows)", t)
-    return out, err
+    first = kernel()
+    if not all(torch.equal(a, b) for a, b in zip(first, kernel())):
+        fail(f"embedding backward ({tag}): two runs differ")
+    if not replays_bit_equal(lambda: tuple(kernel()), fill=float("nan")):
+        fail(f"embedding backward ({tag}): graph replays differ")
+    want = ce.embeddings_backward_plain(ids, g, rows)
+    rels = [relnorm(a, b) for a, b in zip(first, want)]
+    err = max(float((a - b).abs().max()) for a, b in zip(first, want))
+    if not max(rels) <= 1e-5:
+        fail(f"embedding backward ({tag}) off index_add_ by {rels}")
+    ws = [torch.randn(V, EMB_D, device="cuda", requires_grad=True)
+          for V in rows]
+    out = F.embedding(ids[0], ws[0]) + F.embedding(ids[1], ws[1])
+    out = out + F.embedding(ids[2], ws[2])
+
+    def library():
+        return torch.autograd.grad(out, ws, g, retain_graph=True)
+
+    types = [library()[2] for _ in range(3)]
+    torch_same = all(torch.equal(types[0], t) for t in types[1:])
+    t = timed(kernel, lambda: ce.embeddings_backward_plain(ids, g, rows),
+              library)
+    t["split"] = device_split(kernel)
+    t["ids"], t["rows"] = n, list(rows)
+    # the ids and g read once, every row of the three dWs written once; an
+    # add per element of g and table
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        8 * n * len(rows) + 4 * n * EMB_D + 4 * EMB_D * sum(rows),
+        len(rows) * n * EMB_D)
+    longest = int(torch.bincount(ids[0]).max())
+    print(f"emb_bwd {tag} ({n} ids, tables of {rows} rows, {longest} "
+          f"entries at most a word): two runs and two graph replays "
+          f"bit-equal; vs index_add_ normwise {', '.join(f'{r:.2e}' for r in rels)}; "
+          f"three runs of torch's embedding backward repeat the token "
+          f"types' bits: {torch_same}", flush=True)
+    print_times(f"emb_bwd ({tag})", t)
+    print(f"emb_bwd ({tag}) device ms a call by kernel: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t["split"].items())
+          + f"; torch's embedding backward {t['library_device_ms']:.4f} "
+          f"device ms", flush=True)
+    return t, err
+
+
+def phase_embedding(records: dict) -> None:
+    """K10, the embeddings' backward in a fixed order, one call for the word,
+    position and token-type tables, as emb_case holds it: over the zh tables
+    at the stage-2 batch (64 x 96 ids), the stage-1 batch (300 x 60) and MLM
+    pretraining's (256 x 64), and over roberta-base's at the en path's
+    batch (64 x 128, roberta_tables)."""
+    times, err = {}, 0.0
+    for B, L in ((64, 96), (300, 60), (256, 64)):
+        times[B * L], e = emb_case(f"zh {B}x{L}", B, L, ZH_EMB_ROWS, "bert")
+        err = max(err, e)
+    roberta, err_r = roberta_tables()
+    records["emb_bwd"] = {
+        "name": "emb_bwd", "route": "cuda",
+        "source": "carel_tpu_torch/csrc/embedding.cu",
+        "replaces": "carel_tpu/models/encoder.py:132, :134, :140 (nn.Embed; XLA's "
+                    "scatter-add of its gather, no Pallas kernel)",
+        "launches": 0, "max_abs_err": max(err, err_r), **times[64 * 96],
+        "stage1_batch": times[300 * 60], "pretrain_batch": times[256 * 64],
+        "roberta_tables": roberta}
+
+
+def roberta_tables():
+    """K10 at the en path's batch (64 x 128 ids) over roberta-base's three
+    tables in one call, with the ids the encoder gives it (RoBERTa's
+    positions, the one-row token-type table), held and timed as emb_case
+    does. Returns (times, the largest absolute error)."""
+    return emb_case("roberta-base 64x128", 64, 128, ROBERTA_ROWS, "roberta")
 
 
 def phase_scores() -> None:
@@ -1855,12 +1832,10 @@ ZH_PATHS = tuple(PATH_KERNELS)
 # the en path: the MMD step of the flagship over a roberta-base encoder
 EN_PRESET = "en_newsplit"
 PATH_KERNELS[EN_PRESET] = PATH_KERNELS[FLAGSHIP]
-# device kernels a wrapper call launches, where it is not one: K10 counts,
-# ranks, places, sums chunks and combines them
-KERNELS_A_CALL = {"emb_bwd": 5}
-# wrapper calls a training step makes, where it is not one: K10 for the
-# word, position and token-type tables
-CALLS_A_STEP = {"emb_bwd": 3}
+# device kernels a wrapper call launches, where it is not one: K10 sorts
+# (beside the zeros), sums chunks and combines them, one call a step for
+# the word, position and token-type tables
+KERNELS_A_CALL = {"emb_bwd": 3}
 
 
 def full_width_config(preset: str, run: str, attention_impl: str = "xla",
@@ -2026,8 +2001,7 @@ def phase_path(records: dict, preset: str, iterations: int,
         fail(f"{tag}: self-training took no training step")
     counted_step.check(tag, steps)
     for kernel, n in counts.items():
-        want = (steps * CALLS_A_STEP.get(kernel, 1)
-                if kernel in PATH_KERNELS[preset] else 0)
+        want = steps if kernel in PATH_KERNELS[preset] else 0
         if n != want:
             fail(f"{tag}: kernel {kernel} launched {n} times in {steps} "
                  f"training steps (want {want})")
@@ -2264,7 +2238,7 @@ def phase_pair(records: dict) -> dict:
     evaluation of 514 test pairs, one threshold self-training
     iteration (prediction with the best params, fine-tune, evaluation).
     K7 must launch once a layer on every forward, K8/K9 once a layer and
-    K10 three times on every training step; the probabilities must be
+    K10 once on every training step; the probabilities must be
     finite values in [0, 1]. Then 16 more eager steps timed and profiled.
     Returns wall and device ms/step, kernels/step and peak memory."""
     from carel_tpu_torch import ops
@@ -2319,7 +2293,7 @@ def phase_pair(records: dict) -> dict:
     if n <= len(train) // B:
         fail(f"{tag}: self-training took no training step")
     want = {"flash_fwd": layers * (n + forwards), "flash_bwd_dkv": layers * n,
-            "flash_bwd_dq": layers * n, "emb_bwd": CALLS_A_STEP["emb_bwd"] * n}
+            "flash_bwd_dq": layers * n, "emb_bwd": n}
     for kernel, got in counts.items():
         if got != want.get(kernel, 0):
             fail(f"{tag}: kernel {kernel} launched {got} times in {n} "
@@ -2647,8 +2621,7 @@ def phase_serve(records: dict):
             or not np.allclose(sorted(p for *_, p in hits), sorted(probs),
                                rtol=0, atol=1e-6):
         fail(f"{tag}: extract_document and score_texts disagree")
-    want = {name: steps * CALLS_A_STEP.get(name, 1)
-            for name in PATH_KERNELS[FLAGSHIP]}
+    want = dict.fromkeys(PATH_KERNELS[FLAGSHIP], steps)
     want["flash_fwd"] = layers * (steps + len(forwards) + scored_batches)
     want["flash_bwd_dkv"] = want["flash_bwd_dq"] = layers * steps
     for name, n in counts.items():
@@ -2714,7 +2687,7 @@ def path_kernel_calls(preset: str, attention_impl: str) -> dict:
     """The kernels one training step of this variant launches: {wrapper
     name: launches}; the profiler names each device kernel after its
     wrapper (mmd_fwd_kernel, flash_fwd_mma_kernel, ...)."""
-    want = {name: KERNELS_A_CALL.get(name, 1) * CALLS_A_STEP.get(name, 1)
+    want = {name: KERNELS_A_CALL.get(name, 1)
             for name in PATH_KERNELS[preset]}
     if attention_impl == "flash":
         layers = 12
@@ -3204,7 +3177,7 @@ def phase_stage1(records: dict, mixer: str, impl: str, carried: bool
     give and at least one predicted pair; the best snapshot shares no
     storage with the live params and a later step leaves it as it was;
     three steps from one state repeat their bits; K7-K9 launch once a layer
-    on every forward (and K8/K9 on every step) under flash, K10 three times
+    on every forward (and K8/K9 on every step) under flash, K10 once
     a step, and no other kernel of the port. Then it times the step and
     the evaluation."""
     from carel_tpu_torch import ops
@@ -3260,7 +3233,7 @@ def phase_stage1(records: dict, mixer: str, impl: str, carried: bool
     if "stage1_selftrain" not in events or pair_file is None:
         fail(f"{tag}: the self-training set did not grow, or no pair file")
     layers = enc.num_layers
-    want = {"emb_bwd": CALLS_A_STEP["emb_bwd"] * len(losses)}
+    want = {"emb_bwd": len(losses)}
     if impl == "flash":
         want.update(flash_fwd=layers * (len(losses) + evals),
                     flash_bwd_dkv=layers * len(losses),
@@ -3354,7 +3327,7 @@ def phase_dann(records: dict) -> dict:
     domain files (~320 source and ~300 target clauses): one base epoch and
     one self-training iteration of one epoch, the domain loss on. The
     losses must be finite, the running statistics must move, K10 alone of
-    the port's kernels launches (three times a step; default attention),
+    the port's kernels launches (once a step; default attention),
     the gradient reversal must send the domain head's gradient back to the
     features as -3 times itself, and three steps from one state must give
     the same losses, params and running statistics bit for bit. Then it
@@ -3405,7 +3378,7 @@ def phase_dann(records: dict) -> dict:
     if "dann_selftrain" not in events:
         fail(f"{tag}: no self-training iteration ran")
     count_path_launches(records, "dann", counts,
-                        {"emb_bwd": CALLS_A_STEP["emb_bwd"] * len(losses)})
+                        {"emb_bwd": len(losses)})
     moved = {k: float((model.state_dict()[k] - v).abs().max())
              for k, v in stats0.items()}
     if not all(m > 0.0 for m in moved.values()):
@@ -3492,7 +3465,7 @@ def phase_reference_original() -> None:
     gradient is over 1e-3 of its tensor's largest (Adam's first step moves
     such an entry by about lr * sign(g), so only there does the step show
     the gradient), the six latent heads bit-unchanged and the five
-    adversaries moved on both devices; K10 three times on the card."""
+    adversaries moved on both devices; K10 once on the card."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.data.batching import cut_batch
     from carel_tpu_torch.models.drl_original import (ADVERSARIES,
@@ -3562,9 +3535,8 @@ def phase_reference_original() -> None:
     if not (worst_m <= 1e-4 and worst_g <= 1e-3 and worst_p <= 2
             and worst_safe <= 1e-3 and frozen and moved):
         fail(f"{tag}: card and CPU disagree")
-    if counts["emb_bwd"] != 3 or sum(counts.values()) != 3:
-        fail(f"{tag}: launches {counts} (want K10 three times, nothing "
-             "else)")
+    if counts["emb_bwd"] != 1 or sum(counts.values()) != 1:
+        fail(f"{tag}: launches {counts} (want K10 once, nothing else)")
 
 
 def path_line(tag: str, nums: dict, peak_gib: float, smi: str,
@@ -3587,7 +3559,7 @@ def phase_embed(records: dict, smi: str) -> dict:
     domain labels (load_domain_docs over four files: 512 texts, one epoch
     of 16 steps), then EncoderEmbedder over the 512 texts at batch 256.
     K7 must launch once a layer on every forward, K8/K9 once a layer and
-    K10 three times on every step; the loss and the embeddings must be
+    K10 once on every step; the loss and the embeddings must be
     finite; save_encoder then load_encoder_checkpoint must give the same
     bits and the same config. Then a step is timed and profiled. Returns
     the numbers, the encoder's config and its trained params."""
@@ -3646,7 +3618,7 @@ def phase_embed(records: dict, smi: str) -> dict:
     count_path_launches(records, "embed", counts, {
         "flash_fwd": layers * (steps + forwards),
         "flash_bwd_dkv": layers * steps, "flash_bwd_dq": layers * steps,
-        "emb_bwd": CALLS_A_STEP["emb_bwd"] * steps})
+        "emb_bwd": steps})
 
     # the encoder dir: written, read back bit for bit with the same shape
     enc_dir = save_encoder(os.path.join(RUN_DIR, "embed", "encoder"), params)
@@ -3732,7 +3704,7 @@ def phase_cit(records: dict, served, embed: dict, smi: str) -> dict:
     along the first principal direction of the evaluation triples' pooled
     outputs (logits of std 2) and its bias at their median logit, so that
     its predictions split. K7 once a layer on
-    every inference and embedder batch, K10 three times on every step,
+    every inference and embedder batch, K10 once on every step,
     nothing else; the refined predictions must be 0 or 1 and P/R/F1 in
     [0, 1]. Then a CIT step is timed and profiled."""
     from carel_tpu_torch import ops
@@ -3813,7 +3785,7 @@ def phase_cit(records: dict, served, embed: dict, smi: str) -> dict:
         fail(f"{tag}: a metric out of [0, 1]")
     count_path_launches(records, "cit", counts, {
         "flash_fwd": layers * (infer_batches + sum(calls)),
-        "emb_bwd": CALLS_A_STEP["emb_bwd"] * steps})
+        "emb_bwd": steps})
 
     # a CIT step timed and profiled, from the best params
     pcfg = PairTrainerConfig(max_len=ccfg.max_len,
@@ -3842,7 +3814,7 @@ def phase_original(records: dict, smi: str) -> dict:
     one self-training iteration (random strategy) from the best, then 4
     steps of the --bow_loss variant. The pair classifier's bias is centred
     on the median logit of the test pairs first, so that the random model's
-    predictions split and a best F1 above 0 is saved. K10 three times a
+    predictions split and a best F1 above 0 is saved. K10 once a
     step and nothing else; the six latent heads bit-unchanged and all five
     adversaries moved; finite losses; probabilities in [0, 1]; after
     train_original the model holds the saved best. Then a step is timed
@@ -3932,7 +3904,7 @@ def phase_original(records: dict, smi: str) -> dict:
     if "best" not in events or not reloaded:
         fail(f"{tag}: no best saved, or the model does not hold it")
     count_path_launches(records, "original", counts,
-                  {"emb_bwd": CALLS_A_STEP["emb_bwd"] * n})
+                  {"emb_bwd": n})
     now = model.state_dict()
     frozen = all(torch.equal(now[f"{h}.{w}"], init[f"{h}.{w}"])
                  for h in LATENT_HEADS for w in ("weight", "bias"))
@@ -4054,9 +4026,9 @@ ORDERING_CPU_PAIRS, ORDERING_GATE = 8, 1e-2
 
 def mlm_step_calls(layers: int) -> dict:
     """Kernel launches of one MLM training step with flash attention: K7-K9
-    once a layer, K10 for each of the three tables."""
+    once a layer, K10 once for the three tables."""
     return {"flash_fwd": layers, "flash_bwd_dkv": layers,
-            "flash_bwd_dq": layers, "emb_bwd": CALLS_A_STEP["emb_bwd"]}
+            "flash_bwd_dq": layers, "emb_bwd": 1}
 
 
 def phase_reference_pretrain() -> None:
@@ -4067,7 +4039,7 @@ def phase_reference_pretrain() -> None:
     and within 1e-3 lr where its gradient is over 1e-3 of its tensor's
     largest (the attention key biases, whose gradient is 0 in exact
     arithmetic, to 2 lr only); the card's step launches K7-K9 once a layer
-    and K10 three times."""
+    and K10 once."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.models.encoder import tiny_encoder_config
     from carel_tpu_torch.pretrain import mlm
@@ -4154,7 +4126,7 @@ def phase_pretrain(records: dict, smi: str) -> dict:
     synthetic documents: PRETRAIN_STEPS steps in dispatches of
     PRETRAIN_SCAN replays of one captured step, the whole MLM saved as
     --save_mlm does and the encoder as --out does. K7-K9 must launch once a
-    layer and K10 three times on every step, nothing else; each dispatch's
+    layer and K10 once on every step, nothing else; each dispatch's
     loss finite; the encoder dir loads through load_encoder_checkpoint into
     the flagship's encoder bit for bit; a second captured run and an eager
     run of the same seed give the first run's bits. Then dispatches are
@@ -4491,8 +4463,8 @@ def phase_hpo(records: dict, smi: str) -> dict:
     if len(trials) != HPO_TRIALS or best is None or not all(
             t.value is not None and 0.0 <= t.value <= 1.0 for t in trials):
         fail(f"{tag}: trials {trials}")
-    count_path_launches(records, "hpo", counts, {
-        k: steps * CALLS_A_STEP.get(k, 1) for k in PATH_KERNELS[FLAGSHIP]})
+    count_path_launches(records, "hpo", counts,
+                        dict.fromkeys(PATH_KERNELS[FLAGSHIP], steps))
     return dict(wall_s=wall)
 
 
@@ -4582,9 +4554,8 @@ def verb_line(tag: str, run: dict, smi: str) -> str:
 
 
 def verb_launches(records: dict, tag: str, preset: str, run: dict) -> None:
-    count_path_launches(records, tag, run["done"]["launches"], {
-        k: run["steps"] * CALLS_A_STEP.get(k, 1)
-        for k in PATH_KERNELS[preset]})
+    count_path_launches(records, tag, run["done"]["launches"],
+                        dict.fromkeys(PATH_KERNELS[preset], run["steps"]))
 
 
 def phase_verb_zh(records: dict, smi: str, tag: str = "verb_zh",
@@ -4650,7 +4621,7 @@ def phase_bench(records: dict, flag: dict, smi: str) -> None:
     and the reference's eager step (transformers BERT-base, fp32, anomaly
     detection) on the card. Its JSON line is held to itself and to the
     capture phase's flagship ``flag``, and its kernel launches, counted
-    from 0 in its process, to K1-K4 once and K10 three times a step."""
+    from 0 in its process, to K1-K4 once and K10 once a step."""
     argv = [sys.executable, "-m", "carel_tpu_torch.cli", "bench"]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH", "")] if p]))
@@ -4680,8 +4651,7 @@ def phase_bench(records: dict, flag: dict, smi: str) -> None:
              f"phase's {flag['wall_ms']:.3f}")
     if d["captures"] != 1:
         fail(f"bench: {d['captures']} captures (want 1)")
-    want = {k: BENCH_ARM_STEPS * CALLS_A_STEP.get(k, 1)
-            for k in PATH_KERNELS[FLAGSHIP]}
+    want = dict.fromkeys(PATH_KERNELS[FLAGSHIP], BENCH_ARM_STEPS)
     for arm in ("captured", "eager"):
         # the line lists the kernels launched; a path kernel missing is 0
         count_path_launches(records, f"bench {arm}",

@@ -199,16 +199,17 @@ def test_mmd_kernels_replay_from_a_cuda_graph(cuda, B):
     _assert_replays_bit_equal(both)
 
 
-def _assert_replays_bit_equal(launch):
+def _assert_replays_bit_equal(launch, fill=0.0):
     """launch() captured in one CUDA graph and replayed twice writes the
-    bits of the eager call."""
+    bits of the eager call (into outputs filled with ``fill`` before the
+    replays: NaN shows an element that a replay does not write)."""
     want = [t.clone() for t in launch()]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = launch()
     for t in got:
-        t.zero_()
+        t.fill_(fill)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
@@ -430,62 +431,77 @@ def test_bow_backward_repeats_its_bits_with_duplicate_indices(cuda, B,
         assert _relnorm(a, c) <= 1e-4
 
 
-# the encoder's word ids at the training batch: Zipf-like (a few ids in
-# long runs), and one id in every entry (as the token types are); and the
-# stage-1 batch of 300 clauses of 60 tokens
+# the zh tables (words, bert positions, token types) at the training batch
+# of 64 x 96 ids with Zipf-like word ids (a few in long runs) or one word id
+# in every entry, and at the stage-1 batch of 300 clauses of 60 tokens; the
+# token types all 0 (one run across every chunk)
+ZH_ROWS = (21128, 512, 2)
+
+
+def _emb_relnorms(dWs, ids, g, rows):
+    from carel_tpu_torch.ops import cuda_embedding
+
+    want = cuda_embedding.embeddings_backward_plain(ids, g, rows)
+    return [_relnorm(a, b) for a, b in zip(dWs, want)]
+
+
 @pytest.mark.parametrize("n,case", [(64 * 96, "zipf"), (64 * 96, "one"),
                                     (300 * 60, "zipf")])
 def test_embedding_backward_repeats_its_bits(cuda, n, case):
-    """K10: two runs and two replays of a CUDA graph give the same bits,
-    within 1e-5 normwise of index_add_ (fp32 sums in another order)."""
+    """K10, one call over the three zh tables: two runs and two replays of
+    a CUDA graph give the same bits (every row written again: the replays'
+    outputs start as NaN), each table within 1e-5 normwise of index_add_
+    (fp32 sums in another order); one launch of the wrapper."""
     from carel_tpu_torch.ops import cuda_embedding
 
     rng = np.random.default_rng(n)
-    V, D = 21128, 768
-    ids = (np.minimum(rng.zipf(1.3, n) - 1, V - 1) if case == "zipf"
-           else np.zeros(n, np.int64))
-    ids = torch.tensor(ids, dtype=torch.long, device=cuda)
+    L = 96 if n == 64 * 96 else 60
+    B, D = n // L, 768
+    words = (np.minimum(rng.zipf(1.3, n) - 1, ZH_ROWS[0] - 1)
+             if case == "zipf" else np.zeros(n, np.int64))
+    ids = [torch.tensor(a, dtype=torch.long, device=cuda)
+           for a in (words, np.tile(np.arange(L), B), np.zeros(n, np.int64))]
     g = torch.tensor(rng.normal(size=(n, D)), dtype=torch.float32,
                      device=cuda)
     ops.reset_launch_counts()
-    first = cuda_embedding.embedding_backward_kernel(ids, g, V)
+    first = cuda_embedding.embeddings_backward_kernel(ids, g, ZH_ROWS)
     assert ops.launch_counts()["emb_bwd"] == 1
-    assert torch.equal(first, cuda_embedding.embedding_backward_kernel(
-        ids, g, V))
+    again = cuda_embedding.embeddings_backward_kernel(ids, g, ZH_ROWS)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
     _assert_replays_bit_equal(
-        lambda: (cuda_embedding.embedding_backward_kernel(ids, g, V),))
-    want = torch.zeros(V, D, device=cuda).index_add_(0, ids, g)
-    assert _relnorm(first, want) <= 1e-5
+        lambda: tuple(cuda_embedding.embeddings_backward_kernel(
+            ids, g, ZH_ROWS)), fill=float("nan"))
+    assert max(_emb_relnorms(first, ids, g, ZH_ROWS)) <= 1e-5
 
 
-# roberta-base's tables at the en path's batch of 64 x 128 ids: the one-row
-# token-type table (every entry one run across every chunk), the 514
-# positions (RoBERTa's, offset by the pad id) and the 50,265 words
+# roberta-base's tables at the en path's batch of 64 x 128 ids: the 50,265
+# words, the 514 positions (RoBERTa's, offset by the pad id) and the one-row
+# token-type table (every entry one run across every chunk), in one call;
+# the cases differ in their seed
 @pytest.mark.parametrize("rows", [1, 514, 50265])
 def test_embedding_backward_over_roberta_tables(cuda, rows):
-    """K10 over each table: two runs and two graph replays bit-equal,
-    within 1e-5 normwise of index_add_."""
+    """K10 over roberta-base's three tables in one call: two runs and two
+    graph replays bit-equal, each table within 1e-5 normwise of
+    index_add_."""
     from carel_tpu_torch.ops import cuda_embedding
 
     rng = np.random.default_rng(rows)
     B, L, D = 64, 128, 768
-    if rows == 1:
-        ids = np.zeros(B * L, np.int64)
-    elif rows == 514:
-        mask = np.arange(L)[None, :] < rng.integers(16, L + 1, B)[:, None]
-        ids = (np.cumsum(mask, axis=1) * mask + 1).reshape(-1)
-    else:
-        ids = np.minimum(rng.zipf(1.3, B * L) - 1, rows - 1)
-    ids = torch.tensor(ids, dtype=torch.long, device=cuda)
+    tables = (50265, 514, 1)
+    mask = np.arange(L)[None, :] < rng.integers(16, L + 1, B)[:, None]
+    ids = [torch.tensor(a.reshape(-1), dtype=torch.long, device=cuda)
+           for a in (np.minimum(rng.zipf(1.3, (B, L)) - 1, tables[0] - 1),
+                     np.cumsum(mask, axis=1) * mask + 1,
+                     np.zeros((B, L), np.int64))]
     g = torch.tensor(rng.normal(size=(B * L, D)), dtype=torch.float32,
                      device=cuda)
-    first = cuda_embedding.embedding_backward_kernel(ids, g, rows)
-    assert torch.equal(first, cuda_embedding.embedding_backward_kernel(
-        ids, g, rows))
+    first = cuda_embedding.embeddings_backward_kernel(ids, g, tables)
+    again = cuda_embedding.embeddings_backward_kernel(ids, g, tables)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
     _assert_replays_bit_equal(
-        lambda: (cuda_embedding.embedding_backward_kernel(ids, g, rows),))
-    want = torch.zeros(rows, D, device=cuda).index_add_(0, ids, g)
-    assert _relnorm(first, want) <= 1e-5
+        lambda: tuple(cuda_embedding.embeddings_backward_kernel(
+            ids, g, tables)), fill=float("nan"))
+    assert max(_emb_relnorms(first, ids, g, tables)) <= 1e-5
 
 
 def _bow_corrections(idx):
@@ -1284,8 +1300,8 @@ def test_original_step_on_the_card_matches_the_cpu(cuda):
     noise by up to ~lr) and within 1e-3 lr where its gradient is over 1e-3
     of its tensor's largest (Adam's first step moves by about lr * sign(g),
     so only there does the step show the gradient), the latent heads
-    bit-unchanged and the five adversaries moved on both; K10 three times
-    on the card."""
+    bit-unchanged and the five adversaries moved on both; K10 once (one
+    call for the three tables) on the card."""
     from carel_tpu_torch.models.drl_original import (ADVERSARIES,
                                                      LATENT_HEADS,
                                                      DrlOriginalModel,
@@ -1348,8 +1364,8 @@ def test_original_step_on_the_card_matches_the_cpu(cuda):
     for adv in ADVERSARIES:
         for p in (p_c, p_g):
             assert not torch.equal(p[f"{adv}.weight"], init[f"{adv}.weight"])
-    assert counts["emb_bwd"] == 3
-    assert sum(counts.values()) == 3
+    assert counts["emb_bwd"] == 1
+    assert sum(counts.values()) == 1
 
 
 def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
@@ -1360,7 +1376,8 @@ def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
     every parameter within 2 lr and within 1e-3 lr where its gradient is
     over 1e-3 of its tensor's largest (the attention key biases, whose
     gradient is 0 in exact arithmetic, to 2 lr only); the card's step
-    launches K7-K9 once a layer and K10 three times, in one capture."""
+    launches K7-K9 once a layer and K10 once (the three tables in one
+    call), in one capture."""
     from carel_tpu_torch.models.encoder import tiny_encoder_config
     from carel_tpu_torch.pretrain import mlm
 
@@ -1420,4 +1437,4 @@ def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
     layers = enc.num_layers
     assert {k: v for k, v in counts.items() if v} == {
         "flash_fwd": layers, "flash_bwd_dkv": layers,
-        "flash_bwd_dq": layers, "emb_bwd": 3}
+        "flash_bwd_dq": layers, "emb_bwd": 1}
