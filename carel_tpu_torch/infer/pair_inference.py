@@ -28,6 +28,7 @@ from carel_tpu_torch.data.pairs import PairSet
 from carel_tpu_torch.parallel.sharding import shard_batch
 from carel_tpu_torch.train.metrics import prf_with_forced_misses
 from carel_tpu_torch.train.steps import batch_to_device
+from carel_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -50,19 +51,27 @@ def score_pairs(
     batch_size: int = 512,
     mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Probabilities over all pairs + per-batch wall times (seconds)."""
+    """Probabilities over all pairs + per-batch wall times (seconds).
+    Spans, per batch: ``score_pairs.cut_batch``, ``.to_device`` (the
+    ``copies`` made), ``.forward`` (the eval step's enqueue) and
+    ``.fetch``."""
     device = next(model.parameters()).device
     n = len(arrays)
     probs = np.zeros(n, np.float32)
     times = []
     for start in range(0, n, batch_size):
         idx = np.arange(start, min(start + batch_size, n))
-        host = cut_batch(arrays, idx, batch_size).as_dict()
-        if mesh is not None:
-            host = shard_batch(mesh, host)
+        with span("score_pairs.cut_batch"):
+            host = cut_batch(arrays, idx, batch_size).as_dict()
+            if mesh is not None:
+                host = shard_batch(mesh, host)
         t0 = time.perf_counter()
-        p = eval_step(model, batch_to_device(host, device),
-                      generator).cpu().numpy()
+        with span("score_pairs.to_device", copies=len(host)):
+            batch = batch_to_device(host, device)
+        with span("score_pairs.forward"):
+            out = eval_step(model, batch, generator)
+        with span("score_pairs.fetch"):
+            p = out.cpu().numpy()
         times.append(time.perf_counter() - t0)
         probs[idx] = p[: len(idx)]
     return probs, np.asarray(times)

@@ -48,6 +48,7 @@ from torch import nn
 
 from carel_tpu_torch.config import EncoderConfig
 from carel_tpu_torch.models.encoder import TransformerEncoder, init_flax_
+from carel_tpu_torch.utils.profiling import span
 
 ENCODER_FILE = "encoder.pt"
 MLM_FILE = "mlm.pt"
@@ -305,10 +306,11 @@ class MlmTrainer:
 
         if self._graph is None:
             self._capture()
-        losses = torch.empty(n, dtype=torch.float32, device=self.device)
-        for i in range(n):
-            self._graph.replay()
-            losses[i].copy_(self._loss)
+        with span("mlm.replays"):
+            losses = torch.empty(n, dtype=torch.float32, device=self.device)
+            for i in range(n):
+                self._graph.replay()
+                losses[i].copy_(self._loss)
         self.replays += n
         ops.add_launches(self.captured_launches, n)
         return losses.mean()

@@ -44,6 +44,7 @@ from carel_tpu_torch.train.metrics import prf_with_forced_misses
 from carel_tpu_torch.train.scan_epoch import stack_epoch
 from carel_tpu_torch.train.state import TrainState
 from carel_tpu_torch.train.steps import batch_to_device
+from carel_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -71,21 +72,22 @@ def evaluate(
     flagship :957-961; fixed-size batches with masked tails are
     equivalent). Under a mesh each rank feeds its rows of each batch and
     gets the whole batch's probabilities."""
-    device = _device_of(model)
     n = len(test_arrays)
-    parts = []
-    for start in range(0, n, batch_size):
-        idx = np.arange(start, min(start + batch_size, n))
-        host = cut_batch(test_arrays, idx, batch_size).as_dict()
-        if mesh is not None:
-            host = shard_batch(mesh, host)
-        batch = batch_to_device(host, device)
-        parts.append(eval_step(model, batch, generator)[: len(idx)])
-    probs = torch.cat(parts).cpu().numpy() if parts else \
-        np.zeros(0, np.float32)
-    p, r, f1 = prf_with_forced_misses(test_arrays.pair_labels, probs,
-                                      num_unpred_pairs)
-    return EvalResult(p, r, f1, probs)
+    with span("evaluate", pairs=n):
+        device = _device_of(model)
+        parts = []
+        for start in range(0, n, batch_size):
+            idx = np.arange(start, min(start + batch_size, n))
+            host = cut_batch(test_arrays, idx, batch_size).as_dict()
+            if mesh is not None:
+                host = shard_batch(mesh, host)
+            batch = batch_to_device(host, device)
+            parts.append(eval_step(model, batch, generator)[: len(idx)])
+        probs = torch.cat(parts).cpu().numpy() if parts else \
+            np.zeros(0, np.float32)
+        p, r, f1 = prf_with_forced_misses(test_arrays.pair_labels, probs,
+                                          num_unpred_pairs)
+        return EvalResult(p, r, f1, probs)
 
 
 def train_epochs(

@@ -53,6 +53,7 @@ from carel_tpu_torch.data.batching import PairArrays, cut_batch
 from carel_tpu_torch.losses.vae import annealed_kl_weight
 from carel_tpu_torch.train.state import TrainState, dropout_generator
 from carel_tpu_torch.train.steps import make_step_body
+from carel_tpu_torch.utils.profiling import span
 
 # byte alignment of each array in a packed batch row
 _ALIGN = 256
@@ -69,13 +70,15 @@ def stack_epoch(
     """Shuffle and stack the dataset into [nb, B, ...] numpy arrays (the
     shuffle of ``iter_batches`` for the same ``rng``)."""
     n = len(arrays)
-    order = np.arange(n)
-    if rng is not None:
-        rng.shuffle(order)
     nb = -(-n // batch_size)
-    batches = [cut_batch(arrays, order[i * batch_size:(i + 1) * batch_size],
-                         batch_size).as_dict() for i in range(nb)]
-    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    with span("stack_epoch", batches=nb):
+        order = np.arange(n)
+        if rng is not None:
+            rng.shuffle(order)
+        batches = [cut_batch(arrays,
+                             order[i * batch_size:(i + 1) * batch_size],
+                             batch_size).as_dict() for i in range(nb)]
+        return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,33 +272,39 @@ class EpochStep:
                  vi_beta: float,
                  eps: Optional[Sequence[torch.Tensor]] = None,
                  perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-        lc = self.cfg.loss
-        nb = stacked["input_ids"].shape[0]
-        weights = [annealed_kl_weight(i, lc.kl_ann_iterations,
-                                      lc.ec_kl_lambda) for i in range(nb)]
-        device = next(state.model.parameters()).device
-        cuda = device.type == "cuda"
-        layout, rows = pack_epoch(stacked, weights, vi_beta, pin=cuda)
-        if not cuda:
-            return torch.stack([
-                self.body(state, *unpack_row(rows[i], layout), eps,
-                          perm)["loss"] for i in range(nb)])
-        if eps is not None or perm is not None:
-            raise ValueError("the captured epoch step draws its noise and "
-                             "permutation from the generators; eps and perm "
-                             "fix them on the CPU only")
-        rows = rows.to(device, non_blocking=True)
-        if self._key != capture_key(state, layout):
-            self._capture(state, layout, rows[0])
-        losses = torch.empty(nb, dtype=torch.float32, device=device)
-        for i in range(nb):
-            self._row.copy_(rows[i])
-            self._graph.replay()
-            losses[i].copy_(self._loss)
-        state.step += nb
-        self.replays += nb
-        ops.add_launches(self.captured_launches, nb)
-        return losses
+        with span("epoch_step"):
+            lc = self.cfg.loss
+            nb = stacked["input_ids"].shape[0]
+            device = next(state.model.parameters()).device
+            cuda = device.type == "cuda"
+            with span("epoch_step.pack"):
+                weights = [annealed_kl_weight(i, lc.kl_ann_iterations,
+                                              lc.ec_kl_lambda)
+                           for i in range(nb)]
+                layout, rows = pack_epoch(stacked, weights, vi_beta, pin=cuda)
+            if not cuda:
+                return torch.stack([
+                    self.body(state, *unpack_row(rows[i], layout), eps,
+                              perm)["loss"] for i in range(nb)])
+            if eps is not None or perm is not None:
+                raise ValueError("the captured epoch step draws its noise "
+                                 "and permutation from the generators; eps "
+                                 "and perm fix them on the CPU only")
+            with span("epoch_step.copy", bytes=rows.numel()):
+                rows = rows.to(device, non_blocking=True)
+            if self._key != capture_key(state, layout):
+                with span("epoch_step.capture"):
+                    self._capture(state, layout, rows[0])
+            with span("epoch_step.replays", replays=nb):
+                losses = torch.empty(nb, dtype=torch.float32, device=device)
+                for i in range(nb):
+                    self._row.copy_(rows[i])
+                    self._graph.replay()
+                    losses[i].copy_(self._loss)
+            state.step += nb
+            self.replays += nb
+            ops.add_launches(self.captured_launches, nb)
+            return losses
 
     def _capture(self, state: TrainState, layout: RowLayout,
                  first_row: torch.Tensor) -> None:

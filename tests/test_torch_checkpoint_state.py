@@ -130,7 +130,9 @@ def test_cli_saves_state_and_resumes(tmp_path, capsys):
             "generator", "dropout_generator"} <= saved.keys()
 
 
-def test_cli_profile_dir_writes_a_trace(tmp_path, capsys):
+def _profiled_trace(tmp_path, capsys) -> dict:
+    """The Chrome trace that ``train --profile_dir`` writes of a tiny base
+    training on the CPU."""
     root = tmp_path / "corpus"
     write_oldsplit_corpus(str(root))
     args = _train_args(root, tmp_path)
@@ -140,9 +142,36 @@ def test_cli_profile_dir_writes_a_trace(tmp_path, capsys):
     _summary(capsys)
     traces = list(prof.glob("trace_*.json"))
     assert len(traces) == 1
-    trace = json.loads(traces[0].read_text())
+    return json.loads(traces[0].read_text())
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path, capsys):
+    trace = _profiled_trace(tmp_path, capsys)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)
+
+
+def test_cli_profile_dir_writes_the_program_spans(tmp_path, capsys):
+    """The trace holds a "program spans" row: the epoch's spans and the
+    evaluation's, each inside the time range of the profiler's own
+    records."""
+    from carel_tpu_torch.utils.profiling import SPAN_ROW
+
+    events = _profiled_trace(tmp_path, capsys)["traceEvents"]
+    mine = [e for e in events if e.get("pid") == SPAN_ROW and e["ph"] == "X"]
+    theirs = [e for e in events if e.get("pid") != SPAN_ROW
+              and e.get("ph") == "X"]
+    assert any(e["ph"] == "M" and e["args"]["name"] == SPAN_ROW
+               for e in events if e.get("pid") == SPAN_ROW)
+    assert {"stack_epoch", "epoch_step", "epoch_step.pack",
+            "evaluate"} <= {e["name"] for e in mine}
+    lo = min(e["ts"] for e in theirs)
+    hi = max(e["ts"] + e["dur"] for e in theirs)
+    for e in mine:
+        assert lo <= e["ts"] and e["ts"] + e["dur"] <= hi, e
+    ids = {e["args"]["id"] for e in mine if e["name"] == "epoch_step"}
+    assert all(e["args"]["parent"] in ids for e in mine
+               if e["name"] == "epoch_step.pack")
 
 
 def test_step_timer_and_trace():
