@@ -5,20 +5,37 @@ As in JAX: the BERT recipe (``mask_prob`` of the real non-special positions;
 of those 80 % [MASK], 10 % a random id, 10 % kept; optional whole-word
 masking), the encoder's hidden state cast to fp32 under an untied head
 (Dense d->d, exact GELU, LayerNorm at Flax's eps 1e-6, Dense d->V), the
-masked mean of the negative log-likelihood over every position, and AdamW
-(weight decay 0.01, eps 1e-8) under optax's ``linear_schedule(0, lr,
-warmup)`` or, with ``lr_decay``, ``warmup_cosine_decay_schedule(0, lr,
-warmup, steps, 0.1 lr)``, read at the count of updates made before it
-(``lr_at``: the first update has lr 0). The whole tokenized corpus (and the
-word starts) lives on the device; each step draws its batch indices (with
-replacement), two uniforms and the random ids from one ``torch.Generator``
-on the device (``draw_noise``). JAX fuses ``scan_size`` steps into one
-``lax.scan`` dispatch; here one step is captured in a CUDA graph, with the
-generator registered, and replayed ``scan_size`` times a dispatch, its lr
-formed on the device from a step counter. Warm-up and capture do not change
-the run (``train/scan_epoch.Snapshot``). The CPU runs the same step eagerly.
-Whole dispatches run, so ``steps=10, scan_size=4`` trains 12 steps, and each
-logs one ``mlm_step`` event with the dispatch's mean loss, as in JAX.
+masked mean of the negative log-likelihood, and AdamW (weight decay 0.01,
+eps 1e-8) under optax's ``linear_schedule(0, lr, warmup)`` or, with
+``lr_decay``, ``warmup_cosine_decay_schedule(0, lr, warmup, steps, 0.1
+lr)``, read at the count of updates made before it (``lr_at``: the first
+update has lr 0). The whole tokenized corpus (and the word starts) lives on
+the device; each step draws its batch indices (with replacement), two
+uniforms and the random ids from one ``torch.Generator`` on the device
+(``draw_noise``).
+
+JAX runs the head over every position and lets the loss weigh the
+unmasked ones by 0. The trainer runs it over the masked rows alone: a
+step's flat positions, masked ones first in row-major order, the first C
+of them gathered from the hidden state, each weighted 1 if masked and 0 if
+a pad (a pad row is an unmasked position, so no row repeats and the
+gather's backward writes each row once). That is the same loss and the
+same gradients, up to fp32 summation order. C (``head_capacity``) is set
+once from the corpus: the expected masked count of a step plus 6 standard
+deviations, rounded up to a multiple of 128, and never above what a batch
+of the longest rows could mask. A step that masks more than C rows runs
+eagerly over exactly its masked rows (``full_steps``).
+
+JAX fuses ``scan_size`` steps into one ``lax.scan`` dispatch. Here a
+dispatch first makes all its steps' draws (one small captured graph,
+replayed once a step, in the generator's order: the steps draw nothing
+else), fetches their masked counts in one copy, then replays one captured
+step at capacity C on each step that fits and runs the others eagerly, its
+lr formed on the device from a step counter. Warm-up and capture do not
+change the run (``train/scan_epoch.Snapshot``). The CPU, and ``capture``
+off, run the same draws, rows and fallback eagerly. Whole dispatches run,
+so ``steps=10, scan_size=4`` trains 12 steps, and each logs one
+``mlm_step`` event with the dispatch's mean loss, as in JAX.
 
 Directories (JAX's are orbax checkpoints, which the port does not read):
 
@@ -58,6 +75,9 @@ MLM_LN_EPS = 1e-6
 # ids up to [MASK] = 4 are specials (never masked), and the random
 # replacements start above them
 LAST_SPECIAL_ID = 4
+# the head's capacity: a step's expected masked rows plus this many
+# standard deviations, rounded up to a multiple of HEAD_ROUND
+HEAD_SDS, HEAD_ROUND = 6, 128
 
 
 class MlmModel(nn.Module):
@@ -225,18 +245,56 @@ def _adamw(params, lr: float, device: torch.device):
     return torch.optim.AdamW(params, lr=lr, **kw)
 
 
+def head_capacity(ids: torch.Tensor, attn: torch.Tensor,
+                  word_starts: Optional[torch.Tensor], batch_size: int,
+                  mask_prob: float) -> int:
+    """The rows a captured step's MLM head runs over: the expected masked
+    count of a step over the corpus ``ids``/``attn`` [N, L] plus
+    HEAD_SDS standard deviations, rounded up to a multiple of HEAD_ROUND,
+    and at most ``batch_size`` times the most candidates in a row, where no
+    step can mask more. A step masks the sum of ``batch_size`` rows drawn
+    with replacement; a row of c candidates masks each with probability p,
+    or under whole-word masking (``word_starts``) each word of l candidates
+    l at a time, so a row's variance is p(1 - p) sum(l^2) + p^2 Var(c)."""
+    cand = (attn > 0) & (ids > LAST_SPECIAL_ID)
+    per_row = cand.sum(1, dtype=torch.float64)
+    if word_starts is None:
+        squares = per_row
+    else:
+        words = torch.zeros(cand.shape, dtype=torch.float64,
+                            device=cand.device)
+        words.scatter_add_(1, word_starts, cand.double())
+        squares = (words * words).sum(1)
+    mean_c, var_c, mean_sq, most = torch.stack([
+        per_row.mean(), per_row.var(correction=0), squares.mean(),
+        per_row.max()]).tolist()
+    p, B = mask_prob, batch_size
+    sd = math.sqrt(B * (p * (1 - p) * mean_sq + p * p * var_c))
+    margin = math.ceil((B * p * mean_c + HEAD_SDS * sd) / HEAD_ROUND)
+    return max(1, min(int(B * most), margin * HEAD_ROUND))
+
+
 class MlmTrainer:
     """The model, its AdamW, the sampling generator (seeded ``cfg.seed`` on
-    the device), the update counter and the device-resident corpus.
-    ``step()`` trains one step and returns its loss (a 0-d device tensor);
-    ``dispatch(n)`` trains n steps (on CUDA, a captured step replayed n
-    times unless ``capture`` is off) and returns their mean loss. After a
-    step each parameter's ``.grad`` holds the step's gradient (the pooler,
-    which the loss never reads, a zero one: optax still decays it).
+    the device), the update counter, the device-resident corpus and the
+    head's capacity (``capacity``, from ``head_capacity``). ``draw()``
+    makes one step's inputs; ``train(inputs, rows)`` trains one step on
+    them with the head over ``rows`` rows and returns its loss (a 0-d
+    device tensor); ``dispatch(n)`` draws n steps, then trains them (on
+    CUDA a captured step at ``capacity`` replayed on each step that fits,
+    unless ``capture`` is off) and returns their mean loss. After a step
+    each parameter's ``.grad`` holds the step's gradient (the pooler, which
+    the loss never reads, a zero one: optax still decays it).
 
-    Counters: ``captures``, ``replays``, and the kernel launches of the
-    captured step (``captured_launches``); a replay adds them to the ops'
-    launch counts, the capture and its warm-up add nothing."""
+    Counters: ``captures`` (each makes the draw graph and the step graph),
+    ``replays`` of the step, the kernel launches of the captured step
+    (``captured_launches``; a replay adds them to the ops' launch counts,
+    the capture and its warm-up add nothing), and over every step the rows
+    ``masked``, the ``head_rows`` the head ran over and the ``full_steps``
+    that masked more than ``capacity`` and ran over exactly their masked
+    rows. Under a profiler a captured dispatch records the spans
+    ``mlm.draws`` (with that dispatch's three counts) and
+    ``mlm.replays``."""
 
     def __init__(self, model: MlmModel, cfg: MlmConfig, ids: np.ndarray,
                  mask: np.ndarray, word_starts: Optional[np.ndarray],
@@ -248,6 +306,8 @@ class MlmTrainer:
         self.attn = torch.from_numpy(np.asarray(mask)).to(self.device)
         self.word_starts = (None if word_starts is None else torch.from_numpy(
             np.asarray(word_starts, np.int64)).to(self.device))
+        self.capacity = head_capacity(self.ids, self.attn, self.word_starts,
+                                      cfg.batch_size, cfg.mask_prob)
         self.params = list(model.parameters())
         self.optimizer = _adamw(self.params, cfg.learning_rate, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -258,10 +318,17 @@ class MlmTrainer:
             p.grad = torch.zeros_like(p)
         self.capture = capture and self.device.type == "cuda"
         self.captures = self.replays = 0
+        self.masked = self.head_rows = self.full_steps = 0
         self.captured_launches: dict = {}
-        self._graph = self._loss = None
+        self._draw_graph = self._drawn = None
+        self._graph = self._inputs = self._loss = None
 
-    def step(self) -> torch.Tensor:
+    def draw(self) -> Dict[str, torch.Tensor]:
+        """One step's draws and what they make of its batch: the
+        ``corrupted`` ids and the ``attn`` mask the encoder reads, the
+        original ``ids`` (the targets), the flat positions in ``order``
+        (the masked ones first, then the rest, each in row-major order) and
+        the masked ``count`` (a 0-d tensor)."""
         cfg = self.cfg
         B, L = cfg.batch_size, cfg.seq_len
         idx, u, u2, rand_ids = draw_noise(self.generator, len(self.ids),
@@ -281,15 +348,29 @@ class MlmTrainer:
         corrupted = torch.where(
             replace_mask, torch.full_like(ids, self.mask_id),
             torch.where(replace_rand, rand_ids.long(), ids))
+        flat = is_masked.view(-1)
+        count = flat.sum()
+        place = torch.where(flat, flat.cumsum(0), count + (~flat).cumsum(0))
+        order = torch.empty_like(place).scatter_(
+            0, place - 1, torch.arange(B * L, device=self.device))
+        return {"corrupted": corrupted, "attn": attn, "ids": ids,
+                "order": order, "count": count}
 
+    def train(self, inputs: Dict[str, torch.Tensor], rows: int
+              ) -> torch.Tensor:
+        """One step on ``draw()``'s ``inputs``, the head over the first
+        ``rows`` positions of their ``order``; returns the loss."""
         torch._foreach_zero_([p.grad for p in self.params])
-        logits = self.model(corrupted, attn)
-        nll = F.cross_entropy(logits.view(B * L, -1), ids.view(-1),
-                              reduction="none").view(B, L)
-        w = is_masked.float()
+        hidden = self.model.hidden(inputs["corrupted"], inputs["attn"])
+        at = inputs["order"][:rows]
+        h = hidden.reshape(-1, hidden.shape[-1]).index_select(0, at)
+        nll = F.cross_entropy(self.model.head(h),
+                              inputs["ids"].view(-1).index_select(0, at),
+                              reduction="none")
+        w = (torch.arange(rows, device=self.device) < inputs["count"]).float()
         loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
         loss.backward()
-        lr = lr_at(cfg, self.count)
+        lr = lr_at(self.cfg, self.count)
         for group in self.optimizer.param_groups:
             if isinstance(group["lr"], torch.Tensor):
                 group["lr"].copy_(lr)
@@ -299,31 +380,69 @@ class MlmTrainer:
         self.count += 1
         return loss.detach()
 
+    def _head_rows(self, drawn) -> Tuple[list, dict]:
+        """The head's rows for each drawn step, ``capacity`` or, where the
+        step masks more, its masked count (one fetch for all of them), and
+        the steps' counts, which the trainer's counters add up."""
+        masked = torch.stack([x["count"] for x in drawn]).tolist()
+        rows = [max(m, self.capacity) for m in masked]
+        counts = {"masked": sum(masked), "head_rows": sum(rows),
+                  "full_steps": sum(m > self.capacity for m in masked)}
+        self.masked += counts["masked"]
+        self.head_rows += counts["head_rows"]
+        self.full_steps += counts["full_steps"]
+        return rows, counts
+
     def dispatch(self, n: int) -> torch.Tensor:
         if not self.capture:
-            return torch.stack([self.step() for _ in range(n)]).mean()
+            drawn = [self.draw() for _ in range(n)]
+            rows, _ = self._head_rows(drawn)
+            return torch.stack([self.train(x, r)
+                                for x, r in zip(drawn, rows)]).mean()
         from carel_tpu_torch import ops
 
         if self._graph is None:
             self._capture()
+        with span("mlm.draws") as record:
+            drawn = []
+            for _ in range(n):
+                self._draw_graph.replay()
+                drawn.append({k: v.clone() for k, v in self._drawn.items()})
+            rows, counts = self._head_rows(drawn)
+            if record is not None:
+                record.counts.update(counts)
+        replays = 0
         with span("mlm.replays"):
             losses = torch.empty(n, dtype=torch.float32, device=self.device)
-            for i in range(n):
-                self._graph.replay()
-                losses[i].copy_(self._loss)
-        self.replays += n
-        ops.add_launches(self.captured_launches, n)
+            for i, (inputs, r) in enumerate(zip(drawn, rows)):
+                if r == self.capacity:
+                    for k, v in inputs.items():
+                        self._inputs[k].copy_(v)
+                    self._graph.replay()
+                    losses[i].copy_(self._loss)
+                    replays += 1
+                else:
+                    losses[i].copy_(self.train(inputs, r))
+        self.replays += replays
+        ops.add_launches(self.captured_launches, replays)
         return losses.mean()
 
     def _capture(self) -> None:
+        """The draw graph, then the step graph at ``capacity`` over inputs
+        of one draw made for its warm-up; the snapshot rolls back what
+        either warm-up, capture or that draw changed."""
         from carel_tpu_torch.train.scan_epoch import Snapshot, capture_graph
         from carel_tpu_torch.train.state import dropout_generator
 
         snapshot = Snapshot(self.params, [self.optimizer],
                             [self.generator, dropout_generator(self.device)],
                             [self.count])
+        self._draw_graph, self._drawn, _, _ = capture_graph(
+            self.draw, snapshot.restore, self.generator, self.device)
+        self._inputs = self.draw()
         self._graph, self._loss, _, self.captured_launches = capture_graph(
-            self.step, snapshot.restore, self.generator, self.device)
+            lambda: self.train(self._inputs, self.capacity),
+            snapshot.restore, self.generator, self.device)
         self.captures += 1
 
 

@@ -158,11 +158,13 @@ an error:
    - the pretrain verb's trainer (pretrain_mlm) at 12L/768H bf16, vocab
      21,128, attention_impl="flash", MlmConfig's b256 x s64 over the
      clauses of synthetic documents: 16 steps in two dispatches of 8
-     replays of one captured step, K7-K9 once a layer and K10 once
-     on every step; the MLM saved (--save_mlm) and the encoder dir (--out)
-     loaded into the flagship's encoder bit-equal; a second captured and
-     an eager run of the seed bit-equal to the first; dispatches timed and
-     profiled, and the fp32 head's share of the step;
+     steps, each drawn ahead and replayed from one captured step (the
+     head over its capacity of masked rows), K7-K9 once a layer and K10
+     once on every step; the MLM saved (--save_mlm) and the encoder dir
+     (--out) loaded into the flagship's encoder bit-equal; a second
+     captured and an eager run of the seed bit-equal to the first;
+     dispatches timed and profiled, the head's capacity and fill, and the
+     fp32 head's share of the step over its capacity;
    - the ordering verb's pieces: MlmScorer (flash, 32 x 64 a call) over
      the saved MLM on the gold pairs of 160 synthetic documents (64 scored
      pairs or more), the verb's JSON, ms a call, K7 once a layer a call;
@@ -4235,16 +4237,20 @@ def phase_pretrain(records: dict, smi: str) -> dict:
     timed_peak = torch.cuda.max_memory_allocated() / 2**30
 
     # the fp32 head's share of the step: its forward and backward alone
-    # over one step's hidden states (TF32 off), against the step's device
-    # time; its GEMMs' operations over the card's fp32 peak bound it
+    # over the trainer's capacity of rows (TF32 off), against the step's
+    # device time; its GEMMs' operations over the card's fp32 peak bound it
     import torch.nn.functional as F
 
-    rows, d, V = B * L, enc.hidden_dim, enc.vocab_size
+    rows, d, V = trainer.capacity, enc.hidden_dim, enc.vocab_size
+    print(f"{tag}: the head runs over {rows} rows a step of {B * L}; "
+          f"{trainer.masked} rows masked over {trainer.head_rows} head "
+          f"rows ({100 * trainer.masked / trainer.head_rows:.1f} %), "
+          f"{trainer.full_steps} steps past capacity", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(8)
     hidden = torch.randn(rows, d, device="cuda", generator=gen,
                          requires_grad=True)
     target = torch.randint(0, V, (rows,), device="cuda", generator=gen)
-    weight = (torch.rand(rows, device="cuda", generator=gen) < 0.15).float()
+    weight = torch.ones(rows, device="cuda")
     head_params = [p for n, p in model.named_parameters()
                    if n.startswith("mlm_")]
 

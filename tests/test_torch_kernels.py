@@ -40,7 +40,9 @@ CPU's (losses rel 1e-4, params within 2 lr of their group), its latent heads
 unchanged and its adversaries moved on both. A tiny fp32 MLM step
 (pretrain/mlm.py), captured on the card, equals the CPU's eager one (loss
 rel 1e-4, gradients 1e-3 normwise, params within 2 lr, 1e-3 lr where the
-gradient is not noise) and launches K7-K9 and K10 as the path does.
+gradient is not noise) and launches K7-K9 and K10 as the path does; with
+the head's capacity forced under some steps' masked rows, a captured run
+and an eager run give the same bits.
 """
 
 import numpy as np
@@ -1438,3 +1440,43 @@ def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
     assert {k: v for k, v in counts.items() if v} == {
         "flash_fwd": layers, "flash_bwd_dkv": layers,
         "flash_bwd_dq": layers, "emb_bwd": 1}
+
+
+def test_pretrain_dispatch_past_capacity_repeats_eager_bits(cuda,
+                                                            monkeypatch):
+    """Four dispatches of three tiny fp32 MLM steps from one seed, the
+    head's capacity forced to 16 rows (a step masks ~17), captured and
+    eager: the same rows, the same steps past capacity (which run over
+    exactly their masked rows) and the same bits of every loss and
+    parameter; the captured run replays its step only where it fits."""
+    from carel_tpu_torch.models.encoder import tiny_encoder_config
+    from carel_tpu_torch.pretrain import mlm
+
+    monkeypatch.setattr(mlm, "head_capacity", lambda *a: 16)
+    enc = tiny_encoder_config(vocab_size=128, dropout=0.0,
+                              attention_impl="flash")
+    cfg = mlm.MlmConfig(batch_size=8, seq_len=24, warmup_steps=4,
+                        learning_rate=1e-3)
+    rng = np.random.default_rng(7)
+    n, L = 32, cfg.seq_len
+    lengths = rng.integers(6, L + 1, n)
+    mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = (rng.integers(5, enc.vocab_size, (n, L)) * mask).astype(np.int32)
+    ids[:, 0] = 2
+    init = mlm.build_mlm(enc, seed=0).state_dict()
+    runs = []
+    for capture in (True, False):
+        model = mlm.MlmModel(enc)
+        model.load_state_dict(init)
+        trainer = mlm.MlmTrainer(model.to(cuda), cfg, ids, mask, None, 4,
+                                 cuda, capture=capture)
+        losses = [trainer.dispatch(3).cpu() for _ in range(4)]
+        runs.append((losses, {k: v.cpu() for k, v in
+                              model.state_dict().items()},
+                     (trainer.masked, trainer.head_rows,
+                      trainer.full_steps), trainer.replays))
+    (l_c, p_c, n_c, r_c), (l_e, p_e, n_e, r_e) = runs
+    assert n_c == n_e and 0 < n_c[2] < 12, n_c
+    assert r_c == 12 - n_c[2] and r_e == 0
+    assert all(torch.equal(a, b) for a, b in zip(l_c, l_e))
+    assert all(torch.equal(p_c[k], p_e[k]) for k in p_c)

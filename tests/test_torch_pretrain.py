@@ -228,6 +228,108 @@ def test_pretrain_matches_jax(steps, scan_size, monkeypatch):
             assert float(gap[safe].max()) <= 1e-3 * lr_sum, name
 
 
+def _corpus(content, L=24):
+    """[N, L] ids and mask: [CLS], ``content[i]`` content ids, [SEP],
+    padding."""
+    rng = np.random.default_rng(len(content))
+    ids = np.zeros((len(content), L), np.int32)
+    mask = np.zeros_like(ids)
+    for i, c in enumerate(content):
+        ids[i, 0], ids[i, 1:c + 1], ids[i, c + 1] = 2, rng.integers(
+            5, 120, c), 3
+        mask[i, :c + 2] = 1
+    return ids, mask
+
+
+def _word_starts(n, L, size):
+    """Words of ``size`` tokens from position 1 on; [CLS] its own."""
+    pos = np.arange(L)
+    return np.tile(np.where(pos > 0, 1 + (pos - 1) // size * size, 0),
+                   (n, 1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["within capacity", "over capacity",
+                                  "whole word"])
+def test_masked_rows_head_matches_every_position(case, monkeypatch):
+    """The trainer's step, its head over a capacity buffer of the masked
+    rows (pads weighted 0), against the same model's head over every
+    position and the masked mean of JAX's step, under injected draws: the
+    loss within 1e-6 relative, every parameter's gradient within 1e-5
+    normwise. Over capacity (``head_capacity`` forced below the step's
+    count) the step runs over exactly its masked rows and counts one full
+    step; whole-word masking reads the draws at each word's start."""
+    B, L, V = 6, 24, 120
+    ids, mask = _corpus([6, 9, 14, 17, 20, 22, 11, 8, 19, 15], L)
+    ws = _word_starts(len(ids), L, 3) if case == "whole word" else None
+    draws = _Draws(len(ids), B, L, V)
+    monkeypatch.setattr(tmlm, "draw_noise", draws.torch_draw)
+    if case == "over capacity":
+        monkeypatch.setattr(tmlm, "head_capacity", lambda *a: 4)
+    enc = tiny_encoder_config(vocab_size=V, dropout=0.0)
+    model = tmlm.build_mlm(enc, seed=2)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    cfg = tmlm.MlmConfig(batch_size=B, seq_len=L, warmup_steps=2,
+                         learning_rate=1e-3)
+    trainer = tmlm.MlmTrainer(model, cfg, ids, mask, ws, 4, "cpu")
+    got = float(trainer.dispatch(1))
+
+    ref = tmlm.MlmModel(enc)
+    ref.load_state_dict(init)
+    tids = torch.from_numpy(ids[draws.idx]).long()
+    attn = torch.from_numpy(mask[draws.idx])
+    u, u2 = torch.from_numpy(draws.u), torch.from_numpy(draws.u2)
+    if ws is not None:
+        at = torch.from_numpy(ws[draws.idx]).long()
+        u, u2 = u.gather(1, at), u2.gather(1, at)
+    masked = (u < cfg.mask_prob) & (attn > 0) & (tids > 4)
+    corrupted = torch.where(
+        masked & (u2 < 0.8), torch.full_like(tids, 4),
+        torch.where(masked & (u2 >= 0.8) & (u2 < 0.9),
+                    torch.from_numpy(draws.rand).long(), tids))
+    nll = torch.nn.functional.cross_entropy(
+        ref(corrupted, attn).view(B * L, -1), tids.view(-1),
+        reduction="none").view(B, L)
+    w = masked.float()
+    loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    loss.backward()
+    want = float(loss.detach())
+
+    count = int(masked.sum())
+    capacity = 4 if case == "over capacity" else 128
+    assert trainer.capacity == capacity
+    assert (trainer.full_steps == 1) == (count > capacity)
+    assert trainer.masked == count
+    assert trainer.head_rows == max(count, capacity)
+    assert abs(got - want) <= 1e-6 * abs(want)
+    grads = dict(model.named_parameters())
+    for name, p in ref.named_parameters():
+        # the pooler: no gradient in the reference, a zero one in the step
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        assert _relnorm(grads[name].grad.numpy(), g.numpy()) <= 1e-5, name
+
+
+@pytest.mark.parametrize("case, B, size, want", [
+    # 8, 16, 24, 32 candidates: mean 0.15 x 20 a row, var 80; a step of
+    # 256 rows masks 768 +- sqrt(256 (0.1275 x 20 + 0.0225 x 80)) = 33.37,
+    # so 768 + 6 x 33.37 = 968.2 rounds up to 1,024
+    ("margin", 256, None, 1024),
+    # words of 4: sum(l^2) = 4 c a row, sd sqrt(256 (0.1275 x 80 + 1.8)),
+    # 768 + 6 x 55.43 = 1,100.6 rounds up to 1,152
+    ("whole word", 256, 4, 1152),
+    # 2 rows: the margin rounds up to 128, past the 2 x 32 candidates
+    ("every row", 2, None, 64),
+])
+def test_head_capacity(case, B, size, want):
+    """``head_capacity`` on a hand-made corpus: never above B times the
+    most candidates in a row, and equal to it where the margin is more."""
+    ids, mask = _corpus([8, 16, 24, 32], 40)
+    ws = None if size is None else torch.from_numpy(
+        _word_starts(len(ids), 40, size)).long()
+    got = tmlm.head_capacity(torch.from_numpy(ids), torch.from_numpy(mask),
+                             ws, B, 0.15)
+    assert got == want <= B * 32
+
+
 def test_mlm_and_encoder_dirs_round_trip(tmp_path):
     model = tmlm.build_mlm(tiny_encoder_config(vocab_size=200), seed=4)
     state = model.state_dict()

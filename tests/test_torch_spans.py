@@ -278,8 +278,8 @@ def test_score_pairs_records_four_children_per_batch(recording, n):
 @pytest.mark.parametrize("n", [1, 2])
 def test_mlm_dispatch_records_no_span_on_the_cpu(recording, n):
     """The CPU dispatch runs eager steps and records no span: only the
-    captured dispatch's replays (``mlm.replays``, a ``cuda`` case below)
-    have a reader."""
+    captured dispatch's draws and replays (``mlm.draws``,
+    ``mlm.replays``, a ``cuda`` case below) have a reader."""
     trainer = _trainer("cpu")
     trainer.dispatch(n)
     assert spans() == []
@@ -435,7 +435,8 @@ def test_spans_hold_the_cards_copies(cuda, activities):
 def test_captured_paths_record_their_spans(cuda, path):
     """On the card the epoch step records its copy, capture (the first call
     only) and replays, with the counts the operator's trace reads, and the
-    MLM dispatch its replays."""
+    MLM dispatch its draws, with the rows masked, the rows the head ran
+    over and the steps past its capacity, and its replays."""
     reset_spans()
     with profile(activities=[ProfilerActivity.CUDA]):
         if path == "epoch_step":
@@ -463,5 +464,14 @@ def test_captured_paths_record_their_spans(cuda, path):
         assert all(s.parent in tops for k, v in got.items()
                    if k.startswith("epoch_step.") for s in v)
     else:
-        assert sorted(got) == ["mlm.replays"]
+        assert sorted(got) == ["mlm.draws", "mlm.replays"]
         assert [s.counts for s in got["mlm.replays"]] == 2 * [{}]
+        draws = [s.counts for s in got["mlm.draws"]]
+        assert [sorted(c) for c in draws] == 2 * [
+            ["full_steps", "head_rows", "masked"]]
+        # the tiny corpus masks ~17 rows a step, far under its capacity
+        assert sum(c["masked"] for c in draws) == trainer.masked > 0
+        assert draws == [dict(c, head_rows=3 * trainer.capacity,
+                              full_steps=0) for c in draws]
+        assert all(d.end_ns <= r.start_ns for d, r in
+                   zip(got["mlm.draws"], got["mlm.replays"]))
