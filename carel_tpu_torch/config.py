@@ -100,6 +100,65 @@ class EncoderConfig:
 
 
 @dataclass(frozen=True)
+class DeepseekV2Config(EncoderConfig):
+    """A DeepSeek-V2 decoder used as the pair classifier's encoder
+    (``models/deepseek_v2.py``; arXiv:2405.04434, the published
+    ``config.json`` of deepseek-ai/DeepSeek-V2-Lite for the defaults).
+
+    The inherited fields read: ``mlp_dim`` the dense layers' SwiGLU width
+    (``intermediate_size``), ``layer_norm_eps`` RMSNorm's eps,
+    ``max_position`` the config's positions (rotary: no table is held),
+    ``pad_token_id`` the id that pads rows on the right. The model has no
+    dropout and no token types. ``experts_held`` = (first, count) is the
+    range of routed experts this device holds, an expert-parallel rank's
+    share: every layer routes over ``n_routed_experts`` and computes the
+    held experts' part alone; None holds them all."""
+
+    vocab_size: int = 102400
+    hidden_dim: int = 2048
+    num_layers: int = 27
+    num_heads: int = 16
+    mlp_dim: int = 10944
+    max_position: int = 163840
+    type_vocab_size: int = 0
+    dropout: float = 0.0
+    layer_norm_eps: float = 1e-6
+    arch: str = "deepseek_v2"
+    pad_token_id: int = 100001
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = False
+    rope_theta: float = 10000.0
+    # YaRN (rope_scaling of the published config)
+    rope_factor: float = 40.0
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+    rope_original_max_position: int = 4096
+    experts_held: Optional[tuple] = None
+
+    def held_range(self) -> tuple:
+        """(first, count) of the routed experts held here."""
+        if self.experts_held is None:
+            return 0, self.n_routed_experts
+        first, count = self.experts_held
+        if not (0 <= first and 1 <= count
+                and first + count <= self.n_routed_experts):
+            raise ValueError(f"experts_held {self.experts_held} outside the "
+                             f"{self.n_routed_experts} routed experts")
+        return int(first), int(count)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """DrlClassifier-equivalent model (reference flagship :149-182)."""
 

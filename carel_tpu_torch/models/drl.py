@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from carel_tpu_torch.config import AdapterKind, ModelConfig
+from carel_tpu_torch.models.deepseek_v2 import DeepseekV2Encoder
 from carel_tpu_torch.models.discriminators import ClubNet, LinearDiscriminator
 from carel_tpu_torch.models.encoder import TransformerEncoder
 from carel_tpu_torch.models.heads import (AttentionAdapter, VaeHeads,
@@ -49,11 +50,20 @@ LOCAL = ("encoder", "emotion_adapter", "cause_adapter", "heads.emotion_mu",
          "heads.emotion_log_var", "heads.cause_mu", "heads.cause_log_var")
 
 
+def build_encoder(cfg) -> nn.Module:
+    """The encoder of ``cfg.arch``: the DeepSeek-V2 decoder
+    (``models/deepseek_v2.py``) for "deepseek_v2", else the BERT/RoBERTa
+    ``TransformerEncoder``. Both return (hidden states, pooled)."""
+    if cfg.arch == "deepseek_v2":
+        return DeepseekV2Encoder(cfg)
+    return TransformerEncoder(cfg)
+
+
 class DrlModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.encoder = TransformerEncoder(cfg.encoder)
+        self.encoder = build_encoder(cfg.encoder)
         self.heads = VaeHeads(cfg)
         if cfg.adapter != AdapterKind.NONE:
             d = cfg.encoder.hidden_dim

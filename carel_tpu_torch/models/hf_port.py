@@ -1,5 +1,7 @@
 """Port HuggingFace BERT/RoBERTa checkpoints into this package's
-TransformerEncoder; counterpart of carel_tpu/models/hf_port.py.
+TransformerEncoder, the counterpart of carel_tpu/models/hf_port.py, and
+DeepSeek-V2 checkpoints (``model_type`` deepseek_v2, which the JAX package
+does not read) into its DeepseekV2Encoder (``port_deepseek_v2``).
 
 The reference downloads `hfl/chinese-roberta-wwm-ext` / `roberta-base` from
 the hub (flagship :63-71, :186-192). Neither machine has network access, so
@@ -30,7 +32,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from carel_tpu_torch.config import EncoderConfig
+from carel_tpu_torch.config import DeepseekV2Config, EncoderConfig
 from carel_tpu_torch.convert import jax_params_to_state_dict
 from carel_tpu_torch.pretrain import is_encoder_dir, load_encoder
 
@@ -63,9 +65,12 @@ def encoder_config_from_hf(path: str, dtype: str = "bfloat16"
                            ) -> EncoderConfig:
     """The encoder's shape from config.json. Like the JAX package's, it
     keeps only ``dtype`` of the configured encoder: every other field
-    (``attention_impl`` among them) takes its default."""
+    (``attention_impl`` among them) takes its default. A ``deepseek_v2``
+    config gives a ``DeepseekV2Config`` that holds every routed expert."""
     with open(os.path.join(path, "config.json")) as f:
         cfg = json.load(f)
+    if cfg.get("model_type") == "deepseek_v2":
+        return deepseek_v2_config(cfg, dtype)
     arch = "roberta" if "roberta" in cfg.get("model_type", "bert") else "bert"
     return EncoderConfig(
         vocab_size=cfg["vocab_size"],
@@ -82,6 +87,103 @@ def encoder_config_from_hf(path: str, dtype: str = "bfloat16"
         pad_token_id=cfg.get("pad_token_id", 0 if arch == "bert" else 1),
         dtype=dtype,
     )
+
+
+# the published DeepSeek-V2 settings the port does not implement, with the
+# value it does
+_DEEPSEEK_FIXED = {"q_lora_rank": None, "topk_method": "greedy",
+                   "scoring_func": "softmax", "n_group": 1, "topk_group": 1,
+                   "moe_layer_freq": 1, "hidden_act": "silu",
+                   "attention_bias": False}
+
+
+def deepseek_v2_config(cfg: dict, dtype: str = "bfloat16"
+                       ) -> DeepseekV2Config:
+    """A ``deepseek_v2`` config.json as the port's DeepseekV2Config; raises
+    on a setting the port does not implement (q compression, grouped
+    routing, another scoring function)."""
+    other = {k: cfg[k] for k, v in _DEEPSEEK_FIXED.items()
+             if k in cfg and cfg[k] != v}
+    if other:
+        raise NotImplementedError(f"deepseek_v2 settings the port does not "
+                                  f"implement: {other}")
+    rs = cfg.get("rope_scaling") or {}
+    if rs and rs.get("type") != "yarn":
+        raise NotImplementedError(f"rope_scaling {rs.get('type')!r}: the "
+                                  "port implements yarn")
+    base = DeepseekV2Config()
+    yarn = dict(rope_factor=rs.get("factor", 1.0),
+                rope_beta_fast=rs.get("beta_fast", base.rope_beta_fast),
+                rope_beta_slow=rs.get("beta_slow", base.rope_beta_slow),
+                rope_mscale=rs.get("mscale", 1.0),
+                rope_mscale_all_dim=rs.get("mscale_all_dim", 0.0),
+                rope_original_max_position=rs.get(
+                    "original_max_position_embeddings",
+                    cfg["max_position_embeddings"]))
+    return DeepseekV2Config(
+        vocab_size=cfg["vocab_size"], hidden_dim=cfg["hidden_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        mlp_dim=cfg["intermediate_size"],
+        max_position=cfg["max_position_embeddings"],
+        layer_norm_eps=cfg.get("rms_norm_eps", 1e-6),
+        pad_token_id=cfg.get("pad_token_id",
+                             cfg.get("eos_token_id", base.pad_token_id)),
+        dtype=dtype, kv_lora_rank=cfg["kv_lora_rank"],
+        qk_nope_head_dim=cfg["qk_nope_head_dim"],
+        qk_rope_head_dim=cfg["qk_rope_head_dim"],
+        v_head_dim=cfg["v_head_dim"],
+        moe_intermediate_size=cfg["moe_intermediate_size"],
+        n_routed_experts=cfg["n_routed_experts"],
+        n_shared_experts=cfg["n_shared_experts"],
+        num_experts_per_tok=cfg["num_experts_per_tok"],
+        first_k_dense_replace=cfg["first_k_dense_replace"],
+        routed_scaling_factor=float(cfg.get("routed_scaling_factor", 1.0)),
+        norm_topk_prob=bool(cfg.get("norm_topk_prob", False)),
+        rope_theta=float(cfg.get("rope_theta", 10000.0)), **yarn)
+
+
+def port_deepseek_v2(sd: Dict[str, np.ndarray], cfg: DeepseekV2Config
+                     ) -> Dict[str, torch.Tensor]:
+    """The DeepseekV2Encoder's state_dict from a checkpoint's tensors
+    (``model.`` names of DeepseekV2Model / ForCausalLM /
+    ForSequenceClassification); of each mixture layer's routed experts only
+    the held range ``cfg.held_range()`` is read, and its gate and up rows
+    are stacked as the port holds them."""
+    def g(name: str) -> torch.Tensor:
+        return torch.from_numpy(sd["model." + name if "model." + name in sd
+                                   else name])
+
+    first, held = cfg.held_range()
+    out = {"embed_tokens.weight": g("embed_tokens.weight"),
+           "final_ln.weight": g("norm.weight")}
+    attn = ("q_proj", "kv_a_proj_with_mqa", "kv_b_proj", "o_proj")
+    for i in range(cfg.num_layers):
+        p, q = f"layers.{i}.", f"layers.{i}."
+        out[q + "input_ln.weight"] = g(p + "input_layernorm.weight")
+        out[q + "post_attention_ln.weight"] = g(
+            p + "post_attention_layernorm.weight")
+        for n in attn:
+            out[q + f"self_attn.{n}.weight"] = g(p + f"self_attn.{n}.weight")
+        out[q + "self_attn.kv_a_ln.weight"] = g(
+            p + "self_attn.kv_a_layernorm.weight")
+        proj = ("gate_proj", "up_proj", "down_proj")
+        if i < cfg.first_k_dense_replace:
+            for n in proj:
+                out[q + f"mlp.{n}.weight"] = g(p + f"mlp.{n}.weight")
+            continue
+        out[q + "mlp.gate"] = g(p + "mlp.gate.weight")
+        experts = [p + f"mlp.experts.{e}." for e in range(first,
+                                                           first + held)]
+        out[q + "mlp.experts.gate_up"] = torch.stack([torch.cat(
+            [g(e + "gate_proj.weight"), g(e + "up_proj.weight")])
+            for e in experts])
+        out[q + "mlp.experts.down"] = torch.stack(
+            [g(e + "down_proj.weight") for e in experts])
+        for n in proj:
+            out[q + f"mlp.shared_experts.{n}.weight"] = g(
+                p + f"mlp.shared_experts.{n}.weight")
+    return out
 
 
 def _flax_tree(sd: Dict[str, np.ndarray], cfg: EncoderConfig) -> dict:
@@ -153,7 +255,10 @@ def _flax_tree(sd: Dict[str, np.ndarray], cfg: EncoderConfig) -> dict:
 def port_hf_encoder(path: str, cfg: EncoderConfig
                     ) -> Dict[str, torch.Tensor]:
     """TransformerEncoder's state_dict from an HF checkpoint dir, laid out
-    by ``cfg``'s heads and layers (fp32)."""
+    by ``cfg``'s heads and layers (fp32); DeepseekV2Encoder's for a
+    ``deepseek_v2`` ``cfg``."""
+    if cfg.arch == "deepseek_v2":
+        return port_deepseek_v2(_load_state_dict(path), cfg)
     return jax_params_to_state_dict(_flax_tree(_load_state_dict(path), cfg))
 
 
@@ -188,6 +293,9 @@ def load_encoder_checkpoint(path: str, cfg: EncoderConfig
             "carel_tpu_torch does not read (it imports neither orbax nor "
             "jax); write the port's own encoder dir with `pretrain --out` "
             "or `embed --out` (ROADMAP Queue 3)")
+    if cfg.arch == "deepseek_v2":
+        return dataclasses.replace(
+            cfg, vocab_size=state["embed_tokens.weight"].shape[0]), state
     kw = dict(vocab_size=state["word_embeddings.weight"].shape[0],
               max_position=state["position_embeddings.weight"].shape[0])
     if cfg.type_vocab_size > 0:

@@ -15,14 +15,17 @@ kernels that replace the JAX package's Pallas kernels.
 - ``entmax``: sparsemax and entmax15 for the sparse attention adapters
   (plain ops on every device: the JAX package has no Pallas kernel for
   them);
+- ``moe``: the routed experts of a mixture-of-experts layer over the
+  experts a device holds: a dropless dispatch and the grouped products
+  (Triton kernels on CUDA, built at the first launch);
 - ``native``: builds ``csrc/*.cu`` with nvcc at first use and loads it.
 """
 
 from carel_tpu_torch.ops import (cuda_attention, cuda_bow, cuda_embedding,
-                                 cuda_pairwise)
+                                 cuda_pairwise, moe)
 
 _COUNTS = (cuda_pairwise.launches, cuda_bow.launches, cuda_attention.launches,
-           cuda_embedding.launches)
+           cuda_embedding.launches, moe.launches)
 
 
 def launch_counts() -> dict:

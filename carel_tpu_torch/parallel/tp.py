@@ -104,7 +104,11 @@ def shard_params_tp(mesh: Mesh, model: nn.Module) -> nn.Module:
     """Replicate ``model`` over the mesh (``shard_params``), then keep this
     rank's part of every split parameter of its encoder and hand the
     encoder's attention and layers the mesh, which then run on this rank's
-    heads and MLP columns."""
+    heads and MLP columns. The DeepSeek-V2 encoder has no such split and
+    raises."""
+    if model.encoder.cfg.arch == "deepseek_v2":
+        raise NotImplementedError("tensor parallelism of the DeepSeek-V2 "
+                                  "encoder: use a mesh with one 'model' rank")
     shard_params(mesh, model)
     heads = _num_heads(model)
     for name, p in model.named_parameters():

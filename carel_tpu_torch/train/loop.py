@@ -141,10 +141,12 @@ def train_epochs(
                                   rng=data_rng)
             if mesh is not None:
                 stacked = shard_stacked(mesh, stacked)
-            losses = train_step(state, stacked, vi_beta).cpu().numpy()
-            logger.log({"event": "train", "epoch": epoch,
-                        "it": len(losses), "loss": float(losses.mean()),
-                        "losses": losses.tolist()})
+            losses = train_step.fetch(train_step(state, stacked, vi_beta))
+            event = {"event": "train", "epoch": epoch, "it": len(losses),
+                     "loss": float(losses.mean()), "losses": losses.tolist()}
+            if train_step.moe_counts:
+                event["moe"] = train_step.moe_counts
+            logger.log(event)
         else:
             pending = []  # device scalars; fetched every 10 steps
 

@@ -267,6 +267,9 @@ class EpochStep:
         self._key = None
         self._row = None
         self._loss = None
+        self._out = None
+        self._moe = None
+        self.moe_counts: dict = {}
 
     def __call__(self, state: TrainState, stacked: Dict[str, np.ndarray],
                  vi_beta: float,
@@ -282,10 +285,14 @@ class EpochStep:
                                               lc.ec_kl_lambda)
                            for i in range(nb)]
                 layout, rows = pack_epoch(stacked, weights, vi_beta, pin=cuda)
+            counters = getattr(state.model.encoder, "moe_counters", None)
+            self._moe = None if counters is None else (
+                counters, len(state.model.encoder.moe_layers()))
             if not cuda:
-                return torch.stack([
+                self._zero_moe()
+                return self._epoch_out(torch.stack([
                     self.body(state, *unpack_row(rows[i], layout), eps,
-                              perm)["loss"] for i in range(nb)])
+                              perm)["loss"] for i in range(nb)]))
             if eps is not None or perm is not None:
                 raise ValueError("the captured epoch step draws its noise "
                                  "and permutation from the generators; eps "
@@ -295,6 +302,8 @@ class EpochStep:
             if self._key != capture_key(state, layout):
                 with span("epoch_step.capture"):
                     self._capture(state, layout, rows[0])
+            # a capture's warm-up counts too: the epoch's counts start here
+            self._zero_moe()
             with span("epoch_step.replays", replays=nb):
                 losses = torch.empty(nb, dtype=torch.float32, device=device)
                 for i in range(nb):
@@ -304,7 +313,41 @@ class EpochStep:
             state.step += nb
             self.replays += nb
             ops.add_launches(self.captured_launches, nb)
+            return self._epoch_out(losses)
+
+    def _zero_moe(self) -> None:
+        if self._moe is not None:
+            self._moe[0].zero_()
+
+    def _epoch_out(self, losses: torch.Tensor) -> torch.Tensor:
+        """``losses``, or where the encoder has mixture layers the view of
+        a float64 buffer (which holds an epoch's counts exactly) that holds
+        the epoch's MoE counters after them, so that ``fetch`` reads both
+        in one copy."""
+        if self._moe is None:
+            self._out = losses
             return losses
+        nb = losses.shape[0]
+        self._out = torch.cat([losses.double(), self._moe[0].double()])
+        return self._out[:nb]
+
+    def fetch(self, losses: torch.Tensor) -> np.ndarray:
+        """The epoch's ``losses`` (this step's last output) on the host, in
+        one copy with the encoder's MoE counters of the same epoch, which
+        land in ``moe_counts`` ({held_rows, buffer_rows, max_expert_rows,
+        steps, layers}; empty without mixture layers). Under a profiler the
+        counts are recorded as the span ``epoch_step.moe``."""
+        nb = losses.shape[0]
+        host = self._out.cpu().numpy()
+        self.moe_counts = {}
+        if self._moe is not None:
+            held, buffer, most = (int(v) for v in host[nb:nb + 3])
+            self.moe_counts = dict(held_rows=held, buffer_rows=buffer,
+                                   max_expert_rows=most, steps=nb,
+                                   layers=self._moe[1])
+            with span("epoch_step.moe", **self.moe_counts):
+                pass
+        return host[:nb]
 
     def _capture(self, state: TrainState, layout: RowLayout,
                  first_row: torch.Tensor) -> None:

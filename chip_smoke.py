@@ -57,6 +57,19 @@ an error:
    out, so that a record lost at its edge is theirs), and the
    host's cost of one launch, K7-K9 also at the stage-1, DANN, embed,
    pretrain and scorer shapes (with the library's kernel names);
+   hold the routed experts' Triton kernels (ops/moe.py: the grouped
+   products and their weight gradient, the gather, SwiGLU and its
+   derivative, the combine, the weights' gradient) through dispatch and
+   routed_experts, forward and backward, against the plain functions
+   composed alike (fp32 within 1e-5, bf16 within 1e-2 normwise, every
+   gradient), at ragged small shapes and at the dsv2lite_train cell's
+   (128 x 96 tokens, top-6 of 64, experts 0-7 held, D 2,048, I 1,408): the
+   plan drops no held choice, two runs bit-equal, each kernel launched as
+   one call should by this run's launch counts; time that call beside the
+   plain functions with its device time by kernel and its bound, the
+   dispatch, and the forward's products beside torch._grouped_mm; hold and
+   time K10 over DeepSeek-V2-Lite's one 102,400 x 2,048 table at 128 x 96
+   ids;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights, batch and noise, under
    the flagship's MMD (with the default and the flash attention), ec_hsic,
@@ -1255,6 +1268,252 @@ def roberta_tables():
     positions, the one-row token-type table), held and timed as emb_case
     does. Returns (times, the largest absolute error)."""
     return emb_case("roberta-base 64x128", 64, 128, ROBERTA_ROWS, "roberta")
+
+
+# the routed experts at DeepSeek-V2-Lite's widths as the dsv2lite_train cell
+# runs them: 128 x 96 tokens, top-6 of 64 experts, experts 0-7 held
+MOE_SHAPE = dict(T=128 * 96, k=6, E=64, first=0, held=8, D=2048, I=1408)
+# ragged small shapes: a held range inside the router's, and a token count
+# far below one tile
+MOE_SMALL = dict(T=37, k=3, E=8, first=2, held=4, D=64, I=48)
+MOE_TINY = dict(T=5, k=3, E=8, first=0, held=8, D=64, I=48)
+MOE_NAMES = ("out", "dx", "dweights", "dgate_up", "ddown")
+# normwise against the plain functions: fp32 reads ~3e-7 (the products in
+# IEEE fp32); bf16 reads up to 4.2e-3 (dgate_up, ddown: the plain version's
+# autograd rounds its fp32 sums at other points), while one wrong row of
+# the cell's ~9,100 reads ~1e-2 and a wrong expert or tile O(1)
+MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# launches of one forward + backward of routed_experts by kernel
+MOE_LAUNCHES = {"expert_gemm": 4, "expert_gemm_wgrad": 2, "moe_gather": 3,
+                "moe_swiglu": 2, "moe_swiglu_bwd": 1, "moe_combine": 2,
+                "moe_row_dot": 1}
+# DeepSeek-V2-Lite's one embedding table, for K10 over the cell's ids
+DSV2_EMB_ROWS, DSV2_EMB_D = 102400, 2048
+
+
+def moe_problem(T, k, E, first, held, D, I, dtype, seed=0):
+    """Tokens, the gate's top-k (weights fp32, ids over all E experts), the
+    held experts' fp32 weights and an output gradient, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(T, D, generator=g, device="cuda").to(dtype)
+    gate = torch.randn(E, D, generator=g, device="cuda") / D ** 0.5
+    w, ids = torch.topk(torch.softmax(x.float() @ gate.T, -1), k, dim=-1)
+    wgu = torch.randn(held, 2 * I, D, generator=g, device="cuda") / D ** 0.5
+    wd = torch.randn(held, D, I, generator=g, device="cuda") / I ** 0.5
+    gy = torch.randn(T, D, generator=g, device="cuda").to(dtype)
+    return x, w, ids, wgu, wd, gy
+
+
+def moe_plain_routed(x, w, plan, wgu, wd):
+    """The plain functions of ops/moe.py composed as routed_experts composes
+    its kernels, with autograd for the backward."""
+    from carel_tpu_torch.ops import moe
+
+    k = plan.choice_rows.shape[1]
+    xp = moe.gather_rows_plain(x, plan, k)
+    h = moe.expert_gemm_plain(xp, wgu.to(x.dtype), plan)
+    y = moe.expert_gemm_plain(moe.swiglu_plain(h), wd.to(x.dtype), plan)
+    return moe.combine_plain(y, plan, w, x.dtype)
+
+
+def moe_grads(fn, x, w, wgu, wd, gy) -> list:
+    """[output, dx, dweights, dgate_up, ddown] of fn(x, w, wgu, wd)."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, w, wgu, wd)]
+    out = fn(*leaves)
+    out.backward(gy)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def moe_plan_exact(tag: str, plan, ids, first: int, held: int) -> int:
+    """The dispatch drops no token: every choice of a held expert has a row
+    of its own that points back at it, in a tile of its expert, no other
+    row points at a choice, and the counts are the choices'. Returns the
+    held rows."""
+    from carel_tpu_torch.ops import moe
+
+    flat = ids.reshape(-1).long() - first
+    is_held = (flat >= 0) & (flat < held)
+    rows = plan.choice_rows.reshape(-1)
+    n = int(is_held.sum())
+    held_rows = rows[is_held]
+    choice = torch.arange(flat.numel(), device=flat.device)[is_held]
+    ok = (bool(((rows >= 0) == is_held).all())
+          and int(torch.unique(held_rows).numel()) == n
+          and bool((plan.row_choice[held_rows] == choice).all())
+          and int((plan.row_choice >= 0).sum()) == n
+          and torch.equal(plan.counts,
+                          torch.bincount(flat[is_held], minlength=held))
+          and bool((plan.tile_expert.long()[held_rows // moe.BLOCK_M]
+                    == flat[is_held]).all()))
+    if not ok:
+        fail(f"moe dispatch ({tag}): a held choice lost its row or the plan "
+             "is inconsistent")
+    return n
+
+
+def moe_case(tag: str, shape: dict, dtype, seed: int = 0) -> dict:
+    """dispatch and routed_experts, forward and backward, against the plain
+    functions at shape: the plan exact, the output and every gradient
+    within MOE_TOL normwise, two runs bit-equal, and each kernel launched
+    as MOE_LAUNCHES says, by the launch counts of this run."""
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.ops import moe
+
+    x, w, ids, wgu, wd, gy = moe_problem(**shape, dtype=dtype, seed=seed)
+    first, held = shape["first"], shape["held"]
+    plan = moe.dispatch(ids, first, held)
+    n = moe_plan_exact(tag, plan, ids, first, held)
+
+    def kernels(x, w, wgu, wd):
+        return moe.routed_experts(x, w, plan, wgu, wd)
+
+    ops.reset_launch_counts()
+    got = moe_grads(kernels, x, w, wgu, wd, gy)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ops.launch_counts().items()
+                if k in MOE_LAUNCHES}
+    if launched != MOE_LAUNCHES:
+        fail(f"moe ({tag}): launches {launched}, want {MOE_LAUNCHES}")
+    again = moe_grads(kernels, x, w, wgu, wd, gy)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"moe ({tag}): two runs differ")
+    want = moe_grads(lambda *a: moe_plain_routed(*a[:2], plan, *a[2:]),
+                     x, w, wgu, wd, gy)
+    rels = {name: relnorm(a.float(), b.float())
+            for name, a, b in zip(MOE_NAMES, got, want)}
+    if not max(rels.values()) <= MOE_TOL[dtype]:
+        fail(f"moe ({tag}): off the plain functions by {rels} (limit "
+             f"{MOE_TOL[dtype]})")
+    counts = plan.counts.tolist()
+    print(f"moe {tag} ({str(dtype)[6:]}, T {shape['T']}, top-{shape['k']} "
+          f"of {shape['E']}, experts {first}-{first + held - 1}, D "
+          f"{shape['D']}, I {shape['I']}): {n} held rows in a buffer of "
+          f"{plan.rows} ({counts.count(0)} experts with none), none "
+          f"dropped; two runs bit-equal; vs the plain functions normwise "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+          + f"; kernels a call {launched}", flush=True)
+    return {"rel": rels, "held_rows": n, "buffer_rows": plan.rows}
+
+
+def moe_times() -> dict:
+    """routed_experts' forward + backward at MOE_SHAPE in bf16, timed as
+    ``timed`` times a kernel beside the plain functions, its device time
+    split by kernel, its least work (the products' FLOPs at the bf16 peak;
+    the held weights and the rows once a pass); the dispatch; and the
+    forward's two products beside torch._grouped_mm over the same rows
+    packed without padding where this torch has it (a yardstick only: the
+    port never calls it)."""
+    from carel_tpu_torch.ops import moe
+
+    sh = MOE_SHAPE
+    x, w, ids, wgu, wd, gy = moe_problem(**sh, dtype=torch.bfloat16)
+    plan = moe.dispatch(ids, sh["first"], sh["held"])
+    rows = int(plan.counts.sum())
+    D, I, held = sh["D"], sh["I"], sh["held"]
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, w, wgu, wd)]
+
+    def kernel():
+        moe.routed_experts(leaves[0], leaves[1], plan, leaves[2],
+                           leaves[3]).backward(gy)
+
+    def plain():
+        moe_plain_routed(*leaves[:2], plan, *leaves[2:]).backward(gy)
+
+    t = timed(kernel, plain)
+    t["split"] = device_split(kernel)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        3 * (held * 3 * D * I * 2 + rows * D * 2 * 2),
+        3 * 2 * rows * D * 3 * I, PEAK_BF16_FLOPS)
+    t["held_rows"], t["buffer_rows"] = rows, plan.rows
+    t["dispatch_ms"] = median_ms(
+        lambda: moe.dispatch(ids, sh["first"], sh["held"]))
+    wgu16, wd16 = wgu.to(torch.bfloat16), wd.to(torch.bfloat16)
+    xp = moe.gather_rows(x, plan, sh["k"])
+    ap = torch.randn(plan.rows, I, device="cuda").to(torch.bfloat16)
+    t["products_fwd_ms"] = median_ms(lambda: (
+        moe.expert_gemm(xp, wgu16, plan), moe.expert_gemm(ap, wd16, plan)))
+    gm = getattr(torch, "_grouped_mm", None)
+    t["library"] = "torch._grouped_mm not in this torch"
+    if gm is not None:
+        offs = torch.cumsum(plan.counts, 0).to(torch.int32)
+        a = torch.randn(rows, D, device="cuda").to(torch.bfloat16)
+        act = torch.randn(rows, I, device="cuda").to(torch.bfloat16)
+        b1, b2 = wgu16.transpose(1, 2), wd16.transpose(1, 2)
+        try:
+            t["library_products_fwd_ms"] = median_ms(lambda: (
+                gm(a, b1, offs=offs, out_dtype=torch.bfloat16),
+                gm(act, b2, offs=offs, out_dtype=torch.bfloat16)))
+            t["library"] = "torch._grouped_mm"
+        except (RuntimeError, TypeError) as e:
+            t["library"] = f"torch._grouped_mm failed: {str(e)[:160]}"
+    print_times("routed experts fwd+bwd (cell's shape)", t)
+    print("routed experts (cell's shape) device ms a call by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t["split"].items())
+          + f"; dispatch {t['dispatch_ms']:.4f} ms; the forward's two "
+          f"products {t['products_fwd_ms']:.4f} ms, "
+          + (f"torch._grouped_mm over the same {rows} rows "
+             f"{t['library_products_fwd_ms']:.4f} ms"
+             if "library_products_fwd_ms" in t else t["library"]),
+          flush=True)
+    return t
+
+
+def k10_one_table() -> dict:
+    """K10 over DeepSeek-V2-Lite's one table (102,400 x 2,048) at the cell's
+    128 x 96 ids: two runs bit-equal, within 1e-5 normwise of index_add_,
+    timed beside it with its bound (the ids and g read once, every row of
+    dW written once)."""
+    from carel_tpu_torch.ops import cuda_embedding as ce
+
+    n, V, D = 128 * 96, DSV2_EMB_ROWS, DSV2_EMB_D
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = [torch.randint(0, V, (n,), generator=g, device="cuda")]
+    grad = torch.randn(n, D, generator=g, device="cuda")
+
+    def kernel():
+        return ce.embeddings_backward_kernel(ids, grad, [V])
+
+    first = kernel()
+    if not torch.equal(first[0], kernel()[0]):
+        fail("emb_bwd (DeepSeek-V2-Lite table): two runs differ")
+    rel = relnorm(first[0], ce.embeddings_backward_plain(ids, grad, [V])[0])
+    if not rel <= 1e-5:
+        fail(f"emb_bwd (DeepSeek-V2-Lite table) off index_add_ by {rel}")
+    t = timed(kernel, lambda: ce.embeddings_backward_plain(ids, grad, [V]))
+    t["bound_ms"], t["bound_by"] = bound_ms(8 * n + 4 * n * D + 4 * D * V,
+                                            n * D)
+    print(f"emb_bwd DeepSeek-V2-Lite ({n} ids, one table of {V} x {D}): two "
+          f"runs bit-equal; vs index_add_ normwise {rel:.2e}", flush=True)
+    print_times("emb_bwd (DeepSeek-V2-Lite table)", t)
+    return t
+
+
+def phase_moe(records: dict) -> None:
+    """The routed experts' kernels (ops/moe.py, Triton) through dispatch and
+    routed_experts, forward and backward, as moe_case holds them: at two
+    small ragged shapes in fp32 and bf16 and at the dsv2lite_train cell's
+    shape in bf16; then timed at the cell's shape (moe_times), and K10 over
+    the cell's one table (k10_one_table)."""
+    cases = [moe_case("small", MOE_SMALL, torch.float32),
+             moe_case("small", MOE_SMALL, torch.bfloat16),
+             moe_case("tiny", MOE_TINY, torch.bfloat16, 1),
+             moe_case("cell", MOE_SHAPE, torch.bfloat16)]
+    t = moe_times()
+    worst = max(max(c["rel"].values()) for c in cases[1:])
+    for name, n in MOE_LAUNCHES.items():
+        records[name] = {
+            "name": name, "route": "triton",
+            "source": "carel_tpu_torch/ops/moe.py",
+            "replaces": "none: the JAX package has no mixture of experts",
+            "launches": 0, "launches_a_routed_call": n,
+            "max_rel_err_bf16": worst,
+            "device_ms_a_routed_call": sum(
+                v for k, v in t["split"].items()
+                if k.startswith(name + "_kernel"))}
+    records["expert_gemm"]["routed_experts_times"] = t
+    records["emb_bwd"]["dsv2_table"] = k10_one_table()
 
 
 def phase_scores() -> None:
@@ -4692,6 +4951,7 @@ def main() -> int:
     phase_bow(records)
     phase_bow_corrections(records)
     phase_embedding(records)
+    phase_moe(records)
     phase_scores()
     phase_flash(records)
     for preset in ZH_PATHS:
