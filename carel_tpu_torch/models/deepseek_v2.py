@@ -53,9 +53,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from carel_tpu_torch.config import DeepseekV2Config
-from carel_tpu_torch.models.encoder import _TRUNC_STD, attention_scores
+from carel_tpu_torch.models.encoder import _TRUNC_STD
 from carel_tpu_torch.ops import moe
 from carel_tpu_torch.ops.cuda_embedding import embeddings
+from carel_tpu_torch.ops.xla_attention import attention_scores
 
 # moe_counters: rows routed to held experts, rows the buffers were sized
 # for, the largest count of one held expert in one layer and step

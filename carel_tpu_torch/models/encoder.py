@@ -10,9 +10,11 @@ Kept from the JAX encoder:
   training repeats its bits on the card;
 - the -1e9 additive mask bias, in fp32;
 - a fused qkv projection whose output is laid out (3, heads, head_dim);
-- attention as plain ops (``attention_impl="xla"``, the default): scores
+- the xla attention core (``attention_impl="xla"``, the default): scores
   accumulated in fp32 from the (bf16) q and k, softmax, dropout on the
-  probabilities, probabilities @ values;
+  probabilities, probabilities @ values (``ops/xla_attention.py``: a
+  forward and a backward kernel on CUDA in bf16, its plain ops on the CPU
+  and for an fp32 encoder);
 - ``attention_impl="flash"``: flash attention with the stock kernel's
   segment mask and no dropout on the probabilities
   (``ops/cuda_attention.py``: kernels K7-K9 on CUDA, its plain version on
@@ -46,6 +48,7 @@ from carel_tpu_torch.config import EncoderConfig
 from carel_tpu_torch.ops.cuda_attention import (flash_attention_packed,
                                                 segment_ids)
 from carel_tpu_torch.ops.cuda_embedding import embeddings
+from carel_tpu_torch.ops.xla_attention import attention_ops, xla_attention
 from carel_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 ATTENTION_IMPLS = ("xla", "flash")
@@ -78,44 +81,6 @@ def init_flax_(module: nn.Module, generator: torch.Generator) -> None:
         own = getattr(m, "init_flax_own_", None)
         if own is not None:
             own(generator)
-
-
-def scores_upcast(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q @ k^T [..., L, L] in fp32 from the fp32 copies of q and k: a product
-    of two bf16 values is exact in fp32 (TF32 is off), so this is the fp32
-    sum of the bf16 products that JAX's preferred_element_type=float32
-    gives."""
-    return q.float() @ k.float().transpose(-1, -2)
-
-
-class _Fp32Scores(torch.autograd.Function):
-    """The same scores from bf16 q, k [N, L, hd] on CUDA: the bf16 tensor-core
-    GEMM with its fp32 accumulator written out (``out_dtype``), with no fp32
-    copies of q and k. The backward is JAX's transpose of that product: the
-    fp32 cotangent times the other operand in fp32, rounded to bf16."""
-
-    @staticmethod
-    def forward(ctx, q, k):
-        ctx.save_for_backward(q, k)
-        return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k = ctx.saved_tensors
-        with torch.autocast(device_type="cuda", enabled=False):
-            dq = torch.bmm(g, k.float()).to(q.dtype)
-            dk = torch.bmm(g.transpose(1, 2), q.float()).to(k.dtype)
-        return dq, dk
-
-
-def attention_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """fp32 q @ k^T of q, k [B, h, L, hd]: bf16 CUDA tensors take the
-    tensor-core GEMM with an fp32 output, everything else the upcast."""
-    if q.is_cuda and q.dtype == torch.bfloat16:
-        B, h, L, hd = q.shape
-        return _Fp32Scores.apply(q.reshape(B * h, L, hd),
-                                 k.reshape(B * h, L, hd)).view(B, h, L, L)
-    return scores_upcast(q, k)
 
 
 class SelfAttention(nn.Module):
@@ -156,20 +121,16 @@ class SelfAttention(nn.Module):
                 deterministic: bool) -> torch.Tensor:
         """``bias`` is the additive fp32 mask bias [B, 1, 1, L] under "xla"
         and the int32 segment ids [B, L] under "flash"."""
-        B, L, _ = x.shape
         qkv = self._qkv(x)
         if self.impl == "flash":
             return self._out(flash_attention_packed(
                 qkv, bias, 1.0 / math.sqrt(self.head_dim)))
-        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # [B, h, L, hd]
-        # fp32 sums of the bf16 q, k products, as JAX's
-        # preferred_element_type=float32 gives them; autocast must not cast
-        # the fp32 operands or scores back to bf16
-        with torch.autocast(device_type=x.device.type, enabled=False):
-            scores = attention_scores(q, k) / math.sqrt(self.head_dim)
-        probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
-        probs = F.dropout(probs, self.dropout, training=not deterministic)
-        ctx = (probs @ v).transpose(1, 2).reshape(B, L, -1)
+        if qkv.is_cuda and qkv.dtype != torch.bfloat16:
+            # an fp32 encoder on CUDA keeps the plain ops
+            ctx = attention_ops(qkv, bias, self.dropout, not deterministic)
+        else:
+            # the kernel pair on CUDA; a CPU tensor takes the plain ops
+            ctx = xla_attention(qkv, bias, self.dropout, not deterministic)
         return self._out(ctx)
 
 

@@ -9,6 +9,9 @@ kernels that replace the JAX package's Pallas kernels.
   (backward);
 - ``cuda_attention``: flash attention with a segment mask, kernels K7
   (forward), K8 (dK, dV) and K9 (dQ), behind ``attention_impl="flash"``;
+- ``xla_attention``: the encoder's default attention core (key-padding
+  bias, fp32 softmax, dropout on the bf16 probabilities) as plain ops, and
+  on CUDA in bf16 one forward and one backward kernel;
 - ``cuda_embedding``: the sum of the encoder's word, position and
   token-type lookups, with one backward for all three tables that adds in a
   fixed order, kernel K10;
@@ -22,10 +25,10 @@ kernels that replace the JAX package's Pallas kernels.
 """
 
 from carel_tpu_torch.ops import (cuda_attention, cuda_bow, cuda_embedding,
-                                 cuda_pairwise, moe)
+                                 cuda_pairwise, moe, xla_attention)
 
 _COUNTS = (cuda_pairwise.launches, cuda_bow.launches, cuda_attention.launches,
-           cuda_embedding.launches, moe.launches)
+           cuda_embedding.launches, moe.launches, xla_attention.launches)
 
 
 def launch_counts() -> dict:

@@ -86,6 +86,12 @@ _SIGNATURES = {
     # (flash.cu sends bf16 inputs of all three on to flash_mma.cu)
     "carel_flash_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_LL] * 9 + [_F, _I, _P],
                             _I),
+    # L hd
+    "carel_xla_attn_takes": ([_I, _I], _I),
+    # qkv bias keep out m l | B h L hd | scale fscale stream
+    "carel_xla_attn_fwd": ([_P] * 6 + [_I] * 4 + [_F, _F, _P], _I),
+    # qkv bias keep do m l dqkv | B h L hd | scale fscale bscale stream
+    "carel_xla_attn_bwd": ([_P] * 7 + [_I] * 4 + [_F] * 3 + [_P], _I),
 }
 
 _lib = None

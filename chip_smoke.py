@@ -69,7 +69,13 @@ an error:
    plain functions with its device time by kernel and its bound, the
    dispatch, and the forward's products beside torch._grouped_mm; hold and
    time K10 over DeepSeek-V2-Lite's one 102,400 x 2,048 table at 128 x 96
-   ids;
+   ids; hold the xla attention core's kernel pair (ops/xla_attention.py)
+   at the shapes of zh_train, zh_score, en_train and zh_pretrain and at L
+   37 and 200: the keep mask bit-equal to F.dropout's draw with the
+   generator at the same offset after, the output and the packed gradient
+   against the kernels' arithmetic in plain ops and against the plain
+   ops, one launch of each kernel a call, two runs bit-equal; time each
+   kernel beside its bound, the plain ops and the library's attention;
 4. reference: a tiny model takes one training step on the card (kernels) and
    on the CPU (plain versions) from the same weights, batch and noise, under
    the flagship's MMD (with the default and the flash attention), ec_hsic,
@@ -271,6 +277,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1521,7 +1528,7 @@ def phase_scores() -> None:
     tensor-core GEMM with an fp32 output, which the model runs on CUDA,
     against the fp32 product of the upcast q and k, forward and backward,
     with the time of one forward and backward of each."""
-    from carel_tpu_torch.models.encoder import attention_scores, scores_upcast
+    from carel_tpu_torch.ops.xla_attention import attention_scores, scores_upcast
 
     B, h, L, hd = 64, 12, 96, 64
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1870,6 +1877,198 @@ def phase_flash(records: dict) -> None:
                   flush=True)
 
 
+XLA_ATTN_KERNELS = ("xla_attn_fwd", "xla_attn_bwd")
+# (B, h, L, hd), training: zh_train, zh_score, en_train, zh_pretrain, and the
+# odd and long lengths of the other paths; training drops with p 0.1
+XLA_ATTN_CASES = (((64, 12, 96, 64), True), ((512, 12, 96, 64), False),
+                  ((64, 12, 128, 64), True), ((256, 12, 64, 64), True),
+                  ((8, 12, 37, 64), True), ((32, 12, 200, 64), True))
+XLA_ATTN_DROPOUT = 0.1
+# Normwise gate on the kernel pair's output and each part of its packed
+# gradient, against kernel_arithmetic and against the plain ops: the three
+# round at the same points, and fp32 sums in other orders flip a few bf16
+# roundings (read on the card: 1.5e-5 to 1.6e-4 at the six shapes). Three
+# times the largest reading; one bf16 ds in dq and dk, the precision JAX's
+# transpose does not take, reads 1e-3 (tests/test_torch_xla_attention.py).
+XLA_ATTN_GATE = 5e-4
+
+
+def xla_attention_inputs(B: int, h: int, L: int, hd: int, seed: int):
+    """qkv [B, L, 3, h, hd] and a context gradient, N(0, 1) in bf16, and the
+    fp32 key bias [B, 1, 1, L] with pad tails of varied length (row 0 none,
+    row 1 all but one token)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, L, 3, h, hd, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    dout = torch.randn(B, L, h * hd, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    lengths = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    lengths[0], lengths[1] = L, 1
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lengths[:, None]).float()
+    return qkv, ((1.0 - mask) * -1e9)[:, None, None, :], dout
+
+
+def xla_attention_work(B: int, h: int, L: int, hd: int, training: bool):
+    """{kernel: (bytes, FLOP)} of the least work: each input read and each
+    output written once (the keep mask a byte an element when training);
+    the forward's two products and the backward's five."""
+    qkv, ctx, rows = 2 * B * L * 3 * h * hd, 2 * B * L * h * hd, 4 * B * h * L
+    keep = B * h * L * L if training else 0
+    prod = 2 * B * h * L * L * hd
+    return {"xla_attn_fwd": (qkv + keep + 4 * B * L + ctx + 2 * rows,
+                             2 * prod),
+            "xla_attn_bwd": (2 * qkv + ctx + keep + 4 * B * L + 2 * rows,
+                             5 * prod)}
+
+
+def phase_xla_attention(records: dict) -> None:
+    """The xla attention core's kernel pair against its arithmetic in plain
+    ops and against the plain ops, from one generator state (so all three
+    drop the same keys): the keep mask bit-equal to F.dropout's on bf16
+    ones with the generator at the same offset after, the output and the
+    packed gradient within the gate, one launch of each kernel a call, two
+    runs bit-equal; then each kernel's time beside its bound, the plain
+    ops' and the library's."""
+    import torch.nn.functional as F
+
+    from carel_tpu_torch import ops
+    from carel_tpu_torch.device import resolve_device
+    from carel_tpu_torch.ops import xla_attention as xa
+
+    resolve_device("cuda")  # full-fp32 matmuls for kernel_arithmetic
+    p = XLA_ATTN_DROPOUT
+    for name in XLA_ATTN_KERNELS:
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "carel_tpu_torch/csrc/attn_xla_"
+                      + ("fwd" if name.endswith("fwd") else "bwd") + ".cu",
+            "replaces": "no TPU kernel: XLA's attention at "
+                        "carel_tpu/models/encoder.py:70-81",
+            "launches": 0, "max_abs_err": 0.0, "at": {}}
+    for (B, h, L, hd), training in XLA_ATTN_CASES:
+        tag = f"[{B}, {h}, {L}, {hd}]" + (" train" if training else "")
+        qkv, bias, dout = xla_attention_inputs(B, h, L, hd, seed=B + L)
+        state = torch.cuda.get_rng_state()
+        keep = None
+        if training:
+            keep = xa.draw_keep((B, h, L, L), p, qkv.device)
+            after = torch.cuda.get_rng_state()
+            torch.cuda.set_rng_state(state)
+            want = F.dropout(torch.ones((B, h, L, L), dtype=torch.bfloat16,
+                                        device="cuda"), p) != 0
+            if not torch.equal(keep, want):
+                fail(f"xla attention {tag}: the keep mask is not "
+                     "F.dropout's draw")
+            if not torch.equal(after, torch.cuda.get_rng_state()):
+                fail(f"xla attention {tag}: the generator's offset after "
+                     "the draw differs from F.dropout's")
+
+        def run(core):
+            torch.cuda.set_rng_state(state)
+            leaf = qkv.clone().requires_grad_(training)
+            with torch.autocast("cuda", dtype=torch.bfloat16), \
+                    torch.set_grad_enabled(training):
+                out = core(leaf, bias)
+            if training:
+                out.backward(dout)
+            end = torch.cuda.get_rng_state()
+            return out.detach(), leaf.grad, end
+
+        ops.reset_launch_counts()
+        got = run(lambda t, b: xa.xla_attention(t, b, p, training))
+        counts = ops.launch_counts()
+        if (counts["xla_attn_fwd"], counts["xla_attn_bwd"]) != (1,
+                                                                int(training)):
+            fail(f"xla attention {tag}: launches {counts}")
+        again = run(lambda t, b: xa.xla_attention(t, b, p, training))
+        if not all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, again)):
+            fail(f"xla attention {tag}: two runs differ")
+        ops_ = run(lambda t, b: xa.attention_ops(t, b, p, training))
+        if not torch.equal(got[2], ops_[2]):
+            fail(f"xla attention {tag}: the generator ends elsewhere than "
+                 "after the plain ops")
+        arith = run(lambda t, b: xa.kernel_arithmetic(
+            t, b.reshape(B, L), keep, p))
+        gaps = {}
+        for ref_name, ref in (("arithmetic", arith), ("ops", ops_)):
+            gaps[f"out_vs_{ref_name}"] = relnorm(got[0], ref[0])
+            if training:
+                for i, part in enumerate("qkv"):
+                    gaps[f"d{part}_vs_{ref_name}"] = relnorm(
+                        got[1][:, :, i], ref[1][:, :, i])
+        abs_out = float((got[0].float() - arith[0].float()).abs().max())
+        abs_grad = float((got[1].float() - arith[1].float()).abs().max()) \
+            if training else 0.0
+        print(f"xla attention {tag}: normwise gaps "
+              + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+              + f"; largest |out - arithmetic| {abs_out:.3e}, |dqkv - "
+              f"arithmetic| {abs_grad:.3e}", flush=True)
+        if not max(gaps.values()) <= XLA_ATTN_GATE:
+            fail(f"xla attention {tag}: a gap over {XLA_ATTN_GATE}: {gaps}")
+        records["xla_attn_fwd"]["max_abs_err"] = max(
+            records["xla_attn_fwd"]["max_abs_err"], abs_out)
+        records["xla_attn_bwd"]["max_abs_err"] = max(
+            records["xla_attn_bwd"]["max_abs_err"], abs_grad)
+
+        # times: each kernel alone, the plain ops' forward (+ backward),
+        # and the library's fused attention with the same mask and dropout
+        b2 = bias.reshape(B, L)
+        sc = xa.scales(hd, p)
+        fkeep = keep if training else None
+        fwd = lambda: xa.xla_attention_forward_kernel(qkv, b2, fkeep,
+                                                      *sc[:2])
+        _, m, l = fwd()
+        bwd = lambda: xa.xla_attention_backward_kernel(qkv, b2, fkeep, dout,
+                                                       m, l, *sc)
+        q4, k4, v4 = (t.transpose(1, 2) for t in qkv.unbind(2))
+        mask4 = bias.to(torch.bfloat16)
+        leaf = qkv.clone().requires_grad_(training)
+
+        def plain():
+            with torch.autocast("cuda", dtype=torch.bfloat16), \
+                    torch.set_grad_enabled(training):
+                out = xa.attention_ops(leaf, bias, p, training)
+            if training:
+                torch.autograd.grad(out, leaf, dout)
+
+        def library():
+            with torch.set_grad_enabled(training):
+                qs, ks, vs = (t.detach().requires_grad_(training)
+                              for t in (q4, k4, v4))
+                out = F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask4,
+                    dropout_p=p if training else 0.0)
+            if training:
+                torch.autograd.grad(out, (qs, ks, vs), out)
+
+        work = xla_attention_work(B, h, L, hd, training)
+        pair = {"xla_attn_fwd": fwd, "xla_attn_bwd": bwd}
+        both = {"plain_ms": median_ms(plain), "library_ms": median_ms(library),
+                "plain_device_ms": device_ms(plain),
+                "library_device_ms": device_ms(library)}
+        for name in XLA_ATTN_KERNELS[:1 + int(training)]:
+            kernel_ms, kernels = device_profile(pair[name])
+            bnd = bound_ms(*work[name], PEAK_BF16_FLOPS)
+            at = records[name]["at"][tag] = {
+                "ms": median_ms(pair[name]), "device_ms": kernel_ms,
+                "kernels_per_call": kernels, "bound_ms": bnd[0],
+                "bound_by": bnd[1],
+                "host_launch_ms": host_launch_ms(pair[name]), **both}
+            if kernels != 1:
+                fail(f"{name} {tag}: {kernels} device kernels a call")
+            print(f"{name} {tag}: device {kernel_ms:.4f} ms (bound "
+                  f"{bnd[0]:.4f} by {bnd[1]}, {bnd[0] / kernel_ms:.1%}); by "
+                  f"events {at['ms']:.4f} ms; one launch costs the host "
+                  f"{at['host_launch_ms']:.4f} ms", flush=True)
+        print(f"xla attention {tag}, forward{' + backward' if training else ''}"
+              f": plain ops device {both['plain_device_ms']:.4f} ms (events "
+              f"{both['plain_ms']:.4f}); library (SDPA) device "
+              f"{both['library_device_ms']:.4f} ms (events "
+              f"{both['library_ms']:.4f})", flush=True)
+
+
 def tiny_config(preset: str, attention_impl: str = "xla",
                 adapter: str = "none"):
     """The preset's loss and model options at tiny widths, dropout 0, with
@@ -2055,6 +2254,13 @@ class CountedEpochStep:
         losses = self.step(state, stacked, vi_beta)
         self.losses.append(losses)
         return losses
+
+    def fetch(self, losses):
+        return self.step.fetch(losses)
+
+    @property
+    def moe_counts(self) -> dict:
+        return self.step.moe_counts
 
     @property
     def steps(self) -> int:
@@ -2261,8 +2467,11 @@ def phase_path(records: dict, preset: str, iterations: int,
     if steps <= base_steps:
         fail(f"{tag}: self-training took no training step")
     counted_step.check(tag, steps)
+    want_counts = {**dict.fromkeys(PATH_KERNELS[preset], steps),
+                   **xla_attention_launches(tag, counts, enc.num_layers,
+                                            steps)}
     for kernel, n in counts.items():
-        want = steps if kernel in PATH_KERNELS[preset] else 0
+        want = want_counts.get(kernel, 0)
         if n != want:
             fail(f"{tag}: kernel {kernel} launched {n} times in {steps} "
                  f"training steps (want {want})")
@@ -2950,10 +3159,12 @@ def path_kernel_calls(preset: str, attention_impl: str) -> dict:
     wrapper (mmd_fwd_kernel, flash_fwd_mma_kernel, ...)."""
     want = {name: KERNELS_A_CALL.get(name, 1)
             for name in PATH_KERNELS[preset]}
+    layers = 12
     if attention_impl == "flash":
-        layers = 12
         want.update(flash_fwd=layers, flash_bwd_dkv=layers,
                     flash_bwd_dq=layers)
+    else:
+        want.update(xla_attn_fwd=layers, xla_attn_bwd=layers)
     return want
 
 
@@ -3328,6 +3539,25 @@ def count_path_launches(records: dict, tag: str, counts: dict,
             records[name]["launches_by_path"].values())
 
 
+def xla_attention_launches(tag: str, counts: dict, layers: int, steps: int,
+                           forwards: Optional[int] = None) -> dict:
+    """The xla attention pair's launches on a bf16 path of the default
+    attention, as ``want`` entries: a backward a layer of each of ``steps``
+    training steps, and a forward a layer of each step and of each
+    forward-only batch, ``forwards`` of them where the phase counts them,
+    else a whole number of encoder forwards besides the steps."""
+    fwd, bwd = counts.get("xla_attn_fwd", 0), counts.get("xla_attn_bwd", 0)
+    ok = bwd == layers * steps and fwd >= bwd and fwd % layers == 0
+    if forwards is not None:
+        ok = ok and fwd == layers * (steps + forwards)
+    if not ok:
+        fail(f"{tag}: the xla attention kernels launched {fwd} forwards and "
+             f"{bwd} backwards for {layers} layers, {steps} steps and "
+             f"{'some' if forwards is None else forwards} forward-only "
+             "batches")
+    return {"xla_attn_fwd": fwd, "xla_attn_bwd": bwd}
+
+
 def phase_reference_stage1() -> None:
     """Tiny fp32 models take one step on the card and on the CPU from the
     same weights and batch: a stage-1 step (carried Adam) under each clause
@@ -3499,6 +3729,9 @@ def phase_stage1(records: dict, mixer: str, impl: str, carried: bool
         want.update(flash_fwd=layers * (len(losses) + evals),
                     flash_bwd_dkv=layers * len(losses),
                     flash_bwd_dq=layers * len(losses))
+    else:
+        want.update(xla_attention_launches(tag, counts, layers, len(losses),
+                                           evals))
     count_path_launches(records, run, counts, want)
 
     # the best snapshot is a copy: no shared storage, and a step leaves it
@@ -3587,8 +3820,9 @@ def phase_dann(records: dict) -> dict:
     of 32 clauses x 128 tokens, predictions in batches of 256) on synthetic
     domain files (~320 source and ~300 target clauses): one base epoch and
     one self-training iteration of one epoch, the domain loss on. The
-    losses must be finite, the running statistics must move, K10 alone of
-    the port's kernels launches (once a step; default attention),
+    losses must be finite, the running statistics must move, K10 (once a
+    step) and the xla attention pair (the default attention) alone of the
+    port's kernels launch,
     the gradient reversal must send the domain head's gradient back to the
     features as -3 times itself, and three steps from one state must give
     the same losses, params and running statistics bit for bit. Then it
@@ -3638,8 +3872,9 @@ def phase_dann(records: dict) -> dict:
         fail(f"{tag}: a loss is not finite")
     if "dann_selftrain" not in events:
         fail(f"{tag}: no self-training iteration ran")
-    count_path_launches(records, "dann", counts,
-                        {"emb_bwd": len(losses)})
+    count_path_launches(records, "dann", counts, {
+        "emb_bwd": len(losses),
+        **xla_attention_launches(tag, counts, enc.num_layers, len(losses))})
     moved = {k: float((model.state_dict()[k] - v).abs().max())
              for k, v in stats0.items()}
     if not all(m > 0.0 for m in moved.values()):
@@ -3965,8 +4200,9 @@ def phase_cit(records: dict, served, embed: dict, smi: str) -> dict:
     along the first principal direction of the evaluation triples' pooled
     outputs (logits of std 2) and its bias at their median logit, so that
     its predictions split. K7 once a layer on
-    every inference and embedder batch, K10 once on every step,
-    nothing else; the refined predictions must be 0 or 1 and P/R/F1 in
+    every inference and embedder batch, K10 once on every step, the xla
+    attention pair once a layer on every CIT step (and the forward on every
+    evaluation batch), nothing else; the refined predictions must be 0 or 1 and P/R/F1 in
     [0, 1]. Then a CIT step is timed and profiled."""
     from carel_tpu_torch import ops
     from carel_tpu_torch.config import EncoderConfig
@@ -4046,7 +4282,8 @@ def phase_cit(records: dict, served, embed: dict, smi: str) -> dict:
         fail(f"{tag}: a metric out of [0, 1]")
     count_path_launches(records, "cit", counts, {
         "flash_fwd": layers * (infer_batches + sum(calls)),
-        "emb_bwd": steps})
+        "emb_bwd": steps,
+        **xla_attention_launches(tag, counts, enc.num_layers, steps)})
 
     # a CIT step timed and profiled, from the best params
     pcfg = PairTrainerConfig(max_len=ccfg.max_len,
@@ -4076,7 +4313,8 @@ def phase_original(records: dict, smi: str) -> dict:
     steps of the --bow_loss variant. The pair classifier's bias is centred
     on the median logit of the test pairs first, so that the random model's
     predictions split and a best F1 above 0 is saved. K10 once a
-    step and nothing else; the six latent heads bit-unchanged and all five
+    step and the xla attention pair 12 a step and forward, nothing else;
+    the six latent heads bit-unchanged and all five
     adversaries moved; finite losses; probabilities in [0, 1]; after
     train_original the model holds the saved best. Then a step is timed
     and profiled."""
@@ -4164,8 +4402,9 @@ def phase_original(records: dict, smi: str) -> dict:
         fail(f"{tag}: no self-training step")
     if "best" not in events or not reloaded:
         fail(f"{tag}: no best saved, or the model does not hold it")
-    count_path_launches(records, "original", counts,
-                  {"emb_bwd": n})
+    count_path_launches(records, "original", counts, {
+        "emb_bwd": n, **xla_attention_launches(tag, counts, enc.num_layers,
+                                               n)})
     now = model.state_dict()
     frozen = all(torch.equal(now[f"{h}.{w}"], init[f"{h}.{w}"])
                  for h in LATENT_HEADS for w in ("weight", "bias"))
@@ -4728,8 +4967,9 @@ def phase_hpo(records: dict, smi: str) -> dict:
     if len(trials) != HPO_TRIALS or best is None or not all(
             t.value is not None and 0.0 <= t.value <= 1.0 for t in trials):
         fail(f"{tag}: trials {trials}")
-    count_path_launches(records, "hpo", counts,
-                        dict.fromkeys(PATH_KERNELS[FLAGSHIP], steps))
+    count_path_launches(records, "hpo", counts, {
+        **dict.fromkeys(PATH_KERNELS[FLAGSHIP], steps),
+        **xla_attention_launches(tag, counts, enc.num_layers, steps)})
     return dict(wall_s=wall)
 
 
@@ -4819,8 +5059,10 @@ def verb_line(tag: str, run: dict, smi: str) -> str:
 
 
 def verb_launches(records: dict, tag: str, preset: str, run: dict) -> None:
-    count_path_launches(records, tag, run["done"]["launches"],
-                        dict.fromkeys(PATH_KERNELS[preset], run["steps"]))
+    counts = run["done"]["launches"]
+    count_path_launches(records, tag, counts, {
+        **dict.fromkeys(PATH_KERNELS[preset], run["steps"]),
+        **xla_attention_launches(tag, counts, 12, run["steps"])})
 
 
 def phase_verb_zh(records: dict, smi: str, tag: str = "verb_zh",
@@ -4917,6 +5159,8 @@ def phase_bench(records: dict, flag: dict, smi: str) -> None:
     if d["captures"] != 1:
         fail(f"bench: {d['captures']} captures (want 1)")
     want = dict.fromkeys(PATH_KERNELS[FLAGSHIP], BENCH_ARM_STEPS)
+    want.update(xla_attn_fwd=12 * BENCH_ARM_STEPS,
+                xla_attn_bwd=12 * BENCH_ARM_STEPS)
     for arm in ("captured", "eager"):
         # the line lists the kernels launched; a path kernel missing is 0
         count_path_launches(records, f"bench {arm}",
@@ -4954,6 +5198,7 @@ def main() -> int:
     phase_moe(records)
     phase_scores()
     phase_flash(records)
+    phase_xla_attention(records)
     for preset in ZH_PATHS:
         phase_reference(preset)
     phase_reference(FLAGSHIP, "flash")

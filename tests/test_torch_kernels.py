@@ -934,7 +934,7 @@ def test_attention_scores_match_the_upcast_product(cuda):
     tensor-core GEMM with an fp32 output) against the fp32 product of the
     upcast q and k, which the CPU runs; both sum the exact bf16 products in
     fp32. Forward and backward, normwise 1e-5."""
-    from carel_tpu_torch.models.encoder import attention_scores, scores_upcast
+    from carel_tpu_torch.ops.xla_attention import attention_scores, scores_upcast
 
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k = (torch.randn(2, 3, 40, 16, device=cuda, generator=gen)

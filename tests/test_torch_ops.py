@@ -147,7 +147,8 @@ def test_cpu_tensors_take_the_plain_version():
         "bow_fwd": 0, "bow_bwd": 0, "flash_fwd": 0, "flash_bwd_dkv": 0,
         "flash_bwd_dq": 0, "emb_bwd": 0, "expert_gemm": 0,
         "expert_gemm_wgrad": 0, "moe_gather": 0, "moe_swiglu": 0,
-        "moe_swiglu_bwd": 0, "moe_combine": 0, "moe_row_dot": 0}
+        "moe_swiglu_bwd": 0, "moe_combine": 0, "moe_row_dot": 0,
+        "xla_attn_fwd": 0, "xla_attn_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
